@@ -1,0 +1,36 @@
+"""speck_tpu_torch — the PyTorch/CUDA port of speck_tpu's SpGEMM.
+
+Computes C = A @ B for CSR sparse matrices with torch tensors, on an
+NVIDIA Hopper GPU (hand-written CUDA kernels for the stream contract and
+the row sorts, ``csrc/``) or, with the kernels' plain torch versions, on
+the CPU. It mirrors ``speck_tpu``'s public names and plans; it imports
+torch, numpy and scipy, never jax.
+
+This slice ports the product-stream route (analysis, planning, chunked
+count-and-stage, wide-row levels and finish, gather emission) and the
+direct-copy route. Other routes raise ``NotImplementedError`` (see
+ROADMAP.md).
+"""
+
+from .formats.csr import HostCOO, HostCSR, coo_to_csr, csr_transpose
+from .formats.hicsr import load_hicsr, store_hicsr
+from .formats.loader import DataLoader, load_matrix
+from .formats.mtx import load_mtx
+from .ops.device_csr import DeviceCSR, device_get_csr, device_put_csr
+from .ops.spgemm import SpgemmPlan, plan_spgemm, spgemm
+from .utils.compare import compare_csr
+from .utils.config import Config, ProductOverflow, SpgemmConfig
+from .utils.device import DeviceInfo, device_info
+from .utils.oracle import oracle_spgemm
+from .utils.timings import Timings
+
+__version__ = "0.1.0"
+
+__all__ = [
+    "HostCSR", "HostCOO", "coo_to_csr", "csr_transpose",
+    "load_mtx", "load_hicsr", "store_hicsr", "DataLoader", "load_matrix",
+    "DeviceCSR", "device_put_csr", "device_get_csr",
+    "spgemm", "SpgemmPlan", "plan_spgemm", "ProductOverflow",
+    "Config", "SpgemmConfig", "Timings", "compare_csr", "oracle_spgemm",
+    "DeviceInfo", "device_info",
+]

@@ -1,0 +1,41 @@
+"""The port's runspECK:
+
+    python -m speck_tpu_torch.cli matrix.mtx [config.ini]
+
+Loads the matrix (B = A if square, else A^T), runs the warmup and the
+measured iterations on the first CUDA card (the CPU when there is none),
+and prints nnz(C), the mean complete-call time, GFLOPS and nnz(C)/s.
+Config keys: InputFile, IterationsWarmUp, IterationsExecution,
+TrackIndividualTimes, TrackCompleteTimes, CompareResult, and the
+SpgemmConfig tuning keys.
+"""
+
+from __future__ import annotations
+
+import sys
+
+
+def main(argv=None):
+    argv = list(sys.argv if argv is None else argv)
+    from .executor import Executor
+    from .utils.config import Config
+    from .utils.device import device_info
+
+    args = [a for a in argv[1:] if not a.startswith("--")]
+    config = Config.init(args[1] if len(args) > 1 else None)
+    if len(args) == 1 and args[0].endswith(".ini"):
+        config = Config.init(args[0])
+        args = []
+    path = config.get_string("InputFile", "") or (args[0] if args else "")
+    if not path:
+        print("Need matrix market file path (.mtx) as first argument\n"
+              "Usage: python -m speck_tpu_torch.cli <matrix.mtx> "
+              "[config.ini]", file=sys.stderr)
+        return 1
+    print(f"device: {device_info().summary()}")
+    result = Executor(path, config=config).run()
+    return 0 if result.compared_ok in (None, True) else 2
+
+
+if __name__ == "__main__":
+    sys.exit(main())

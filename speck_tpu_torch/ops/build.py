@@ -1,0 +1,108 @@
+"""Build and load the port's CUDA kernels (``speck_tpu_torch/csrc``).
+
+All ``.cu`` sources compile with ``nvcc`` for ``sm_90a`` into one shared
+library with a plain C interface, loaded with ctypes. The library lands in
+``build/speck_tpu_torch/`` beside the package, named by a hash of the
+sources and flags, so an edited source rebuilds and an unchanged one is
+reused. Nothing builds at import: the first kernel launch calls
+``library()``. A missing ``nvcc`` or a failed build raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+from typing import Optional
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "speck_tpu_torch"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo"]
+
+_LIB: Optional[ctypes.CDLL] = None
+
+_P = ctypes.c_void_p
+_I64 = ctypes.c_longlong
+_SIGNATURES = {
+    # (rid, rid_row_stride, rid_col_stride, col, val, last, sums, R, W,
+    #  n_cols, stream)
+    "speck_stream_contract": [_P, _I64, _I64, _P, _P, _P, _P, _I64, _I64,
+                              ctypes.c_int, _P],
+    # (key_in, key_out, p_in[3], p_out[3], n_payloads, R, W, stream)
+    "speck_row_sort": [_P, _P, _P, _P, _P, _P, _P, _P, ctypes.c_int, _I64,
+                       _I64, _P],
+}
+
+
+def _sources():
+    return sorted(p for p in CSRC.iterdir()
+                  if p.suffix in (".cu", ".cuh", ".h"))
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cand = Path("/usr/local/cuda/bin/nvcc")
+    if cand.exists():
+        return str(cand)
+    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+
+
+def library_path() -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in _sources():
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    return BUILD_DIR / f"libspeck_kernels_{h.hexdigest()[:16]}.so"
+
+
+def build(verbose: bool = False) -> Path:
+    """Compile the kernels unless a library of these sources exists."""
+    out = library_path()
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+           *[str(p) for p in _sources() if p.suffix == ".cu"]]
+    if verbose:
+        cmd.insert(1, "-Xptxas=-v")
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    if verbose or res.returncode != 0:
+        print(res.stdout + res.stderr)
+    if res.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({res.returncode}): {' '.join(cmd)}")
+    os.replace(tmp, out)
+    return out
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library (built on first use)."""
+    global _LIB
+    if _LIB is None:
+        lib = ctypes.CDLL(str(build()))
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        lib.speck_error_string.argtypes = [ctypes.c_int]
+        lib.speck_error_string.restype = ctypes.c_char_p
+        _LIB = lib
+    return _LIB
+
+
+def check(err: int, what: str) -> None:
+    """Raise if a launch returned a CUDA error code."""
+    if err != 0:
+        msg = library().speck_error_string(err).decode()
+        raise RuntimeError(f"{what}: CUDA error {err} ({msg})")
+
+
+if __name__ == "__main__":
+    # build with the compiler's register and shared-memory report
+    print(build(verbose=True))

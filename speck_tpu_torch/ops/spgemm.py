@@ -1,0 +1,794 @@
+"""SpGEMM orchestrator (torch port of ``speck_tpu/ops/spgemm.py``): the
+product-stream and direct-copy routes.
+
+Stages (stage names as in the reference's timings):
+
+  1. analysis     host numpy (HostCSR attached) or ops/analysis.analyze
+  2. planning     stream.plan_device_stream: one device pass, ONE readback
+  3. counting     one fused count-and-stage pass per (G, W) chunk
+                  (stream.stream_chunk)
+  4. wide rows    merge levels + the wide finish (_run_wide), with one
+                  small readback of the wide rows' entry totals
+  5. offsets      cumsum + ONE nnz readback
+  6. emission     gather emit of the staged chunks, or the two-phase
+                  numeric chunks; wide rows and direct rows scatter
+
+It keeps exactly the reference's host readbacks (the planning pack, the
+wide-row totals, the nnz) and adds none: no boolean-mask indexing,
+``.nonzero()`` or ``.item()`` on the device path.
+
+Routes that are not ported yet fail loudly: ``plan_spgemm`` evaluates the
+reference's host gates (``_dia_spans``, ``_sdia_gate``,
+``_host_dense_plausible``, ``_host_dia_rows_plausible``) and raises
+``NotImplementedError`` naming the route where the reference would take
+it, and ``check_supported`` does the same for float64 values, the
+accumulator, row blocking past ``ProductOverflow`` and the TPU A/B knobs.
+The contract and the row sorts always run the hand-written kernels on a
+CUDA device (ops/contract.py, ops/bitonic.py).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+import time
+from typing import List, Optional
+
+import numpy as np
+import torch
+
+from ..utils.config import ProductOverflow, SpgemmConfig
+from ..utils.timings import StageTimer, Timings, sync_tensors
+from .analysis import (analyze, cumsum1d, host_analyze, host_band_extremes,
+                       host_gate_lite)
+from .device_csr import DeviceCSR, host_of
+from .esc import direct_chunk, pack_csr_arrays, packable
+from .stream import (
+    N_QCLASS,
+    N_WSEG_PACK,
+    LevelPlan,
+    StreamLayout,
+    build_srec,
+    compact_staged,
+    plan_device_stream,
+    plan_gate,
+    plan_layout,
+    plan_levels,
+    stream_chunk,
+    stream_chunk_numeric,
+    stream_emit,
+    stream_gather_emit,
+    stream_level,
+    stream_wide_finish,
+    wide_entry_totals,
+)
+
+I32 = torch.int32
+
+
+def _pow2(n: int) -> int:
+    return 1 << (n - 1).bit_length() if n > 1 else 1
+
+
+def _bucket_rows(count: int, full: int) -> int:
+    """Direct-chunk row count: the budget-limited size for populous
+    classes, else the next power of 4 >= count."""
+    if count >= full:
+        return full
+    pow4 = 1 << (((count - 1).bit_length() + 1) // 2 * 2) if count > 1 else 1
+    return max(1, min(full, pow4))
+
+
+def _unported(what: str):
+    return NotImplementedError(f"{what} is not ported to speck_tpu_torch "
+                               "yet (see ROADMAP.md)")
+
+
+def check_supported(cfg: SpgemmConfig, A: DeviceCSR, B: DeviceCSR) -> None:
+    """Raise NotImplementedError for inputs and knobs the port does not
+    run yet, instead of ignoring them."""
+    for X in (A, B):
+        if not packable(X.data):
+            raise _unported(f"{X.data.dtype} values (the unpacked B "
+                            "gathers)")
+        if X.data.dtype != torch.float32:
+            raise _unported(f"{X.data.dtype} values")
+    if cfg.enable_accum:
+        raise _unported("the dense-span accumulator route (EnableAccum)")
+    if cfg.stream_expand_impl != "fill":
+        raise _unported(f"StreamExpandImpl={cfg.stream_expand_impl!r}")
+    if cfg.stream_compact_impl != "sort":
+        raise _unported(f"StreamCompactImpl={cfg.stream_compact_impl!r}")
+    if cfg.stream_sort_impl != "auto":
+        raise _unported(f"StreamSortImpl={cfg.stream_sort_impl!r} (the port "
+                        "always runs its row-sort kernel)")
+    f = cfg.stream_level_factor
+    if f < 2 or f & (f - 1):
+        raise _unported(f"StreamLevelFactor={f} (merge-level widths must "
+                        "stay powers of two)")
+
+
+@dataclasses.dataclass(frozen=True)
+class DirectGroup:
+    """Fixed-shape chunks of one direct-copy class (single-A-nonzero rows):
+    chunk c covers rows_sorted[starts[c]: starts[c] + rows], the first
+    valids[c] live, copy capacity ``cap``."""
+
+    cap: int
+    rows: int
+    starts: np.ndarray
+    valids: np.ndarray
+
+
+@dataclasses.dataclass
+class StreamState:
+    """Device and host state of the stream route, kept on the plan."""
+
+    layout: StreamLayout
+    lplans: List[LevelPlan]
+    rows_sorted: torch.Tensor   # (m,) sorted by descending products
+    rows_padded: torch.Tensor   # rows_sorted padded for direct slicing
+    e: torch.Tensor             # (m,) stream starts
+    q_sorted: torch.Tensor      # (m,) product quantum per sorted row
+    el: torch.Tensor            # (m,) exclusive live-ops prefix
+    ops_sorted: torch.Tensor    # (m,) live products per sorted row
+    p0: torch.Tensor            # A-slot stream starts
+    su: torch.Tensor            # u = b_row_start - p0 per slot
+    sa: torch.Tensor            # valA bits per slot
+    pend: torch.Tensor          # A-slot product ends (p0 + b_len)
+    src: torch.Tensor           # sorted slot -> A nnz index
+    sid_bases: torch.Tensor     # (n_chunks,) A slots with p0 < chunk start
+    pack_bits: int
+    fused: bool
+    staged: Optional[list] = None       # per-chunk (rid, col, val, counts)
+    level_bufs: Optional[list] = None   # per-level (rid, col, val, counts)
+    wide_rid_in: Optional[torch.Tensor] = None
+    wide_rid_in_h: Optional[np.ndarray] = None
+    # wide-finish decision of the counting pass, replayed by numeric
+    finish: Optional[dict] = None
+    # concatenated staged (cols, vals), cached for repeated execute()
+    staged_flat: Optional[tuple] = None
+
+
+@dataclasses.dataclass
+class SpgemmPlan:
+    """Symbolic result of C = A @ B, reusable across numeric runs."""
+
+    A: DeviceCSR
+    B: DeviceCSR
+    cfg: SpgemmConfig
+    row_offsets: torch.Tensor   # (m+1,) int32
+    nnz: int
+    sum_products: object        # () float
+    stream: Optional[StreamState] = None
+    groups: List[DirectGroup] = dataclasses.field(default_factory=list)
+
+    @property
+    def shape(self):
+        return (self.A.shape[0], self.B.shape[1])
+
+    def _chunk_args(self, A, B, ss: StreamState):
+        """Operand records for numeric re-expansion (possibly new values)."""
+        sa = A.data.float().contiguous().view(I32)[ss.src]
+        return sa, pack_csr_arrays(B.indices, B.data.float())
+
+    def execute(self, A: Optional[DeviceCSR] = None,
+                B: Optional[DeviceCSR] = None,
+                timings: Optional[Timings] = None) -> DeviceCSR:
+        """Numeric phase: C's columns and values at exact offsets. A/B may
+        carry new ``data`` on the plan's structure."""
+        use_staged = A is None and B is None
+        A = self.A if A is None else A
+        B = self.B if B is None else B
+        check_supported(self.cfg, A, B)
+        m, n = self.shape
+        dev = self.row_offsets.device
+        track = timings is not None and timings.measure_all
+        total = max(self.nnz, 1)
+        ss = self.stream
+        gather_emit = (use_staged and ss is not None and ss.fused
+                       and ss.staged is not None and ss.layout.total_q > 0
+                       and self.nnz > 0)
+        with StageTimer(timings, "spGEMMNumeric", track) as st:
+            if gather_emit:
+                # contained stream rows by gather over the concatenated
+                # staged buffers; wide and direct rows overwrite theirs
+                if ss.staged_flat is None:
+                    ss.staged_flat = (
+                        torch.cat([s[1].reshape(-1) for s in ss.staged]),
+                        torch.cat([s[2].reshape(-1) for s in ss.staged]))
+                c_cols, c_vals = stream_gather_emit(
+                    ss.rows_sorted, ss.e, self.row_offsets, *ss.staged_flat,
+                    W=ss.layout.W, nnz=self.nnz)
+            else:
+                # one trailing slot takes the dropped scatter writes
+                c_cols = torch.zeros(total + 1, dtype=I32, device=dev)
+                c_vals = torch.zeros(total + 1, dtype=A.data.dtype,
+                                     device=dev)
+            if (ss is not None and ss.layout.n_chunks > 0
+                    and ss.layout.total_q > 0):
+                lo = ss.layout
+                G, W = lo.G, lo.W
+                CP = G * W
+                if use_staged and ss.fused and ss.staged is not None:
+                    level_bufs = ss.level_bufs or []
+                else:
+                    sa_n, b_packed = self._chunk_args(A, B, ss)
+                    # a two-phase plan merged its wide values at plan time
+                    reuse_levels = bool(use_staged and not ss.fused
+                                        and ss.level_bufs)
+                    wide_staged = []
+                    for c in range(lo.n_chunks):
+                        has_wide = (c * G < lo.r_wide) and not reuse_levels
+                        Gc = lo.g_last if c == lo.n_chunks - 1 else G
+                        c_cols, c_vals, stg = stream_chunk_numeric(
+                            ss.rows_sorted, ss.e, ss.p0, ss.su, sa_n,
+                            ss.pend, b_packed, self.row_offsets, c_cols,
+                            c_vals, c * CP, ss.sid_bases[c], lo.n_wide,
+                            G=Gc, W=W,
+                            n_cols=n, pack_bits=ss.pack_bits,
+                            stage_wide=has_wide)
+                        if stg is not None:
+                            wide_staged.append(stg)
+                    if reuse_levels:
+                        level_bufs = ss.level_bufs
+                    else:
+                        level_bufs = _run_wide(
+                            ss, wide_staged, None, n, count=False,
+                            max_width=self.cfg.stream_max_width)[1]
+                for rid_out, col_c, val_c, fcnt in level_bufs:
+                    rid_b = rid_out[:, None].expand(col_c.shape)
+                    c_cols, c_vals = stream_emit(
+                        ss.rows_sorted, rid_b, col_c, val_c, fcnt,
+                        self.row_offsets, c_cols, c_vals)
+            for g in self.groups:
+                for start, valid in zip(g.starts, g.valids):
+                    if valid == 0:
+                        continue
+                    c_cols, c_vals = direct_chunk(
+                        ss.rows_padded, int(start), int(valid), A.indptr,
+                        A.indices, A.data, B.indptr, B.indices, B.data,
+                        self.row_offsets, c_cols, c_vals,
+                        chunk_rows=g.rows, cap=g.cap)
+            st.stop(c_cols, c_vals)
+        return DeviceCSR(indptr=self.row_offsets, indices=c_cols[:total],
+                         data=c_vals[:total], shape=(m, n), nnz=self.nnz)
+
+
+def _offsets_from_counts(nnz_row: torch.Tensor) -> torch.Tensor:
+    """Row offsets (int32, nnz(C) last)."""
+    zero = torch.zeros(1, dtype=I32, device=nnz_row.device)
+    return torch.cat([zero, cumsum1d(nnz_row)])
+
+
+def _wide_slices(ss: StreamState, wide_staged):
+    lo = ss.layout
+    G = lo.G
+    take = [min(G, lo.r_wide - i * G) for i in range(len(wide_staged))]
+    return tuple(torch.cat([s[k][:t] for s, t in zip(wide_staged, take)])
+                 for k in (1, 2, 3))
+
+
+def _finish_classes(totals: np.ndarray, rid_live: np.ndarray, device):
+    """Lay out the wide finish: rows bucketed by pow2(entry total) so one
+    oversized row does not widen every row's sort. ``totals`` are per-
+    live-row entry counts in buffer (ascending rid) order."""
+    entry_excl = np.concatenate([[0], np.cumsum(totals)])[:-1]
+    e_total = int(totals.sum())
+    E_pad = _pow2(max(e_total, 2))
+    classes = {}
+    for i, tot in enumerate(totals):
+        classes.setdefault(_pow2(max(int(tot), 8)), []).append(i)
+    out = []
+    for W2, idxs in sorted(classes.items(), reverse=True):
+        R2 = _pow2(len(idxs))
+        rid = np.full(R2, -1, np.int32)
+        rid[: len(idxs)] = rid_live[idxs]
+        ee = np.full(R2, e_total, np.int32)
+        ee[: len(idxs)] = entry_excl[idxs]
+        rt = np.zeros(R2, np.int32)
+        rt[: len(idxs)] = totals[idxs]
+        out.append(dict(
+            R2=R2, W2=W2, E_pad=E_pad,
+            entry_excl=torch.as_tensor(ee, device=device),
+            row_total=torch.as_tensor(rt, device=device),
+            rid_of_out=torch.as_tensor(rid, device=device)))
+    return out
+
+
+def _run_wide(ss: StreamState, wide_staged, nnz_row, n_cols: int,
+              count: bool, max_width: int):
+    """Finish the wide rows: merge levels until every remaining row's
+    deduplicated entry total fits ``max_width`` (one small readback of
+    the totals per level while deciding), then one sort at each row's
+    true entry width. The counting pass records the decision in
+    ss.finish; the numeric pass replays it without readbacks. Returns
+    (nnz_row, staged buffers to emit)."""
+    lo = ss.layout
+    if lo.n_wide == 0 or not wide_staged:
+        return nnz_row, []
+    dev = ss.rows_sorted.device
+    if nnz_row is None:
+        nnz_row = torch.zeros(ss.rows_sorted.shape[0] + 1, dtype=I32,
+                              device=dev)
+        count = False
+    wcol, wval, wcnt = _wide_slices(ss, wide_staged)
+    rid_in, rid_in_h = ss.wide_rid_in, ss.wide_rid_in_h
+    W_in = lo.W
+    deciding = ss.finish is None
+    if deciding:
+        ss.finish = dict(ladder_levels=len(ss.lplans), classes=None,
+                         W_in=W_in)
+    bufs = []
+    li = 0
+    while True:
+        if deciding:
+            totals = wide_entry_totals(wcnt, rid_in, n_wide=lo.n_wide
+                                       ).cpu().numpy().astype(np.int64)
+            live_loc = np.unique(rid_in_h)
+            live_tot = totals[live_loc]
+            keep_live = live_tot > 0
+            live_loc, live_tot = live_loc[keep_live], live_tot[keep_live]
+            if live_tot.size == 0:
+                ss.finish.update(ladder_levels=li, classes=[])
+                break
+            if _pow2(int(live_tot.max())) <= max_width:
+                ss.finish.update(
+                    ladder_levels=li, W_in=W_in,
+                    classes=_finish_classes(live_tot, live_loc, dev))
+                deciding = False
+        if not deciding and li >= ss.finish["ladder_levels"]:
+            classes = ss.finish["classes"]
+            if classes is not None:
+                wc_flat = wcol.reshape(-1)
+                wv_flat = wval.reshape(-1)
+                for f in classes:
+                    nnz_row, buf = stream_wide_finish(
+                        ss.rows_sorted, wc_flat, wv_flat, wcnt,
+                        f["entry_excl"], f["row_total"], f["rid_of_out"],
+                        nnz_row, R2=f["R2"], W2=f["W2"],
+                        W0=ss.finish["W_in"], E_pad=f["E_pad"],
+                        n_cols=n_cols, count=count)
+                    bufs.append(buf)
+            break
+        if li >= len(ss.lplans):
+            break
+        lp = ss.lplans[li]
+        nnz_row, (rid_out, col_c, val_c, counts) = stream_level(
+            ss.rows_sorted, rid_in, wcol, wval, wcnt,
+            torch.as_tensor(lp.in_map, device=dev),
+            torch.as_tensor(lp.final_mask, device=dev), nnz_row, F=lp.F,
+            W_in=lp.W_in, n_cols=n_cols, count=count)
+        # the same rid_out on the host, from the host rid_in
+        src = np.clip(lp.in_map, 0, max(rid_in_h.shape[0] - 1, 0))
+        rid_out_h = np.where(lp.in_map >= 0, rid_in_h[src], -1).max(axis=1)
+        if lp.final_mask.any():
+            # keep a level's buffer only if some row finishes there
+            fi = torch.as_tensor(np.flatnonzero(lp.final_mask), device=dev)
+            bufs.append((rid_out[fi], col_c[fi], val_c[fi], counts[fi]))
+        keep = ~lp.final_mask
+        if not keep.any():
+            if deciding:
+                ss.finish.update(ladder_levels=li + 1, classes=None)
+            break
+        ki = torch.as_tensor(np.flatnonzero(keep), device=dev)
+        rid_in, wcol, wval, wcnt = (rid_out[ki], col_c[ki], val_c[ki],
+                                    counts[ki])
+        rid_in_h = rid_out_h[keep]
+        W_in = W_in * lp.F
+        li += 1
+    return nnz_row, bufs
+
+
+# ---------------------------------------------------------------------------
+# Host routing gates (numpy copies of the reference's), so the port raises
+# where the reference would take a route it does not have yet
+# ---------------------------------------------------------------------------
+
+
+def _plane_bytes(m: int, k: int, sa: int, sb: int, itemsize: int) -> int:
+    """Working set of the DIA pipeline (ops/dia.py plane_bytes)."""
+    sc = sa + sb - 1
+    return itemsize * (2 * sa * m + 2 * sb * k + 2 * sb * (m + sa)
+                       + 2 * sc * m + 3 * sc * m)
+
+
+def _sdia_plane_bytes(m, k, nd_a, nd_b, nd_c, pad_w, itemsize) -> int:
+    return itemsize * (2 * nd_a * m + 2 * nd_b * k + 2 * nd_b * pad_w
+                       + 2 * nd_c * m + 3 * nd_c * m)
+
+
+def _diag_offsets(h, dmin: int, span: int) -> np.ndarray:
+    """Distinct diagonal offsets (col - row) present in a host matrix."""
+    ip = np.asarray(h.row_offsets, np.int64)
+    rid = np.repeat(np.arange(h.rows, dtype=np.int64), ip[1:] - ip[:-1])
+    d = np.asarray(h.col_ids, np.int64) - rid
+    return np.flatnonzero(np.bincount(d - dmin, minlength=span)) + dmin
+
+
+def _dia_spans(cfg: SpgemmConfig, A: DeviceCSR, B: DeviceCSR, a_dmin: int,
+               a_dmax: int, b_dmin: int, b_dmax: int, sp_sat: int):
+    """The whole-matrix DIA gate: (span_a, span_b) when the reference
+    would run the multiply over diagonal planes, else None."""
+    if not (a_dmin <= a_dmax and b_dmin <= b_dmax):
+        return None
+    m, n = A.shape[0], B.shape[1]
+    sa = a_dmax - a_dmin + 1
+    sb = b_dmax - b_dmin + 1
+    sc_g = sa + sb - 1
+    if (sa <= cfg.dia_span_cap and sb <= cfg.dia_span_cap
+            and max(sa * m, sb * A.shape[1], sc_g * m) < 2 ** 31
+            and m * sa * sb <= cfg.dia_waste_cap * max(sp_sat, 1)
+            and _plane_bytes(m, A.shape[1], sa, sb, A.data.dtype.itemsize)
+            <= cfg.dia_mem_budget):
+        return sa, sb
+    return None
+
+
+def _sdia_gate(cfg: SpgemmConfig, A: DeviceCSR, B: DeviceCSR, ah, bh, hg):
+    """The sparse-DIA gate (host only): True when the reference would run
+    the multiply over present-offset diagonal planes."""
+    if not cfg.enable_sdia or ah is None or bh is None:
+        return False
+    if not (hg.a_dmin <= hg.a_dmax and hg.b_dmin <= hg.b_dmax):
+        return False
+    m = A.shape[0]
+    k = A.shape[1]
+    span_a = hg.a_dmax - hg.a_dmin + 1
+    span_b = hg.b_dmax - hg.b_dmin + 1
+    if span_a > cfg.sdia_span_cap or span_b > cfg.sdia_span_cap:
+        return False
+    if ah.nnz * bh.nnz > cfg.sdia_pair_cap * m * bh.rows:
+        return False
+    off_a = _diag_offsets(ah, hg.a_dmin, span_a)
+    off_b = off_a if bh is ah else _diag_offsets(bh, hg.b_dmin, span_b)
+    nd_a, nd_b = len(off_a), len(off_b)
+    if nd_a * nd_b > cfg.sdia_pair_cap:
+        return False
+    nd_c = len(np.unique(off_a[:, None] + off_b[None, :]))
+    if max(nd_a * m, nd_b * k, nd_c * m) >= 2 ** 31:
+        return False
+    if m * nd_a * nd_b > cfg.dia_waste_cap * max(hg.sum_products, 1.0):
+        return False
+    pad_l = max(0, -int(off_a.min()))
+    pad_r = max(0, m + int(off_a.max()) - k)
+    return _sdia_plane_bytes(m, k, nd_a, nd_b, nd_c, k + pad_l + pad_r,
+                             A.data.dtype.itemsize) <= cfg.dia_mem_budget
+
+
+def _host_dia_rows_plausible(ah, bh, cfg: SpgemmConfig) -> bool:
+    """Host twin of the per-row DIA split's robust-band gate (5% outlier
+    allowance per side of the per-row diagonal extents)."""
+
+    def robust(ipx, cix, rows):
+        ip = np.asarray(ipx, np.int64)
+        ci = np.asarray(cix, np.int64)
+        lens = ip[1:] - ip[:-1]
+        ne = lens > 0
+        n_ne = int(ne.sum())
+        if n_ne == 0:
+            return 0, -1
+        rid = np.arange(int(rows), dtype=np.int64)
+        first = ci[np.minimum(ip[:-1], max(ci.size - 1, 0))] - rid
+        last = ci[np.maximum(ip[1:] - 1, 0)] - rid
+        pad = n_ne // 20
+        fs = np.sort(first[ne])
+        ls = np.sort(last[ne])
+        return int(fs[min(pad, n_ne - 1)]), int(ls[max(n_ne - 1 - pad, 0)])
+
+    dlo_a, dhi_a = robust(ah.row_offsets, ah.col_ids, ah.rows)
+    dlo_b, dhi_b = robust(bh.row_offsets, bh.col_ids, bh.rows)
+    return bool(dhi_a >= dlo_a and dhi_b >= dlo_b
+                and dhi_a - dlo_a + 1 <= cfg.dia_span_cap
+                and dhi_b - dlo_b + 1 <= cfg.dia_span_cap)
+
+
+def _host_dense_plausible(ah, tile_rows: int, kw_max: int, bh=None,
+                          cw_max: int = 0) -> bool:
+    """Host pre-reject of the dense-tile route: some row tile must have
+    its A column range within the k-window and (with ``bh``) its output
+    column range within the c-window."""
+    ip = np.asarray(ah.row_offsets, np.int64)
+    ci = np.asarray(ah.col_ids, np.int64)
+    m = int(ah.rows)
+    if m == 0 or ci.size == 0:
+        return False
+    ne = (ip[1:] - ip[:-1]) > 0
+    INTM = np.iinfo(np.int64).max
+
+    def tiles(first, last):
+        nt = -(-m // tile_rows)
+        padn = nt * tile_rows - m
+        f = np.concatenate([first, np.full(padn, INTM, np.int64)])
+        la = np.concatenate([last, np.full(padn, -1, np.int64)])
+        return (f.reshape(nt, tile_rows).min(axis=1),
+                la.reshape(nt, tile_rows).max(axis=1))
+
+    first = np.where(ne, ci[np.minimum(ip[:-1], ci.size - 1)], INTM)
+    last = np.where(ne, ci[np.maximum(ip[1:] - 1, 0)], -1)
+    tmin, tmax = tiles(first, last)
+    ok = (tmax >= 0) & (tmax - tmin + 1 <= kw_max)
+    if not ok.any():
+        return False
+    if bh is None or cw_max <= 0:
+        return True
+    bip = np.asarray(bh.row_offsets, np.int64)
+    bci = np.asarray(bh.col_ids, np.int64)
+    if bci.size == 0:
+        return False
+    bne = (bip[1:] - bip[:-1]) > 0
+    bfirst = np.where(bne, bci[np.minimum(bip[:-1], bci.size - 1)], INTM)
+    blast = np.where(bne, bci[np.maximum(bip[1:] - 1, 0)], -1)
+    starts = np.minimum(ip[:-1], max(ci.size - 1, 0))
+    rmin = np.minimum.reduceat(bfirst[ci], starts)
+    rmax = np.maximum.reduceat(blast[ci], starts)
+    cmin_t, cmax_t = tiles(np.where(ne, rmin, INTM), np.where(ne, rmax, -1))
+    return bool((ok & (cmax_t >= 0)
+                 & (cmax_t - cmin_t + 1 <= cw_max)).any())
+
+
+def _check_limits(cfg: SpgemmConfig, sp_sat: int, mxrow_sat: int):
+    """int32 stream-position ceiling (ProductOverflow past it)."""
+    if mxrow_sat >= 1 << 30:
+        raise ProductOverflow(
+            f"a single row has ~{mxrow_sat} intermediate products, near "
+            "the int32 per-row ceiling")
+    if sp_sat >= cfg.block_products:
+        raise ProductOverflow(
+            f"~{sp_sat:.3g} intermediate products exceed one plan's budget "
+            f"({cfg.block_products})")
+
+
+# ---------------------------------------------------------------------------
+# Entry points
+# ---------------------------------------------------------------------------
+
+
+def plan_spgemm(A: DeviceCSR, B: DeviceCSR,
+                cfg: Optional[SpgemmConfig] = None,
+                timings: Optional[Timings] = None) -> SpgemmPlan:
+    """Analysis + planning + symbolic counting: everything up to and
+    including C's row offsets."""
+    if A.shape[1] != B.shape[0]:
+        raise ValueError(f"dimension mismatch: A is {A.shape}, B is {B.shape}")
+    cfg = cfg or SpgemmConfig()
+    check_supported(cfg, A, B)
+    m, n = A.shape[0], B.shape[1]
+    dev = A.device
+    track = timings is not None and timings.measure_all
+
+    if m == 0 or A.nnz == 0:
+        return SpgemmPlan(A=A, B=B, cfg=cfg,
+                          row_offsets=torch.zeros(m + 1, dtype=I32,
+                                                  device=dev),
+                          nnz=0, sum_products=0.0)
+
+    hg = None
+    ah = bh = None
+    if cfg.host_analysis:
+        ah, bh = host_of(A), host_of(B)
+        if ah is None or (bh is None and B is not A):
+            ah = bh = None
+    bh_eff = ah if (B is A or bh is ah) else bh
+    if ah is not None and A.nnz <= cfg.host_analysis_max_nnz:
+        with StageTimer(timings, "countProducts", track):
+            hg = host_analyze(ah, bh_eff)
+    dia_possible = bool(cfg.enable_dia and A.canonical and B.canonical
+                        and A.nnz > 0 and B.nnz > 0)
+    band_plausible = bool(
+        A.nnz <= m * cfg.dia_span_cap
+        and B.nnz <= max(B.shape[0], 1) * cfg.dia_span_cap)
+    gate_done = False
+    dia_lite_rejected = False
+    if hg is None and ah is not None and dia_possible:
+        # lite host gate for inputs past host_analysis_max_nnz
+        with StageTimer(timings, "loadBalanceCounting", track):
+            a0, a1, b0, b1 = ext = host_band_extremes(ah, bh_eff)
+            sa_l, sb_l = a1 - a0 + 1, b1 - b0 + 1
+            contig_ok = bool(a0 <= a1 and b0 <= b1
+                             and sa_l <= cfg.dia_span_cap
+                             and sb_l <= cfg.dia_span_cap)
+            sdia_ok = bool(cfg.enable_sdia and a0 <= a1 and b0 <= b1
+                           and sa_l <= cfg.sdia_span_cap
+                           and sb_l <= cfg.sdia_span_cap
+                           and ah.nnz * bh_eff.nnz
+                           <= cfg.sdia_pair_cap * m * bh_eff.rows)
+            if contig_ok or sdia_ok:
+                lite = host_gate_lite(ah, bh_eff, ext)
+                if _dia_spans(cfg, A, B, lite.a_dmin, lite.a_dmax,
+                              lite.b_dmin, lite.b_dmax,
+                              lite.sp_sat) is not None:
+                    raise _unported("the DIA route (EnableDia)")
+                if _sdia_gate(cfg, A, B, ah, bh_eff, lite):
+                    raise _unported("the sparse-DIA route (EnableSdia)")
+            dia_lite_rejected = True
+    if hg is None:
+        with StageTimer(timings, "countProducts", track) as st:
+            stats = analyze(A, B)
+            st.stop(stats.row_ops)
+    if hg is not None:
+        with StageTimer(timings, "loadBalanceCounting", track):
+            if dia_possible:
+                if _dia_spans(cfg, A, B, hg.a_dmin, hg.a_dmax, hg.b_dmin,
+                              hg.b_dmax, hg.sp_sat) is not None:
+                    raise _unported("the DIA route (EnableDia)")
+                if _sdia_gate(cfg, A, B, ah, bh_eff, hg):
+                    raise _unported("the sparse-DIA route (EnableSdia)")
+            _check_limits(cfg, hg.sp_sat, hg.mxrow_sat)
+            gate_done = True
+            stats = hg.to_device(dev)
+    elif (dia_possible and cfg.dia_gate_early and band_plausible
+          and not dia_lite_rejected):
+        # early routing gate: one small readback before the planning pass
+        with StageTimer(timings, "loadBalanceCounting", track):
+            gate = plan_gate(A.indptr, A.indices, B.indptr, B.indices,
+                             stats.row_ops, stats.row_ops_f, m=m)
+            (a_dmin, a_dmax, b_dmin, b_dmax, sp_sat, mxrow_sat,
+             _sp_exact) = (int(x) for x in gate.cpu().numpy())
+            if _dia_spans(cfg, A, B, a_dmin, a_dmax, b_dmin, b_dmax,
+                          sp_sat) is not None:
+                raise _unported("the DIA route (EnableDia)")
+            _check_limits(cfg, sp_sat, mxrow_sat)
+            gate_done = True
+
+    with StageTimer(timings, "loadBalanceCounting", track):
+        direct_ok = bool(B.canonical) and cfg.enable_direct
+        use_dense = bool(cfg.enable_dense and A.canonical and B.canonical
+                         and B.nnz > 0)
+        tr = cfg.dense_tile_rows
+        max_tiles = max(0, cfg.fused_staging_budget // (tr * cfg.dense_cw))
+        if use_dense and ah is not None:
+            use_dense = _host_dense_plausible(
+                ah, tr, cfg.dense_kw,
+                bh=bh_eff if A.nnz <= cfg.host_analysis_max_nnz else None,
+                cw_max=cfg.dense_cw)
+        if use_dense and max_tiles > 0:
+            raise _unported("the dense-tile route (EnableDense)")
+        if cfg.dia_rows and dia_possible and (
+                ah is None or _host_dia_rows_plausible(ah, bh_eff, cfg)):
+            raise _unported("the per-row DIA split (DiaRows)")
+        a32 = A.data.float().contiguous().view(I32)
+        rows_sorted, e, q_sorted, el, ops_sorted, nnz_init, pack = \
+            plan_device_stream(
+                A.indptr, A.indices, a32, B.indptr, B.indices,
+                stats.row_ops, stats.row_ops_f, stats.a_len,
+                min_q=cfg.stream_min_q, direct_ok=direct_ok, m=m,
+                w0=cfg.stream_width, w_cap=cfg.stream_width_cap)
+        pack_h = pack.cpu().numpy()  # the ONE planning host sync
+        s_hist = pack_h[:N_QCLASS]
+        d_hist = pack_h[N_QCLASS: 2 * N_QCLASS]
+        (a_dmin, a_dmax, b_dmin, b_dmax, sp_sat, mxrow_sat, sp_exact) = (
+            int(x) for x in pack_h[4 * N_QCLASS + 5: 4 * N_QCLASS + 12])
+        n_live = int(pack_h[4 * N_QCLASS + 17])
+        tight_h = pack_h[4 * N_QCLASS + 19:]
+        W, total_q, n_wide_t, r_wide_t = (int(x) for x in tight_h[:4])
+        if not gate_done:
+            if dia_possible and _dia_spans(cfg, A, B, a_dmin, a_dmax,
+                                           b_dmin, b_dmax,
+                                           sp_sat) is not None:
+                raise _unported("the DIA route (EnableDia)")
+            _check_limits(cfg, sp_sat, mxrow_sat)
+        if n_wide_t <= N_WSEG_PACK:
+            wide_segs = tight_h[4: 4 + n_wide_t].astype(np.int64)
+        else:
+            # past the pack's window: ONE extra fetch of the wide rows' ops
+            wide_ops = ops_sorted[:n_wide_t].cpu().numpy().astype(np.int64)
+            wide_segs = -(-wide_ops // W)
+        layout = plan_layout(s_hist, d_hist, W, cfg.product_budget,
+                             total_q=total_q, n_wide=n_wide_t,
+                             r_wide=r_wide_t, wide_segs=wide_segs)
+        lplans = plan_levels(layout, F=cfg.stream_level_factor,
+                             max_width=cfg.stream_max_width)
+
+        groups: List[DirectGroup] = []
+        max_chunk_rows = 1
+        for cap, start, count in layout.direct_classes:
+            full = max(1, 4 * cfg.product_budget // cap)
+            rpc = _bucket_rows(count, full)
+            max_chunk_rows = max(max_chunk_rows, rpc)
+            n_ch = math.ceil(count / rpc)
+            k = _pow2(n_ch)
+            starts = np.zeros(k, np.int32)
+            valids = np.zeros(k, np.int32)
+            for c in range(n_ch):
+                starts[c] = start + c * rpc
+                valids[c] = min(rpc, count - c * rpc)
+            groups.append(DirectGroup(cap=cap, rows=rpc, starts=starts,
+                                      valids=valids))
+        rows_padded = torch.cat(
+            [rows_sorted, torch.zeros(max_chunk_rows, dtype=I32,
+                                      device=dev)])
+
+        pack_bits = int(n + 1).bit_length()
+        if (W // cfg.stream_min_q) * (1 << pack_bits) >= 2**31:
+            raise _unported("the unpacked two-key chunk sort (pack_bits == "
+                            "0: too many columns for the rectangle width)")
+        G = layout.G
+        CP = G * W
+        if layout.total_q > 0:
+            nl_eff = min(_pow2(max(n_live, 1)), A.nnz)
+            # one window sees every record: compaction skippable
+            single_win = nl_eff <= G * W + 2
+            p0, su, sa, src, pend = build_srec(
+                A.indptr, A.indices, a32, B.indptr[:-1],
+                B.indptr[1:] - B.indptr[:-1], rows_sorted, e, q_sorted,
+                m=m, nl=_pow2(max(n_live, 1)), compact=not single_win)
+            cks = torch.arange(max(layout.n_chunks, 1), dtype=I32,
+                               device=dev) * CP
+            sid_bases = torch.searchsorted(p0, cks, out_int32=True)
+        else:
+            p0 = su = sa = src = pend = sid_bases = \
+                torch.zeros(1, dtype=I32, device=dev)
+        # fused staging: 3 int32 planes per stream slot
+        fused = 3 * layout.total_q <= cfg.fused_staging_budget
+        wide_rid_h = np.repeat(np.arange(layout.n_wide, dtype=np.int32),
+                               layout.wide_segs)
+        ss = StreamState(
+            layout=layout, lplans=lplans, rows_sorted=rows_sorted,
+            rows_padded=rows_padded, e=e, q_sorted=q_sorted, el=el,
+            ops_sorted=ops_sorted, p0=p0, su=su, sa=sa, pend=pend, src=src,
+            sid_bases=sid_bases, pack_bits=pack_bits,
+            fused=fused, wide_rid_in=torch.as_tensor(wide_rid_h, device=dev),
+            wide_rid_in_h=wide_rid_h)
+
+    with StageTimer(timings, "spGEMMCounting", track) as st:
+        # one trailing drop slot (see ops/stream.py)
+        nnz_row = torch.cat([nnz_init.to(I32),
+                             torch.zeros(1, dtype=I32, device=dev)])
+        raw_chunks: List[int] = []
+        if layout.n_chunks > 0 and layout.total_q > 0:
+            b_packed = pack_csr_arrays(B.indices, B.data.float())
+            staged = []
+            for c in range(layout.n_chunks):
+                has_wide = c * G < layout.r_wide
+                Gc = layout.g_last if c == layout.n_chunks - 1 else G
+                # contained-only chunks of a fused plan stage raw (sorted,
+                # uncompacted); compaction runs only if C has duplicates
+                stage_raw = fused and not has_wide
+                if stage_raw:
+                    raw_chunks.append(c)
+                nnz_row, stg = stream_chunk(
+                    rows_sorted, e, q_sorted, el, ops_sorted, p0, su, sa,
+                    pend, b_packed, nnz_row, c * CP, sid_bases[c], G=Gc,
+                    W=W, n_cols=n, pack_bits=pack_bits,
+                    stage=fused or has_wide, stage_raw=stage_raw)
+                staged.append(stg)
+            nw_chunks = -(-layout.r_wide // G) if layout.r_wide else 0
+            nnz_row, level_bufs = _run_wide(
+                ss, staged[:nw_chunks], nnz_row, n, count=True,
+                max_width=cfg.stream_max_width)
+            ss.staged = staged if fused else None
+            ss.level_bufs = level_bufs
+        st.stop(nnz_row)
+
+    with StageTimer(timings, "allocC", track):
+        row_offsets = _offsets_from_counts(nnz_row[:m])
+        nnz = int(row_offsets[-1].cpu())  # the ONE nnz readback
+        # no-duplicate fast path: nnz(C) == products means every live raw
+        # slot is a run-last, so raw chunks already equal their compaction
+        if ss.staged is not None and raw_chunks and nnz != sp_exact:
+            for c in raw_chunks:
+                rid_r, col_r, val_r, counts_r = ss.staged[c]
+                ss.staged[c] = compact_staged(rid_r, col_r, val_r,
+                                              counts_r, n_cols=n)
+
+    return SpgemmPlan(A=A, B=B, cfg=cfg, row_offsets=row_offsets, nnz=nnz,
+                      sum_products=stats.sum_products, stream=ss,
+                      groups=groups)
+
+
+def spgemm(A: DeviceCSR, B: DeviceCSR, cfg: Optional[SpgemmConfig] = None,
+           timings: Optional[Timings] = None) -> DeviceCSR:
+    """C = A @ B on A's device: exact two-phase SpGEMM with sorted rows."""
+    track_complete = timings is not None and timings.measure_complete
+    t0 = time.perf_counter()
+    try:
+        plan = plan_spgemm(A, B, cfg, timings)
+    except ProductOverflow as exc:
+        raise _unported("row blocking past the int32 product budget") \
+            from exc
+    C = plan.execute(timings=timings)
+    if track_complete:
+        sync_tensors(C.data)
+        timings.add("complete", (time.perf_counter() - t0) * 1e3)
+    return C

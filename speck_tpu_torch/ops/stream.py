@@ -1,0 +1,848 @@
+"""The flat product stream (torch port of ``speck_tpu/ops/stream.py``).
+
+Every intermediate product of C = A @ B gets one slot in a flat stream,
+tight-packed by the planner: rows sorted by descending product count, wide
+rows (more products than the rectangle width W) on whole W-aligned
+rectangle rows, contained rows back to back without straddling a
+rectangle-row boundary. The stream is cut into (G, W) chunks. Per chunk:
+
+  expand    decode each slot's row and A-slot record (boundary scatters
+            plus forward fill), one packed B-record gather per product;
+  sort      each rectangle row by the packed key rid_local << pack_bits |
+            col, dead slots last (kernel K2, ops/bitonic.row_sort);
+  contract  run-last mask and segmented run sums (kernel K1,
+            ops/contract.stream_contract);
+  count     exact nnz of every contained row by an O(m) segment
+            difference;
+  compact   one rank sort (K2) moves run-last entries to the row front.
+
+Wide rows are finished by merge levels (F adjacent segments re-sorted and
+contracted at F times the width) and a single wide finish at each row's
+deduplicated entry width; emission gathers contained rows from the
+concatenated staged chunks and scatters the rest.
+
+Port conventions: int32 everywhere; every scatter that the reference
+writes with ``mode="drop"`` targets a buffer with one extra trailing slot
+that takes the dropped writes (``_drop_buf``), because torch raises on
+out-of-range indices and wraps negative ones. The reference's run-length
+decodes (boundary scatter-adds + cumsum) and forward fills are binary
+searches over the sorted boundary arrays here (``torch.searchsorted``):
+the same values, without the scatter-adds that torch serializes on
+repeated indices. Only the default variants are here: the "fill" expand
+semantics, sort-based compaction and f32 values.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from ..utils.config import ProductOverflow
+from .analysis import cumsum1d
+from .bitonic import row_sort
+from .contract import stream_contract
+
+INT_MAX = 2 ** 31 - 1
+I32 = torch.int32
+
+# power-of-two class ladder: q class k has q = 1 << k
+N_QCLASS = 32
+# wide-row segment counts shipped in the planning pack
+N_WSEG_PACK = 512
+
+
+def _arange(n: int, device) -> torch.Tensor:
+    return torch.arange(n, dtype=I32, device=device)
+
+
+def _drop_buf(n: int, fill, dtype, device) -> torch.Tensor:
+    """A fill-valued buffer of n slots plus one trailing drop slot."""
+    return torch.full((n + 1,), fill, dtype=dtype, device=device)
+
+
+def _count_le(sorted_pos: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """#(sorted_pos <= t) for every t (sorted_pos ascending): the
+    run-length decode id[t] + 1 of the reference's boundary scatter-add
+    and cumsum."""
+    return torch.searchsorted(sorted_pos, t.contiguous(), right=True,
+                              out_int32=True)
+
+
+def _run_start(key: torch.Tensor) -> torch.Tensor:
+    """Per (R, W) slot, the column where its run of equal ``key`` starts
+    (key non-decreasing along each row): the reference's forward fill of
+    run-start positions."""
+    key = key.contiguous()
+    return torch.searchsorted(key, key, out_int32=True)
+
+
+# ---------------------------------------------------------------------------
+# Planning
+# ---------------------------------------------------------------------------
+
+
+def _stable_order(*keys: torch.Tensor) -> torch.Tensor:
+    """Stable argsort by several keys, most significant first (stable
+    sorts from the least significant key up), as int32."""
+    perm = None
+    for k in reversed(keys):
+        kk = k if perm is None else k[perm]
+        p = torch.sort(kk, stable=True).indices
+        perm = p if perm is None else perm[p]
+    return perm.to(I32)
+
+
+def _plan_rows_impl(row_ops, stream_mask, direct_mask, *, min_q: int, m: int,
+                    w0: int = 8192, w_cap: int = 65536,
+                    w_fixed: Optional[int] = None):
+    """Row-level half of the stream planning (the tight layout): sort,
+    stream offsets, live prefixes, class histograms, all O(m).
+
+    Returns (rows_sorted, e, q_sorted, el, ops_sorted, hist_pack,
+    tight_pack): hist_pack (4 * N_QCLASS,) = [stream q-class hist |
+    direct class hist | 0 | 0] (the accumulator halves stay zero);
+    tight_pack (4 + N_WSEG_PACK,) = [W, total_q, n_wide, r_wide,
+    wide_segs...]."""
+    dev = row_ops.device
+    ops = torch.clamp(row_ops, min=0)
+    # exact integer ceil(log2): count powers of two below ops
+    pows = torch.ones(31, dtype=I32, device=dev) << _arange(31, dev)
+    clog2 = torch.sum(ops[:, None] > pows[None, :], dim=1, dtype=I32)
+    qc = torch.clamp(clog2, min=int(np.log2(min_q)))
+    qc = torch.where(stream_mask, qc, 0)
+    dc = torch.where(direct_mask, clog2, 0)
+
+    # sort key: region (1 stream / 2 direct / 3 rest), descending class,
+    # then descending ops; stable, so ties keep row order
+    region = torch.where(stream_mask, 1, torch.where(direct_mask, 2, 3))
+    subkey = torch.where(stream_mask, N_QCLASS - 1 - qc,
+                         torch.where(direct_mask, N_QCLASS - 1 - dc, 0))
+    key = (region * (2 * N_QCLASS) + subkey).to(I32)
+    rows_sorted = _stable_order(key, -ops)
+
+    def class_hist(cls, mask):
+        return torch.zeros(N_QCLASS, dtype=I32, device=dev).index_add_(
+            0, cls, mask.to(I32))
+
+    s_hist = class_hist(qc, stream_mask)
+    d_hist = class_hist(dc, direct_mask)
+    zeros = torch.zeros(2 * N_QCLASS, dtype=I32, device=dev)
+    hist_pack = torch.cat([s_hist, d_hist, zeros])
+    return _tight_layout(rows_sorted, ops, qc, stream_mask, s_hist,
+                         hist_pack, min_q=min_q, m=m, w0=w0, w_cap=w_cap,
+                         w_fixed=w_fixed)
+
+
+def _tight_layout(rows1, ops, qc, stream_mask, s_hist, hist_pack, *,
+                  min_q: int, m: int, w0: int, w_cap: int = 65536,
+                  w_fixed: Optional[int] = None):
+    """Tight stream placement: exact wide segments, back-to-back contained
+    rows, three relocation rounds for rows that would straddle a W
+    boundary, a pow2-aligned tail, then a stable sort by final start.
+    ``tight_total_host`` is the numpy twin of the total."""
+    dev = ops.device
+    if w_fixed is not None:
+        W = torch.full((), w_fixed, dtype=I32, device=dev)
+    else:
+        # adaptive rectangle width from the q-class histogram
+        cls = _arange(N_QCLASS, dev)
+        maxcls = torch.max(torch.where(s_hist > 0, cls, -1))
+        W = torch.clamp(
+            torch.ones((), dtype=I32, device=dev)
+            << torch.clamp(maxcls - 10, 0, 16), min=w0).clamp(
+                max=max(w0, w_cap)).to(I32)
+
+    ops1 = ops[rows1]
+    stream1 = stream_mask[rows1]
+    wide1 = stream1 & (ops1 > W)
+    segs1 = torch.where(wide1, (ops1 + W - 1) // W, 0)
+    # mid-size contained rows (q > W/8) take their pow2 quantum upfront
+    qe1 = torch.clamp(ops1, min=min_q)
+    qp1 = torch.ones_like(ops1) << qc[rows1]
+    q1 = torch.where(wide1, segs1 * W,
+                     torch.where(stream1,
+                                 torch.where(qe1 > W // 8, qp1, qe1), 0))
+    c = cumsum1d(q1)
+    e_try = c - q1
+    strad = stream1 & ~wide1 & ((e_try // W) != ((e_try + q1 - 1) // W))
+    e_f1 = torch.where(stream1 & ~strad, e_try, 0)
+    total_q = c[-1]
+    base = ((total_q + W - 1) // W) * W
+    pend = strad
+    for _ in range(2):
+        alloc = torch.where(pend, q1, 0)
+        c = cumsum1d(alloc)
+        e_try = base + c - alloc
+        strad = pend & ((e_try // W) != ((e_try + q1 - 1) // W))
+        e_f1 = torch.where(pend & ~strad, e_try, e_f1)
+        placed = c[-1] > 0
+        total_q = torch.where(placed, base + c[-1], total_q)
+        base = torch.where(placed, ((base + c[-1] + W - 1) // W) * W, base)
+        pend = strad
+    # final tail: pow2 allocations from a W-aligned base
+    qs2 = torch.where(pend, torch.ones_like(ops1) << qc[rows1], 0)
+    c2 = cumsum1d(qs2)
+    e_f1 = torch.where(pend, base + c2 - qs2, e_f1)
+    total_q = torch.where(c2[-1] > 0, base + c2[-1], total_q)
+    q_f1 = torch.where(pend, qs2, q1)
+    e_f1 = torch.where(stream1, e_f1, total_q).to(I32)
+
+    # restore ascending-e order (stable)
+    pi = _stable_order(e_f1)
+    rows_sorted = rows1[pi]
+    e = e_f1[pi]
+    q_sorted = q_f1[pi]
+    ops_sorted = torch.where(stream1, ops1, 0)[pi]
+    el = cumsum1d(ops_sorted) - ops_sorted
+
+    n_wide = torch.sum(wide1, dtype=I32)
+    r_wide = torch.sum(segs1, dtype=I32)
+    wwin = torch.cat([ops_sorted,
+                      torch.zeros(N_WSEG_PACK, dtype=I32, device=dev)]
+                     )[:N_WSEG_PACK]
+    k_idx = _arange(N_WSEG_PACK, dev)
+    wsegs = torch.where(k_idx < n_wide, (wwin + W - 1) // W, 0)
+    tight_pack = torch.cat([torch.stack([W, total_q, n_wide, r_wide]).to(I32),
+                            wsegs.to(I32)])
+    return rows_sorted, e, q_sorted, el, ops_sorted, hist_pack, tight_pack
+
+
+def tight_total_host(row_ops: np.ndarray, W: int, min_q: int) -> int:
+    """Exact numpy twin of _tight_layout's stream total."""
+    ops = np.asarray(row_ops, np.int64)
+    ops = np.sort(ops[ops > 0])[::-1]
+    if ops.size == 0:
+        return 0
+    wide = ops > W
+    qe = np.maximum(ops, min_q)
+    q = np.where(wide, -(-ops // W) * W,
+                 np.where(qe > W // 8, _pow2ceil_arr(qe), qe))
+    c = np.cumsum(q)
+    e_try = c - q
+    strad = ~wide & ((e_try // W) != ((e_try + q - 1) // W))
+    total_q = int(c[-1])
+    base = -(-total_q // W) * W
+    pend = strad
+    for _ in range(2):
+        alloc = np.where(pend, q, 0)
+        c = np.cumsum(alloc)
+        e_try = base + c - alloc
+        strad = pend & ((e_try // W) != ((e_try + q - 1) // W))
+        if c[-1] > 0:
+            total_q = int(base + c[-1])
+            base = -(-(base + int(c[-1])) // W) * W
+        pend = strad
+    qs2 = np.where(pend, _pow2ceil_arr(np.maximum(ops, min_q)), 0)
+    tail = int(qs2.sum())
+    if tail > 0:
+        total_q = base + tail
+    return total_q
+
+
+def _pow2ceil_arr(x: np.ndarray) -> np.ndarray:
+    x = np.maximum(np.asarray(x, np.int64), 1)
+    return 1 << np.ceil(np.log2(x.astype(np.float64))).astype(np.int64)
+
+
+def build_srec(a_indptr, a_indices, a_data32, b_start, b_len, rows_sorted,
+               e, q_sorted, *, m: int, nl: Optional[int] = None,
+               compact: bool = True):
+    """Per-sorted-A-slot stream records (p0, su, sa, src, pend): each live
+    A slot's stream start p0, u = b_row_start - p0, its value bits, its A
+    index and its product end. ``nl`` bounds the live slots (from the
+    planning pack). ``compact`` drops zero-product slots, so kept p0 is
+    strictly increasing and an INT_MAX tail follows; without it every
+    record stays in place (valid when one chunk sees all records)."""
+    dev = a_indptr.device
+    stream_mask_s = q_sorted > 0
+    nnz = a_indices.shape[0]
+    NL = max(nnz if nl is None else min(nl, nnz), 1)
+    alen = a_indptr[1:] - a_indptr[:-1]
+    alen_eff = torch.where(stream_mask_s, alen[rows_sorted], 0)
+    ca = cumsum1d(alen_eff)
+    ca_excl = ca - alen_eff
+    # sorted slot s belongs to sorted row rid_s: run-length decode
+    slot = _arange(NL, dev)
+    rid_s = torch.clamp(_decode(ca_excl, slot), 0, m - 1)
+    src = a_indptr[rows_sorted[rid_s]] + (slot - ca_excl[rid_s])
+    src = torch.clamp(src, 0, max(nnz - 1, 0))
+    live_s = slot < ca[-1]
+    acol = a_indices[src]
+    a32s = a_data32[src]
+    bst = b_start[acol]
+    blen = torch.where(live_s, b_len[acol], 0)
+    cb = cumsum1d(blen)
+    row_first = torch.clamp(ca_excl[rid_s], 0, NL - 1)
+    cb_excl = cb - blen
+    cb_rowbase = cb_excl - cb_excl[row_first]
+    p0 = torch.where(live_s, e[rid_s] + cb_rowbase, INT_MAX).to(I32)
+    u = torch.where(live_s, bst - p0, 0)
+    pend = torch.where(live_s, p0 + blen, 0)
+    if not compact:
+        return (p0, u, torch.where(live_s, a32s, 0),
+                torch.where(live_s, src, 0), pend)
+    keep = live_s & (blen > 0)
+    rank = cumsum1d(keep.to(I32)) - 1
+    tgt = torch.where(keep, rank, NL)
+
+    def compact_(x, fill):
+        out = _drop_buf(NL, fill, I32, dev)
+        out.index_put_((tgt,), x.to(I32))
+        return out[:NL]
+
+    return (compact_(p0, INT_MAX), compact_(u, 0), compact_(a32s, 0),
+            compact_(src, 0), compact_(pend, 0))
+
+
+def plan_device_stream(a_indptr, a_indices, a_data32, b_indptr, b_indices,
+                       row_ops, row_ops_f, a_len, *, min_q: int,
+                       direct_ok: bool, m: int, w0: int = 8192,
+                       w_cap: int = 65536):
+    """Single-pass device planning of the stream and direct routes: masks,
+    the tight layout and ONE packed int32 array that carries every host
+    decision (read back once by the caller). The pack has the reference's
+    layout:
+
+      [stream q-class hist (32) | direct class hist (32) | accum hist (32)
+       | accum product sums (32) | n_eligible_tiles, kw, cw, la, lb (5) |
+       gate scalars (7) | per-row DIA band (5) | n_live_slots,
+       n_live_slots_accum (2) | W, total_q, n_wide, r_wide,
+       wide_segs (N_WSEG_PACK)]
+
+    with the dense, per-row DIA and accumulator entries at their
+    disabled values.
+
+    Returns (rows_sorted, e, q_sorted, el, ops_sorted, nnz_init, pack)."""
+    dev = a_indptr.device
+    if a_len is None:
+        a_len = a_indptr[1:] - a_indptr[:-1]
+    if row_ops_f is None:
+        row_ops_f = row_ops.float()
+    if direct_ok:
+        direct_mask = (a_len == 1) & (row_ops > 0)
+    else:
+        direct_mask = torch.zeros(m, dtype=torch.bool, device=dev)
+    stream_mask = (row_ops > 0) & ~direct_mask
+    (rows_sorted, e, q_sorted, el, ops_sorted, hist,
+     tight_pack) = _plan_rows_impl(row_ops, stream_mask, direct_mask,
+                                   min_q=min_q, m=m, w0=w0, w_cap=w_cap)
+    # direct rows' exact counts come free from the analysis
+    nnz_init = torch.where(direct_mask, row_ops, 0)
+    gate = _gate_scalars(a_indptr, a_indices, b_indptr, b_indices, row_ops,
+                         row_ops_f, a_len, m=m)
+    n_live = torch.sum(torch.where(stream_mask, a_len, 0), dtype=I32)
+    # dense-tile entries (all 0) and the per-row DIA band (an empty band,
+    # [1, 0, 1, 0, 0]), made on the device: no host-to-device copy
+    fixed = torch.zeros(5, dtype=I32, device=dev)
+    dia_pack = torch.zeros(5, dtype=I32, device=dev)
+    dia_pack[0:4:2] = 1
+    pack = torch.cat([hist, fixed, gate, dia_pack,
+                      torch.stack([n_live, torch.zeros_like(n_live)]),
+                      tight_pack])
+    return rows_sorted, e, q_sorted, el, ops_sorted, nnz_init, pack
+
+
+def _gate_scalars(a_indptr, a_indices, b_indptr, b_indices, row_ops,
+                  row_ops_f, a_len, *, m: int):
+    """The 7 routing/guard scalars as one int32 array:
+    [a_dmin, a_dmax, b_dmin, b_dmax, sp_sat, mxrow_sat, sp_exact]."""
+    dev = a_indptr.device
+    big = torch.full((), INT_MAX, dtype=I32, device=dev)
+    if a_indices.shape[0] > 0 and m > 0:
+        rowi = _arange(m, dev)
+        ne_a = a_len > 0
+        a_first = a_indices[a_indptr[:-1].clamp(max=a_indices.shape[0] - 1)
+                            ] - rowi
+        a_last = a_indices[torch.clamp(a_indptr[1:] - 1, min=0)] - rowi
+        a_dmin = torch.min(torch.where(ne_a, a_first, INT_MAX))
+        a_dmax = torch.max(torch.where(ne_a, a_last, -INT_MAX))
+    else:
+        a_dmin, a_dmax = big, -big
+    kd = b_indptr.shape[0] - 1
+    if b_indices.shape[0] > 0 and kd > 0:
+        rowk = _arange(kd, dev)
+        ne_b = (b_indptr[1:] - b_indptr[:-1]) > 0
+        b_first = b_indices[b_indptr[:-1].clamp(max=b_indices.shape[0] - 1)
+                            ] - rowk
+        b_last = b_indices[torch.clamp(b_indptr[1:] - 1, min=0)] - rowk
+        b_dmin = torch.min(torch.where(ne_b, b_first, INT_MAX))
+        b_dmax = torch.max(torch.where(ne_b, b_last, -INT_MAX))
+    else:
+        b_dmin, b_dmax = big, -big
+    pos_f = torch.clamp(row_ops_f, min=0.0)
+    sp_sat = torch.clamp(pos_f.sum(), 0.0, 2.0 ** 31 - 2).to(I32)
+    mxrow_sat = torch.clamp(pos_f.max() if m > 0 else pos_f.sum(),
+                            0.0, 2.0 ** 31 - 2).to(I32)
+    sp_exact = torch.sum(torch.clamp(row_ops, min=0), dtype=I32)
+    return torch.stack([a_dmin, a_dmax, b_dmin, b_dmax, sp_sat, mxrow_sat,
+                        sp_exact]).to(I32)
+
+
+def plan_gate(a_indptr, a_indices, b_indptr, b_indices, row_ops, row_ops_f,
+              *, m: int):
+    """The early routing gate: only the 7 gate scalars."""
+    a_len = a_indptr[1:] - a_indptr[:-1]
+    if row_ops_f is None:
+        row_ops_f = row_ops.float()
+    return _gate_scalars(a_indptr, a_indices, b_indptr, b_indices, row_ops,
+                         row_ops_f, a_len, m=m)
+
+
+# ---------------------------------------------------------------------------
+# Chunk
+# ---------------------------------------------------------------------------
+
+
+def _decode(boundary_pos, t):
+    """Run-length id decode: id[t] = #(pos <= t) - 1 for ascending
+    ``boundary_pos`` (the reference's base + in-chunk count, with base the
+    number of boundaries before the chunk)."""
+    return _count_le(boundary_pos, t.reshape(-1)).reshape(t.shape) - 1
+
+
+def _expand_chunk(e, p0, su, sa, pend, b_packed, chunk_start: int,
+                  sid_base, G: int, W: int, n_cols: int):
+    """The expand stage for chunk [chunk_start, chunk_start + G*W): each
+    slot's sorted row (the last row start e <= t) and its A-slot record
+    (the last record start p0 <= t, which is the reference's forward fill
+    from the record starts, the winner among equal starts included), live
+    while t < that record's pend; then one packed B-record gather per
+    live product. Returns (rid, col, val); dead slots carry col = n_cols
+    and val = 0."""
+    dev = e.device
+    CP = G * W
+    t = chunk_start + _arange(CP, dev).reshape(G, W)
+    rid = _decode(e, t)
+    nnzA = su.shape[0]
+    K = min(nnzA, CP + 2)
+    # window of the records that can intersect this chunk (kept p0 is
+    # strictly increasing) plus the run straddling its start
+    if K < nnzA:
+        widx = torch.clamp(sid_base - 1, 0, nnzA - K) + _arange(K, dev)
+        p0w, uw, aw, pw = p0[widx], su[widx], sa[widx], pend[widx]
+    else:
+        p0w, uw, aw, pw = p0, su, sa, pend
+    rec = _decode(p0w, t)
+    has = rec >= 0
+    rec = torch.clamp(rec, min=0)
+    live = has & (t < pw[rec])
+    dead = ~live | (rid < 0)
+    bsrc = torch.where(dead, 0, uw[rec] + t)
+    bp = b_packed[bsrc.reshape(-1)].reshape(G, W, 2)
+    col = torch.where(dead, n_cols, bp[..., 0])
+    bval = bp[..., 1].contiguous().view(torch.float32)
+    aval = aw[rec].view(torch.float32)
+    val = torch.where(dead, 0.0, aval * bval)
+    return rid, col.to(I32), val
+
+
+def _sort_rect(rid, col, val, n_cols: int, pack_bits: int):
+    """Sort each rectangle row by (rid, col) with every dead slot
+    (col >= n_cols) last, on the single packed key
+    (rid - rid0) << pack_bits | col (kernel K2)."""
+    rid0 = rid[:, :1]
+    keyk = ((rid - rid0) << pack_bits) | col
+    keyk = torch.where(col >= n_cols, INT_MAX, keyk).to(I32).contiguous()
+    keyk, (val_s,) = row_sort(keyk, [val.contiguous()])
+    dead = keyk == INT_MAX
+    col_s = torch.where(dead, n_cols, keyk & ((1 << pack_bits) - 1))
+    rid_s = torch.where(dead, rid0, rid0 + (keyk >> pack_bits))
+    return rid_s.to(I32), col_s.to(I32), val_s
+
+
+def _sort_cols(col, val):
+    """Single-key (col, val) row sort (kernel K2); level and finish widths
+    are powers of two."""
+    col_s, (val_s,) = row_sort(col.contiguous(), [val.contiguous()])
+    return col_s, val_s
+
+
+def _row_last(rid_s, col_s, n_cols: int):
+    """Run-last mask of sorted rows, recomputed from neighbour changes."""
+    G = col_s.shape[0]
+    dev = col_s.device
+    changed = torch.cat(
+        [torch.ones((G, 1), dtype=torch.bool, device=dev),
+         (col_s[:, 1:] != col_s[:, :-1]) | (rid_s[:, 1:] != rid_s[:, :-1])],
+        dim=1)
+    nxt = torch.cat([changed[:, 1:],
+                     torch.ones((G, 1), dtype=torch.bool, device=dev)], dim=1)
+    return nxt & (col_s < n_cols)
+
+
+def _compact_rect(last, rid_s, col_s, run_sum):
+    """Move run-last entries to the rectangle-row front, order kept, by one
+    rank sort (kernel K2). ``rid_s`` None skips that payload (rows with a
+    constant rid). Returns (rid_c, col_c, val_c, counts)."""
+    G, W = col_s.shape
+    rank = torch.cumsum(last, 1, dtype=I32) - 1
+    counts = torch.sum(last, 1, dtype=I32)
+    t = _arange(W, col_s.device)[None, :]
+    key = torch.where(last, rank, W + t).to(I32).contiguous()
+    pay = [col_s.contiguous(), run_sum.contiguous()]
+    if rid_s is not None:
+        pay.insert(0, rid_s.contiguous())
+    _, out = row_sort(key, pay)
+    if rid_s is None:
+        return None, out[0], out[1], counts
+    return out[0], out[1], out[2], counts
+
+
+def compact_staged(rid_s, col_s, val_s, counts, *, n_cols: int):
+    """Compact a raw staged chunk (sorted planes from
+    stream_chunk(stage_raw=True)): run-last flags are recomputed and the
+    partial run sums at those slots are already the full sums."""
+    return _compact_rect(_row_last(rid_s, col_s, n_cols), rid_s, col_s,
+                         val_s)
+
+
+def stream_chunk(rows_sorted, e, q_sorted, el, ops_sorted, p0, su, sa, pend,
+                 b_packed, nnz_row, chunk_start: int, sid_base, *,
+                 G: int, W: int, n_cols: int, pack_bits: int, stage: bool,
+                 stage_raw: bool = False):
+    """One fused count(+stage) pass over chunk [chunk_start,
+    chunk_start + G*W). Every row contained in the chunk gets its exact
+    nnz in ``nnz_row`` (padded by one drop slot, updated in place) by an
+    O(m) segment difference over per-rectangle-row cumulative run-last
+    counts. stage=True also returns the compacted (rid, col, val, counts)
+    rectangle rows; stage_raw returns them sorted but uncompacted."""
+    rid, col, val = _expand_chunk(e, p0, su, sa, pend, b_packed,
+                                  chunk_start, sid_base, G, W, n_cols)
+    rid_s, col_s, val_s = _sort_rect(rid, col, val, n_cols, pack_bits)
+    last, run_sum = stream_contract(rid_s, col_s, val_s, n_cols)
+
+    dev = e.device
+    m = rows_sorted.shape[0]
+    CP = G * W
+    cl = torch.cumsum(last, 1, dtype=I32).reshape(-1)
+    contained = ((q_sorted > 0) & (q_sorted <= W) & (e >= chunk_start)
+                 & (e < chunk_start + CP))
+    g = torch.clamp(torch.div(e - chunk_start, W, rounding_mode="floor"),
+                    0, G - 1)
+    g_first = torch.searchsorted(e, chunk_start + _arange(G, dev) * W,
+                                 out_int32=True)
+    lrel = el - el[torch.clamp(g_first[g], 0, m - 1)]
+    seg_end = g * W + lrel + ops_sorted - 1
+    seg_before = g * W + lrel - 1
+    cnt = (cl[torch.clamp(seg_end, 0, CP - 1)]
+           - torch.where(lrel > 0, cl[torch.clamp(seg_before, 0, CP - 1)],
+                         0))
+    cnt = torch.where(contained & (ops_sorted > 0), cnt, 0)
+    nnz_row.index_put_((torch.where(contained, rows_sorted, m),),
+                       cnt.to(I32))
+
+    if not stage:
+        return nnz_row, None
+    if stage_raw:
+        counts = torch.sum(last, 1, dtype=I32)
+        return nnz_row, (rid_s, col_s, run_sum, counts)
+    return nnz_row, _compact_rect(last, rid_s, col_s, run_sum)
+
+
+def stream_chunk_numeric(rows_sorted, e, p0, su, sa, pend, b_packed,
+                         row_offsets, c_cols, c_vals, chunk_start: int,
+                         sid_base, n_wide: int, *, G: int, W: int,
+                         n_cols: int, pack_bits: int, stage_wide: bool):
+    """Two-phase numeric pass over one chunk: the same expand, sort and
+    contract, then contained rows' run-last entries scatter straight to
+    their offsets in C (padded buffers, updated in place). stage_wide
+    also returns the compacted rectangle rows for the merge levels."""
+    rid, col, val = _expand_chunk(e, p0, su, sa, pend, b_packed,
+                                  chunk_start, sid_base, G, W, n_cols)
+    rid_s, col_s, val_s = _sort_rect(rid, col, val, n_cols, pack_bits)
+    last, run_sum = stream_contract(rid_s, col_s, val_s, n_cols)
+
+    # rank among the row's run-lasts via a segmented exclusive count; the
+    # live slots are sorted by rid, the dead ones (col >= n_cols) last
+    cl = torch.cumsum(last, 1, dtype=I32)
+    ce = cl - last.to(I32)
+    first = _run_start(torch.where(col_s >= n_cols, INT_MAX, rid_s))
+    rank = ce - torch.gather(ce, 1, first.long())
+    m = rows_sorted.shape[0]
+    row = rows_sorted[torch.clamp(rid_s, 0, m - 1)]
+    live = last & (rid_s >= n_wide)
+    flat = torch.where(live, row_offsets[row] + rank, c_cols.shape[0] - 1)
+    c_cols.index_put_((flat,), col_s)
+    c_vals.index_put_((flat,), run_sum)
+    if not stage_wide:
+        return c_cols, c_vals, None
+    return c_cols, c_vals, _compact_rect(last, rid_s, col_s, run_sum)
+
+
+# ---------------------------------------------------------------------------
+# Wide rows
+# ---------------------------------------------------------------------------
+
+
+def stream_level(rows_sorted, rid_in, col_in, val_in, counts_in, in_map,
+                 final_mask, nnz_row, *, F: int, W_in: int, n_cols: int,
+                 count: bool = True):
+    """One merge level: each output rectangle row re-sorts F input
+    segments (compacted prefixes of width W_in) of one wide row and
+    contracts them; rows whose segments all fit here (final_mask) are
+    counted into ``nnz_row`` (padded, in place). in_map (R_out, F): input
+    rectangle-row indices, -1 for none."""
+    dev = col_in.device
+    R_out = in_map.shape[0]
+    W_out = F * W_in
+    srcrow = in_map.reshape(-1)
+    okrow = srcrow >= 0
+    src = torch.clamp(srcrow, 0, max(rid_in.shape[0] - 1, 0))
+    j = _arange(W_in, dev)[None, :]
+    livein = okrow[:, None] & (j < counts_in[src][:, None])
+    col = torch.where(livein, col_in[src], n_cols).reshape(R_out, W_out)
+    val = torch.where(livein, val_in[src], 0.0).reshape(R_out, W_out)
+    rid_out = torch.max(torch.where(okrow, rid_in[src], -1).reshape(R_out, F),
+                        dim=1).values.to(I32)
+
+    col_s, val_s = _sort_cols(col.to(I32), val)
+    rid_b = rid_out[:, None].expand(R_out, W_out)
+    last, run_sum = stream_contract(rid_b, col_s, val_s, n_cols)
+    if count:
+        # each final row's run-lasts, added at its matrix row (one output
+        # row per final wide row)
+        m = rows_sorted.shape[0]
+        fin = final_mask & (rid_out >= 0)
+        tgt = torch.where(fin, rows_sorted[torch.clamp(rid_out, 0, m - 1)],
+                          m)
+        nnz_row.index_add_(0, tgt, torch.where(
+            fin, torch.sum(last, 1, dtype=I32), 0))
+    _, col_c, val_c, counts = _compact_rect(last, None, col_s, run_sum)
+    return nnz_row, (rid_out, col_c, val_c, counts)
+
+
+def wide_entry_totals(wcnt, wide_rid, *, n_wide: int):
+    """Per-wide-row total staged entries after level 0."""
+    return torch.zeros(n_wide, dtype=I32, device=wcnt.device).index_add_(
+        0, wide_rid, wcnt)
+
+
+def stream_wide_finish(rows_sorted, wcol_flat, wval_flat, wcnt, entry_excl,
+                       row_total, rid_of_out, nnz_row, *, R2: int, W2: int,
+                       W0: int, E_pad: int, n_cols: int, count: bool):
+    """Adaptive wide-row finish: gather each wide row's staged entries into
+    one (R2, W2) rectangle sized by the true entry totals, then one sort
+    and contract completes the row (counts set into ``nnz_row`` in place).
+    wcol_flat/wval_flat: the flattened (r_wide * W0) staged wide buffers;
+    wcnt: per-rectangle-row live counts; entry_excl/row_total/rid_of_out:
+    host-computed per output row."""
+    dev = wcol_flat.device
+    r_wide = wcnt.shape[0]
+    ccum = cumsum1d(wcnt)
+    ccum_excl = ccum - wcnt
+    # entry id -> source rectangle row: run-length decode
+    rr_tab = torch.clamp(_decode(ccum_excl, _arange(E_pad, dev)), 0,
+                         r_wide - 1)
+
+    j = _arange(W2, dev)[None, :]
+    e_id = entry_excl[:, None] + j
+    dead = (j >= row_total[:, None]) | (e_id >= E_pad)
+    e_c = torch.clamp(e_id, 0, E_pad - 1)
+    rr = rr_tab[e_c]
+    src = torch.clamp(rr * W0 + (e_c - ccum_excl[rr]), 0,
+                      wcol_flat.shape[0] - 1)
+    col = torch.where(dead, n_cols, wcol_flat[src]).to(I32)
+    val = torch.where(dead, 0.0, wval_flat[src])
+
+    col_s, val_s = _sort_cols(col, val)
+    rid_b = rid_of_out[:, None].expand(R2, W2)
+    last, run_sum = stream_contract(rid_b, col_s, val_s, n_cols)
+    if count:
+        m = rows_sorted.shape[0]
+        tgt = torch.where(rid_of_out >= 0,
+                          rows_sorted[torch.clamp(rid_of_out, 0, m - 1)], m)
+        nnz_row.index_put_((tgt,), torch.sum(last, 1, dtype=I32))
+    _, col_c, val_c, counts = _compact_rect(last, None, col_s, run_sum)
+    return nnz_row, (rid_of_out, col_c, val_c, counts)
+
+
+# ---------------------------------------------------------------------------
+# Emission
+# ---------------------------------------------------------------------------
+
+
+def stream_emit(rows_sorted, rid_c, col_c, val_c, counts, row_offsets,
+                c_cols, c_vals):
+    """Scatter a final wide-row buffer's compacted entries into C's padded
+    buffers (in place): entries of row r go to row_offsets[r] + rank;
+    rows with rid < 0 are padding."""
+    R, W = col_c.shape
+    t = _arange(W, col_c.device)[None, :]
+    live = (t < counts[:, None]) & (rid_c >= 0)
+    # the compacted prefix is sorted by rid; the rest is masked
+    rank = t - _run_start(torch.where(t < counts[:, None], rid_c, INT_MAX))
+    m = rows_sorted.shape[0]
+    row = rows_sorted[torch.clamp(rid_c, 0, m - 1)]
+    flat = torch.where(live, row_offsets[row] + rank, c_cols.shape[0] - 1)
+    c_cols.index_put_((flat,), col_c)
+    c_vals.index_put_((flat,), val_c)
+    return c_cols, c_vals
+
+
+def stream_gather_emit(rows_sorted, e, row_offsets, cols_flat, vals_flat, *,
+                       W: int, nnz: int):
+    """Build the contained-row part of C by gathering from the
+    concatenated staged chunks: a contained row's entries are the
+    compacted prefix of one rectangle row, so the per-row source base is
+    seeded at each row's output start and forward-filled. Returns padded
+    (max(nnz, 1) + 1) buffers; rows outside the stream get garbage here
+    and are overwritten by their own emission."""
+    dev = e.device
+    m = rows_sorted.shape[0]
+    total = max(nnz, 1)
+    R_total = cols_flat.shape[0] // W
+    nnz_row = row_offsets[1:] - row_offsets[:-1]
+    scnt = nnz_row[rows_sorted]
+    scum = cumsum1d(scnt) - scnt
+    gg_first = torch.searchsorted(e, _arange(max(R_total, 1), dev) * W,
+                                  out_int32=True)
+    rect_base = scum[torch.clamp(gg_first, 0, m - 1)]
+    gg_s = torch.clamp(torch.div(e, W, rounding_mode="floor"), 0,
+                       max(R_total - 1, 0))
+    base_sorted = (gg_s * W + scum - rect_base[gg_s]
+                   - row_offsets[rows_sorted])
+    # the base is constant over each row's output segment: look up the
+    # row of every output index (the reference seeds and forward-fills it)
+    base_row = torch.zeros(m, dtype=I32, device=dev)
+    base_row[rows_sorted] = base_sorted.to(I32)
+    i = _arange(total, dev)
+    row_i = _count_le(row_offsets[1:], i)
+    src = torch.clamp(base_row[torch.clamp(row_i, 0, m - 1)] + i, 0,
+                      cols_flat.shape[0] - 1)
+    c_cols = torch.empty(total + 1, dtype=I32, device=dev)
+    c_vals = torch.empty(total + 1, dtype=vals_flat.dtype, device=dev)
+    c_cols[:total] = cols_flat[src]
+    c_vals[:total] = vals_flat[src]
+    return c_cols, c_vals
+
+
+# ---------------------------------------------------------------------------
+# Host-side stream layout (numpy, driven by the planning readback)
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class StreamLayout:
+    """Everything the host derives from the planning readback: chunk
+    schedule, wide-row segment table."""
+
+    W: int
+    G: int                    # rect rows per chunk
+    g_last: int               # rect rows of the last chunk (<= G)
+    n_chunks: int
+    total_q: int              # stream length (sum of allocations)
+    n_wide: int               # wide rows (q > W), first in sorted order
+    r_wide: int               # rect rows owned by wide rows
+    wide_segs: np.ndarray     # (n_wide,) segments per wide row
+    n_stream_rows: int
+    n_direct_rows: int
+    direct_classes: List[Tuple[int, int, int]]  # (cap, start, count)
+
+
+def plan_layout(hist: np.ndarray, d_hist: np.ndarray, W: int,
+                product_budget: int, *, total_q: Optional[int] = None,
+                n_wide: Optional[int] = None, r_wide: Optional[int] = None,
+                wide_segs: Optional[np.ndarray] = None) -> StreamLayout:
+    """The full stream layout from the planning readback. With the
+    tight-layout keywords the exact totals are used; without them
+    (pow2 mode) they come from the class histogram. The int32 ceiling
+    guard always uses the pow2 class bound."""
+    qs = 1 << np.arange(N_QCLASS, dtype=np.int64)
+    class_sum = int((hist.astype(np.int64) * qs).sum())
+    if class_sum + 4 * W >= 2**31:
+        raise ProductOverflow(
+            f"stream of ~{class_sum} quantized products exceeds the 2^31 "
+            "int32 ceiling; row-block the multiply")
+    n_stream_rows = int(hist.sum())
+    if total_q is None:
+        total_q = class_sum
+        wide_classes = [k for k in range(N_QCLASS)
+                        if (1 << k) > W and hist[k]]
+        n_wide = int(sum(hist[k] for k in wide_classes))
+        wide_segs = np.concatenate([
+            np.full(int(hist[k]), (1 << k) // W, np.int64)
+            for k in sorted(wide_classes, reverse=True)
+        ]) if n_wide else np.zeros(0, np.int64)
+        r_wide = int(wide_segs.sum())
+    else:
+        wide_segs = np.asarray(wide_segs, np.int64)
+
+    G = max(1, product_budget // W)
+    need = -(-max(total_q, 1) // W)
+    if need < G:
+        G = max(8, -(-need // 8) * 8) if need > 8 else max(1, need)
+    n_chunks = -(-total_q // (G * W)) if total_q else 0
+    g_last = G
+    if n_chunks > 1:
+        rem = need - (n_chunks - 1) * G
+        if rem < G and (n_chunks - 1) * G >= (r_wide or 0):
+            g_last = max(8, -(-rem // 8) * 8) if rem > 8 else max(1, rem)
+
+    n_direct = int(d_hist.sum())
+    direct_classes = []
+    start = n_stream_rows
+    for k in range(N_QCLASS - 1, -1, -1):
+        cnt = int(d_hist[k])
+        if cnt:
+            direct_classes.append((1 << k, start, cnt))
+            start += cnt
+    return StreamLayout(
+        W=W, G=G, g_last=g_last, n_chunks=n_chunks, total_q=total_q,
+        n_wide=n_wide, r_wide=r_wide, wide_segs=wide_segs,
+        n_stream_rows=n_stream_rows, n_direct_rows=n_direct,
+        direct_classes=direct_classes,
+    )
+
+
+@dataclasses.dataclass(frozen=True)
+class LevelPlan:
+    """One merge level: in_map rows of the previous buffer into F-wide
+    output rectangle rows; final rows finish (count + emit) here."""
+
+    F: int
+    W_in: int
+    in_map: np.ndarray      # (R_out, F) int32, -1 padded
+    final_mask: np.ndarray  # (R_out,) bool
+    segs_out: np.ndarray    # (n_unfinished_rows,) for the next level
+
+
+def plan_levels(layout: StreamLayout, F: int = 4,
+                max_width: int = 1 << 24) -> List[LevelPlan]:
+    """Merge-level schedule for the wide rows (host numpy): level 0 input
+    is the first r_wide rectangle rows; each level groups up to F
+    consecutive segments of one row; a row is final when its remaining
+    segments fit one output row."""
+    plans: List[LevelPlan] = []
+    segs = layout.wide_segs.copy()
+    rows = np.arange(layout.n_wide)
+    W_in = layout.W
+    while len(rows):
+        starts = np.concatenate([[0], np.cumsum(segs)])[:-1]
+        f_eff = min(F, max(max_width // W_in, 2))
+        out_rows, final, segs_out, keep_rows = [], [], [], []
+        for i, r in enumerate(rows):
+            s0, ns = int(starts[i]), int(segs[i])
+            n_out = -(-ns // f_eff)
+            for o in range(n_out):
+                seg_ids = np.full(f_eff, -1, np.int64)
+                lo = s0 + o * f_eff
+                hi = min(s0 + ns, lo + f_eff)
+                seg_ids[: hi - lo] = np.arange(lo, hi)
+                out_rows.append(seg_ids)
+                final.append(n_out == 1)
+            if n_out > 1:
+                keep_rows.append(r)
+                segs_out.append(n_out)
+        plans.append(LevelPlan(
+            F=f_eff, W_in=W_in,
+            in_map=np.asarray(out_rows, np.int32).reshape(-1, f_eff),
+            final_mask=np.asarray(final, bool),
+            segs_out=np.asarray(segs_out, np.int64),
+        ))
+        rows = np.asarray(keep_rows)
+        segs = np.asarray(segs_out, np.int64)
+        W_in = W_in * f_eff
+    return plans

@@ -1,0 +1,143 @@
+"""The port's two kernels against the JAX package's Pallas kernels.
+
+K1 (ops/contract.py, replaces pallas_kernels.stream_contract_runs) and K2
+(ops/bitonic.py, replaces bitonic.bitonic_sort_pairs_pallas). On the CPU
+the wrappers run their plain torch versions; those are held to the JAX
+forms (Pallas in interpret mode and the XLA forms): the contract
+bit-identically (rtol 0, same doubling order), the sort with equal keys
+and equal per-row (key, payload) multisets (the bitonic network is not
+stable). The CUDA kernels against the plain versions are in
+test_torch_gpu.py."""
+
+import numpy as np
+import pytest
+import torch
+import jax.numpy as jnp
+
+from speck_tpu.ops import bitonic as jbitonic
+from speck_tpu.ops.pallas_kernels import stream_contract_runs
+from speck_tpu.ops.stream import _contract_rect
+from speck_tpu_torch.ops import bitonic, contract
+
+N_COLS = 300
+
+
+def _sorted_rect(rng, R, W, const_rid=False):
+    """(rid, col, val) rows sorted by (rid, col) with duplicate runs and
+    dead slots (col == N_COLS) at each row's end."""
+    rid = np.zeros((R, W), np.int32)
+    col = np.full((R, W), N_COLS, np.int32)
+    for r in range(R):
+        live = int(rng.integers(W // 2, W + 1))
+        if const_rid:
+            rid[r] = 7 + r
+            c = np.sort(rng.integers(0, N_COLS, live))
+        else:
+            rr = np.sort(rng.integers(0, 6, live))
+            c = rng.integers(0, 40, live)
+            order = np.lexsort((c, rr))
+            rr, c = rr[order], c[order]
+            rid[r, :live] = rr
+            rid[r, live:] = rr[-1] if live else 0
+        col[r, :live] = c
+    val = rng.standard_normal((R, W)).astype(np.float32)
+    return rid, col, val
+
+
+@pytest.mark.parametrize("R,W,const_rid", [(64, 512, False),
+                                           (2, 16384, True)])
+def test_contract_plain_bit_identical_to_jax(rng, R, W, const_rid):
+    rid, col, val = _sorted_rect(rng, R, W, const_rid)
+    last_t, sum_t = contract.stream_contract(
+        torch.from_numpy(rid), torch.from_numpy(col), torch.from_numpy(val),
+        N_COLS)
+    for form in ("xla", "pallas"):
+        if form == "xla":
+            last_j, sum_j = _contract_rect(jnp.asarray(rid), jnp.asarray(col),
+                                           jnp.asarray(val), N_COLS)
+        else:
+            last_j, sum_j = stream_contract_runs(
+                jnp.asarray(rid), jnp.asarray(col), jnp.asarray(val), N_COLS)
+        np.testing.assert_array_equal(last_t.numpy(), np.asarray(last_j))
+        np.testing.assert_array_equal(sum_t.numpy(), np.asarray(sum_j))
+
+
+def test_contract_broadcast_rid_matches_full_plane(rng):
+    """A per-row rid broadcast along W (the levels' and the finish's form)
+    gives the same result as the materialized plane."""
+    rid, col, val = _sorted_rect(rng, 4, 256, const_rid=True)
+    rid_row = torch.from_numpy(rid[:, 0].copy())
+    full = contract.stream_contract(torch.from_numpy(rid),
+                                    torch.from_numpy(col),
+                                    torch.from_numpy(val), N_COLS)
+    bcast = contract.stream_contract(rid_row[:, None].expand(4, 256),
+                                     torch.from_numpy(col),
+                                     torch.from_numpy(val), N_COLS)
+    for a, b in zip(full, bcast):
+        assert torch.equal(a, b)
+
+
+def _assert_same_sort(key, pays, key_o, pays_o):
+    np.testing.assert_array_equal(key_o, np.sort(key, axis=1))
+    for p, po in zip(pays, pays_o):
+        for r in range(key.shape[0]):
+            assert (sorted(zip(key[r].tolist(), p[r].tolist()))
+                    == sorted(zip(key_o[r].tolist(), po[r].tolist())))
+
+
+@pytest.mark.parametrize("n_pay", [1, 3])
+def test_sort_plain_matches_jax_bitonic(rng, n_pay):
+    R, W = 8, 1024
+    key = rng.integers(0, 200, size=(R, W)).astype(np.int32)
+    key[:, -50:] = np.iinfo(np.int32).max      # dead slots, as in the stream
+    pays = [rng.integers(-1000, 1000, size=(R, W)).astype(np.int32)
+            for _ in range(n_pay)]
+    k_t, p_t = bitonic.row_sort(torch.from_numpy(key),
+                                [torch.from_numpy(p) for p in pays])
+    k_t = k_t.numpy()
+    p_t = [p.numpy() for p in p_t]
+    _assert_same_sort(key, pays, k_t, p_t)
+    for fn in (jbitonic.bitonic_sort_pairs_pallas,
+               jbitonic.bitonic_sort_pairs):
+        k_j, p_j = fn(jnp.asarray(key), [jnp.asarray(p) for p in pays])
+        np.testing.assert_array_equal(k_t, np.asarray(k_j))
+        _assert_same_sort(key, pays, np.asarray(k_j),
+                          [np.asarray(p) for p in p_j])
+
+
+def test_sort_float_payload_round_trips(rng):
+    key = rng.integers(0, 50, size=(3, 64)).astype(np.int32)
+    val = rng.standard_normal((3, 64)).astype(np.float32)
+    k_s, (v_s,) = bitonic.row_sort(torch.from_numpy(key),
+                                   [torch.from_numpy(val)])
+    assert v_s.dtype == torch.float32
+    _assert_same_sort(key, [val.view(np.int32)], k_s.numpy(),
+                      [v_s.numpy().view(np.int32)])
+
+
+def test_cpu_wrappers_take_plain_path_and_do_not_count(rng):
+    rid, col, val = _sorted_rect(rng, 4, 128)
+    n1, n2 = contract.LAUNCHES, bitonic.LAUNCHES
+    contract.stream_contract(torch.from_numpy(rid), torch.from_numpy(col),
+                             torch.from_numpy(val), N_COLS)
+    bitonic.row_sort(torch.from_numpy(col), [torch.from_numpy(val)])
+    assert (contract.LAUNCHES, bitonic.LAUNCHES) == (n1, n2)
+
+
+@pytest.mark.parametrize("case", ["sort_width", "sort_payloads",
+                                  "sort_dtype", "contract_dtype",
+                                  "contract_shape"])
+def test_wrappers_reject_what_kernels_do_not_take(case):
+    k = torch.zeros((2, 64), dtype=torch.int32)
+    v = torch.zeros((2, 64), dtype=torch.float32)
+    with pytest.raises(ValueError):
+        if case == "sort_width":
+            bitonic.row_sort(torch.zeros((2, 12), dtype=torch.int32), [])
+        elif case == "sort_payloads":
+            bitonic.row_sort(k, [k, k, k, k])
+        elif case == "sort_dtype":
+            bitonic.row_sort(k.long(), [])
+        elif case == "contract_dtype":
+            contract.stream_contract(k, k, v.double(), N_COLS)
+        else:
+            contract.stream_contract(k[:, :32], k, v, N_COLS)

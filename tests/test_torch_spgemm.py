@@ -1,0 +1,201 @@
+"""speck_tpu_torch.spgemm against speck_tpu.spgemm and the scipy oracle.
+
+The same seeded matrices and configuration go through both packages:
+row_offsets and col_ids must be equal, values within rtol 1e-5 of JAX
+(fp32 duplicate sums may be taken in another order), and the port must
+pass compare_csr against the float64 oracle at rel_tol 2e-3 (the JAX
+stream tests' own bar). Both sides disable the DIA and dense routes,
+which the small matrices would otherwise take."""
+
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import scipy.sparse as sp
+
+import speck_tpu as st
+import speck_tpu_torch as pt
+
+_BASE = dict(enable_dense=False, enable_dia=False, enable_sdia=False,
+             dia_rows=False)
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _powerlaw(m=1500, avg=6, alpha=2.2, seed=23):
+    rs = np.random.RandomState(seed)
+    lens = np.minimum((rs.pareto(alpha, m) + 1) * avg * 0.5, m // 4
+                      ).astype(np.int64)
+    rows = np.repeat(np.arange(m), lens)
+    mat = sp.csr_matrix((rs.standard_normal(rows.shape[0]),
+                         (rows, rs.randint(0, m, rows.shape[0]))),
+                        shape=(m, m))
+    mat.sum_duplicates()
+    return st.HostCSR.from_scipy(mat)
+
+
+def _wide(n=160, seed=7):
+    """Random 160x160 at density 0.08 plus one dense row (wide at W=64)."""
+    rs = np.random.RandomState(seed)
+    lil = sp.random(n, n, 0.08, format="csr", random_state=rs).tolil()
+    lil[0, :] = rs.standard_normal(n)
+    mat = lil.tocsr()
+    mat.data = rs.standard_normal(mat.nnz)
+    return st.HostCSR.from_scipy(mat)
+
+
+def _direct(m=120, seed=3):
+    """Single-nonzero rows (direct copies), general rows and empty rows."""
+    rs = np.random.RandomState(seed)
+    rows, cols = [], []
+    for r in range(m):
+        if r % 7 == 3:
+            continue
+        k = 1 if r % 2 == 0 else int(rs.randint(2, 9))
+        rows += [r] * k
+        cols += list(rs.choice(m, k, replace=False))
+    mat = sp.csr_matrix((rs.standard_normal(len(rows)), (rows, cols)),
+                        shape=(m, m))
+    return st.HostCSR.from_scipy(mat)
+
+
+SLICE_CASES = {
+    "powerlaw": (_powerlaw, dict(stream_width=256, product_budget=1 << 13)),
+    "wide": (_wide, dict(stream_width=64, product_budget=1 << 10)),
+    "two_phase": (_wide, dict(stream_width=64, product_budget=1 << 10,
+                              fused_staging_budget=0)),
+    # a tiny stream_max_width forces the merge-level ladder
+    "ladder": (_wide, dict(stream_width=64, product_budget=1 << 10,
+                           stream_max_width=64)),
+    "direct": (_direct, dict(stream_width=64, product_budget=1 << 10)),
+}
+
+
+def _run_both(h, kw, execute_new=False):
+    cj = st.SpgemmConfig(**dict(_BASE, **kw))
+    ct = pt.SpgemmConfig(**dict(_BASE, **kw))
+    Aj = st.device_put_csr(h)
+    At = pt.device_put_csr(pt.HostCSR.from_host(h))
+    pj = st.plan_spgemm(Aj, Aj, cj)
+    ptp = pt.plan_spgemm(At, At, ct)
+    if not execute_new:
+        return h, st.device_get_csr(pj.execute()), \
+            pt.device_get_csr(ptp.execute()), ptp
+    h2 = st.HostCSR(rows=h.rows, cols=h.cols, row_offsets=h.row_offsets,
+                    col_ids=h.col_ids, data=h.data * 2.0 + 0.25)
+    Aj2 = st.device_put_csr(h2)
+    At2 = pt.device_put_csr(pt.HostCSR.from_host(h2))
+    return h2, st.device_get_csr(pj.execute(Aj2, Aj2)), \
+        pt.device_get_csr(ptp.execute(At2, At2)), ptp
+
+
+def _assert_matches(h, Cj, Ct):
+    np.testing.assert_array_equal(np.asarray(Ct.row_offsets, np.int64),
+                                  np.asarray(Cj.row_offsets, np.int64))
+    np.testing.assert_array_equal(np.asarray(Ct.col_ids, np.int64),
+                                  np.asarray(Cj.col_ids, np.int64))
+    np.testing.assert_allclose(Ct.data, Cj.data, rtol=1e-5, atol=1e-6)
+    hp = pt.HostCSR.from_host(h)
+    r = pt.compare_csr(pt.oracle_spgemm(hp, hp), Ct, compare_data=True,
+                       rel_tol=2e-3)
+    assert r.ok, r.message
+
+
+@pytest.mark.parametrize("case", list(SLICE_CASES))
+def test_spgemm_matches_jax_and_oracle(case):
+    make, kw = SLICE_CASES[case]
+    h, Cj, Ct, plan = _run_both(make(), kw)
+    _assert_matches(h, Cj, Ct)
+    lo = plan.stream.layout
+    if case in ("wide", "two_phase", "ladder"):
+        assert lo.n_wide > 0
+    if case == "ladder":
+        assert plan.stream.finish["classes"] is None
+    if case == "two_phase":
+        assert not plan.stream.fused
+    if case == "direct":
+        assert plan.groups and lo.n_direct_rows > 0
+
+
+@pytest.mark.parametrize("case", ["wide", "two_phase"])
+def test_plan_execute_with_new_values(case):
+    make, kw = SLICE_CASES[case]
+    h2, Cj, Ct, _ = _run_both(make(), kw, execute_new=True)
+    _assert_matches(h2, Cj, Ct)
+
+
+def test_spgemm_entry_point_and_cli(tmp_path):
+    """The public spgemm and the port's runspECK CLI on a .mtx file."""
+    h = pt.HostCSR.from_host(_direct())
+    cfg = pt.SpgemmConfig(**dict(_BASE, stream_width=64))
+    A = pt.device_put_csr(h)
+    C = pt.device_get_csr(pt.spgemm(A, A, cfg))
+    assert pt.compare_csr(pt.oracle_spgemm(h, h), C, compare_data=True,
+                          rel_tol=2e-3).ok
+    from speck_tpu_torch.cli import main
+    from speck_tpu_torch.formats.csr import HostCOO
+    from speck_tpu_torch.formats.mtx import store_mtx
+
+    coo = h.to_scipy().tocoo()
+    path = str(tmp_path / "m.mtx")
+    store_mtx(path, HostCOO(h.rows, h.cols, coo.row.astype(np.uint32),
+                            coo.col.astype(np.uint32), coo.data))
+    ini = tmp_path / "c.ini"
+    ini.write_text("IterationsWarmUp=1\nIterationsExecution=1\n"
+                   "CompareResult=true\nEnableDense=false\nEnableDia=false\n"
+                   "EnableSdia=false\nDiaRows=false\n")
+    assert main(["cli", path, str(ini)]) == 0
+
+
+def test_float64_raises():
+    h = pt.HostCSR.from_host(_direct())
+    A = pt.device_put_csr(h, np.float64)
+    with pytest.raises(NotImplementedError, match="float64"):
+        pt.spgemm(A, A, pt.SpgemmConfig(**_BASE))
+
+
+def test_banded_input_raises_where_dia_would_run():
+    """A banded matrix passes the reference's DIA gate: the port raises
+    instead of taking a route it does not have."""
+    n = 400
+    mat = sp.diags([np.ones(n - abs(o)) for o in range(-3, 4)],
+                   list(range(-3, 4)), shape=(n, n), format="csr")
+    h = st.HostCSR.from_scipy(mat)
+    Aj = st.device_put_csr(h)
+    assert st.plan_spgemm(Aj, Aj).dia is not None   # the reference's route
+    At = pt.device_put_csr(pt.HostCSR.from_host(h))
+    with pytest.raises(NotImplementedError, match="DIA"):
+        pt.spgemm(At, At)
+
+
+@pytest.mark.parametrize("knob", [dict(enable_accum=True),
+                                  dict(stream_expand_impl="decode"),
+                                  dict(stream_compact_impl="scatter"),
+                                  dict(stream_sort_impl="bitonic")])
+def test_unported_knobs_raise(knob):
+    h = pt.HostCSR.from_host(_direct())
+    A = pt.device_put_csr(h)
+    with pytest.raises(NotImplementedError):
+        pt.spgemm(A, A, pt.SpgemmConfig(**dict(_BASE, **knob)))
+
+
+def test_port_imports_no_jax():
+    code = (
+        "import sys, numpy as np, scipy.sparse as sp\n"
+        "import speck_tpu_torch as pt\n"
+        "m = sp.random(50, 50, 0.1, format='csr',"
+        " random_state=np.random.RandomState(0))\n"
+        "h = pt.HostCSR.from_scipy(m)\n"
+        "A = pt.device_put_csr(h)\n"
+        "cfg = pt.SpgemmConfig(enable_dense=False, enable_dia=False,"
+        " enable_sdia=False, dia_rows=False)\n"
+        "C = pt.device_get_csr(pt.spgemm(A, A, cfg))\n"
+        "assert pt.compare_csr(pt.oracle_spgemm(h, h), C).ok\n"
+        "assert 'jax' not in sys.modules, 'jax was imported'\n"
+        "assert not any(k.startswith('speck_tpu.') or k == 'speck_tpu'"
+        " for k in sys.modules)\n")
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
