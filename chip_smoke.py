@@ -1,7 +1,9 @@
 #!/usr/bin/env python3
 """Smoke check of speck_tpu_torch on one CUDA card: build the kernels,
 hold each against its plain torch version, then drive the product-stream
-SpGEMM once at bench config 3's size and check it against scipy.
+SpGEMM once at bench config 3's size, the fixed-cap ESC (esc_fixed) at
+bench config 1's size and the gather probes, and check each against its
+reference.
 
     python3 chip_smoke.py
 
@@ -21,40 +23,51 @@ Phases (any failure raises and exits non-zero; nothing falls back):
      (structure exact, values rel_tol 2e-3); cold call, median of 3 warm
      calls, GFLOPS = 2 * products / time;
   5. plan.execute(A2, A2) with new values on the same structure (the
-     two-phase numeric path) against the oracle.
+     two-phase numeric path) against the oracle;
+  6. K3 contract_runs against its plain version at (65536, 2048)
+     (esc_fixed's rectangle on config 1) and (64, 256) (the entry's), and
+     K2 at esc_fixed's sort shapes: mask equal, sums within atol 1e-6 +
+     rtol 1e-5 of the run prefix's sum of magnitudes; medians of 5 and
+     the bound;
+  7. esc_fixed on make_banded(65536, 16, seed=3) (bench config 1), A·A,
+     f32, cap = 2048 by the fixed-cap rule: launch counts of K3 and K2 in
+     that call > 0; result against the oracle (structure exact, values
+     rel_tol 2e-3); cold call, median of 3 warm calls, GFLOPS, peak
+     device memory; then entry()'s fn once against the oracle;
+  8. the gather probes' mains (python -m speck_tpu_torch.probes...) with
+     their launch counts, then sublane_gather (N = 2^22, S = 2048) and
+     run_copy (G = 512, K = 64, L = 128 over a 2^21 source) against their
+     plain versions, exactly equal; times and GB/s.
+Bounds (bound_ms): the bytes each function must move (inputs read once,
+outputs written once) over 3.35 TB/s, the H100 SXM's device memory rate
+(NVIDIA's data sheet); every kernel here is bound by bytes. library_ms is
+one PyTorch call computing the same function, where there is one; the port
+never calls it.
 The last lines are the kernels' JSON line, the card's nvidia-smi line and
 {"ok": true, "device": {...}}.
 """
 
 import json
 import statistics
-import subprocess
 import sys
 import time
 
 import numpy as np
 import torch
 
+from speck_tpu_torch.probes.timing import card, cuda_ms
+
+
+HBM_BYTES_PER_MS = 3.35e12 / 1e3
+
+
+def bound_ms(nbytes):
+    return nbytes / HBM_BYTES_PER_MS
+
 
 def check(cond, what):
     if not cond:
         raise RuntimeError(f"chip_smoke: {what}")
-
-
-def cuda_ms(fn, reps=5):
-    """Median over ``reps`` calls of fn's device time (CUDA events), after
-    one warm-up call."""
-    fn()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        torch.cuda.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
 
 
 def pair_multiset(key, pay):
@@ -97,6 +110,28 @@ def contract_case(gen, R, W, const_rid, n_cols=4096):
     return float(err.max()), ms, plain_ms
 
 
+def contract_runs_case(gen, R, W, n_cols=4096):
+    from speck_tpu_torch.ops import contract
+
+    dev = torch.device("cuda")
+    col = torch.sort(torch.randint(0, n_cols, (R, W), generator=gen,
+                                   device=dev, dtype=torch.int32), 1).values
+    dead = torch.arange(W, device=dev)[None, :] >= W - W // 8
+    col = torch.where(dead, n_cols, col).to(torch.int32).contiguous()
+    val = torch.randn((R, W), generator=gen, device=dev)
+    last_k, sum_k = contract.contract_runs(col, val, n_cols)
+    last_p, sum_p = contract.contract_runs_plain(col, val, n_cols)
+    torch.cuda.synchronize()
+    check(torch.equal(last_k, last_p), f"K3 mask differs at {(R, W)}")
+    mag = contract.contract_runs_plain(col, val.abs(), n_cols)[1]
+    err = (sum_k - sum_p).abs()
+    check(bool((err <= 1e-6 + 1e-5 * mag).all()),
+          f"K3 sums differ at {(R, W)}: max abs {float(err.max())}")
+    ms = cuda_ms(lambda: contract.contract_runs(col, val, n_cols))
+    plain_ms = cuda_ms(lambda: contract.contract_runs_plain(col, val, n_cols))
+    return float(err.max()), ms, plain_ms
+
+
 def sort_case(gen, R, W, n_pay):
     from speck_tpu_torch.ops import bitonic
 
@@ -117,7 +152,141 @@ def sort_case(gen, R, W, n_pay):
               f"K2 (key, payload) pairs differ at {(R, W, n_pay)}")
     ms = cuda_ms(lambda: bitonic.row_sort(key, pays))
     plain_ms = cuda_ms(lambda: bitonic.sort_plain(key, pays))
-    return 0.0, ms, plain_ms
+
+    def library():  # one unstable torch.sort, then a gather per payload
+        key_s, perm = torch.sort(key, dim=1)
+        return key_s, [torch.gather(p, 1, perm) for p in pays]
+
+    return 0.0, ms, plain_ms, cuda_ms(library)
+
+
+def esc_phase(pt, smi):
+    """Phase 7: esc_fixed on bench config 1 against the oracle; returns the
+    launch counts of that call and the summary line."""
+    from speck_tpu_torch import entry as tentry
+    from speck_tpu_torch.ops import bitonic, contract
+    from speck_tpu_torch.ops.esc import esc_fixed
+    from speck_tpu_torch.parallel import padded_to_host_csr
+    from speck_tpu_torch.utils.generators import make_banded
+
+    h = make_banded(65536, half_band=16, seed=3)
+    ref = pt.oracle_spgemm(h, h)
+    cap = tentry.fixed_cap(h, h)
+    check(cap == 2048, f"config 1 fixed cap is {cap}, not 2048")
+    b_len = np.diff(np.asarray(h.row_offsets, np.int64))
+    products = float(b_len[np.asarray(h.col_ids, np.int64)].sum())
+    args = tentry.esc_args(h, h, "cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base_mem = torch.cuda.memory_allocated()
+    contract.RUNS_LAUNCHES = 0
+    contract.LAUNCHES = 0
+    bitonic.LAUNCHES = 0
+    t0 = time.perf_counter()
+    out = esc_fixed(*args, cap=cap, n_cols=h.cols)
+    torch.cuda.synchronize()
+    cold_ms = (time.perf_counter() - t0) * 1e3
+    launches = {"contract_runs": contract.RUNS_LAUNCHES,
+                "row_sort": bitonic.LAUNCHES}
+    peak = torch.cuda.max_memory_allocated()
+    check(all(v > 0 for v in launches.values()),
+          f"a kernel was not launched on the esc_fixed path: {launches}")
+    check(contract.LAUNCHES == 0, "the esc_fixed path launched K1")
+    got = padded_to_host_csr(*out, h.rows, h.cols)
+    r = pt.compare_csr(ref, got)
+    check(r.ok, f"esc_fixed structure differs from the oracle: {r.message}")
+    r = pt.compare_csr(ref, got, compare_data=True, rel_tol=2e-3)
+    check(r.ok, f"esc_fixed values differ from the oracle: {r.message}")
+    check(bool(np.isfinite(got.data).all()), "non-finite values in C")
+    del out
+    warm = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        esc_fixed(*args, cap=cap, n_cols=h.cols)
+        torch.cuda.synchronize()
+        warm.append((time.perf_counter() - t0) * 1e3)
+    warm_ms = statistics.median(warm)
+    line = (f"esc_fixed config 1 A*A f32 cap {cap} [{smi}]: nnz(C)="
+            f"{got.nnz} products={products:.0f} cold {cold_ms:.1f} ms, warm "
+            f"median of 3 {warm_ms:.2f} ms (all "
+            f"{[round(w, 2) for w in warm]}), GFLOPS "
+            f"{2 * products / (warm_ms * 1e6):.3f}, peak memory "
+            f"{peak / 2**30:.2f} GiB ({(peak - base_mem) / 2**30:.2f} GiB "
+            f"above the inputs); launches {launches}")
+    print(line, flush=True)
+
+    a, b = tentry._example_matrices()
+    fn, eargs = tentry.entry()
+    got = padded_to_host_csr(*fn(*eargs), a.rows, b.cols)
+    r = pt.compare_csr(pt.oracle_spgemm(a, b), got, compare_data=True,
+                       rel_tol=2e-3)
+    check(r.ok, f"entry() differs from the oracle: {r.message}")
+    print("entry(): fn(*args) on the card matches the oracle", flush=True)
+    return launches, line
+
+
+def probe_phase(gen, smi):
+    """Phase 8: the probes' mains with their launch counts, then each probe
+    kernel against its plain version at the scripts' sizes; returns the
+    counts and each kernel's measured numbers."""
+    from speck_tpu_torch.probes import expand_microbench as em
+    from speck_tpu_torch.probes import gather_microbench2 as gm
+
+    for k in gm.LAUNCHES:
+        gm.LAUNCHES[k] = 0
+    gm.main()
+    em.main([])
+    launches = dict(gm.LAUNCHES)
+    check(all(v > 0 for v in launches.values()),
+          f"a probe kernel was not launched by the probes: {launches}")
+
+    dev = torch.device("cuda")
+    N, S = 1 << 22, 2048
+    tab = torch.randn((S, 128), generator=gen, device=dev)
+    idx = torch.randint(0, S, (N // 128, 128), generator=gen, device=dev,
+                        dtype=torch.int32)
+    check(torch.equal(gm.sublane_gather(idx, tab),
+                      gm.sublane_gather_plain(idx, tab)),
+          "sublane_gather differs from its plain version")
+    idx64 = idx.long()
+    g_bytes = 4 * N + 4 * S * 128 + 4 * N
+    out = {"sublane_gather": {
+        "max_abs_err": 0.0,
+        "ms": cuda_ms(lambda: gm.sublane_gather(idx, tab)),
+        "plain_ms": cuda_ms(lambda: gm.sublane_gather_plain(idx, tab)),
+        "bound_ms": bound_ms(g_bytes), "bound_by": "bytes",
+        "library_ms": cuda_ms(lambda: torch.gather(tab, 0, idx64))}}
+
+    G, K, L, n = 512, 64, 128, 1 << 21
+    src = torch.randn(n, generator=gen, device=dev)
+    offs = torch.randint(0, n - L + 1, (G, K), generator=gen, device=dev,
+                         dtype=torch.int32)
+    check(torch.equal(gm.run_copy(offs, src, L),
+                      gm.run_copy_plain(offs, src, L)),
+          "run_copy differs from its plain version")
+    ix = (offs.long()[..., None] + torch.arange(L, device=dev)).reshape(-1)
+    # source elements this run's offsets cover (each read once)
+    edge = torch.zeros(n + 1, dtype=torch.int32, device=dev)
+    flat = offs.reshape(-1).long()
+    edge.index_add_(0, flat, torch.ones_like(flat, dtype=torch.int32))
+    edge.index_add_(0, flat + L, -torch.ones_like(flat, dtype=torch.int32))
+    covered = int((torch.cumsum(edge, 0) > 0).sum())
+    c_bytes = 4 * G * K + 4 * covered + 4 * G * K * L
+    out["run_copy"] = {
+        "max_abs_err": 0.0,
+        "ms": cuda_ms(lambda: gm.run_copy(offs, src, L)),
+        "plain_ms": cuda_ms(lambda: gm.run_copy_plain(offs, src, L)),
+        "bound_ms": bound_ms(c_bytes), "bound_by": "bytes",
+        "library_ms": cuda_ms(lambda: src[ix])}
+    for name, nbytes in (("sublane_gather", g_bytes), ("run_copy", c_bytes)):
+        m = out[name]
+        print(f"{name}: kernel {m['ms']:.4f} ms "
+              f"({nbytes / m['ms'] / 1e6:.1f} GB/s), plain "
+              f"{m['plain_ms']:.4f} ms, library {m['library_ms']:.4f} ms, "
+              f"bound {m['bound_ms']:.4f} ms; launches in the probes "
+              f"{launches[name]} [{smi}]", flush=True)
+    return launches, out
 
 
 def main():
@@ -128,10 +297,7 @@ def main():
     from speck_tpu_torch.ops import bitonic, build, contract
     from speck_tpu_torch.utils.generators import make_powerlaw
 
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
+    smi = card()
     kind = torch.cuda.get_device_name(0)
     print(f"card: {smi}", flush=True)
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
@@ -158,9 +324,11 @@ def main():
     k2 = {}
     for R, W, n_pay in [(512, 8192, 1), (512, 8192, 3), (2, 1 << 20, 1)]:
         k2[(R, W, n_pay)] = sort_case(gen, R, W, n_pay)
-        _, ms, pms = k2[(R, W, n_pay)]
+        _, ms, pms, lms = k2[(R, W, n_pay)]
         print(f"K2 row_sort ({R}, {W}) payloads={n_pay}: kernel {ms:.4f} ms,"
-              f" plain {pms:.4f} ms [{smi}]", flush=True)
+              f" plain {pms:.4f} ms, torch.sort + gather {lms:.4f} ms, bound "
+              f"{bound_ms(8 * (1 + n_pay) * R * W):.4f} ms [{smi}]",
+              flush=True)
 
     # 4. the main path at bench config 3's size
     t0 = time.perf_counter()
@@ -173,6 +341,7 @@ def main():
     A = pt.device_put_csr(h, torch.float32, "cuda")
     torch.cuda.synchronize()
     contract.LAUNCHES = 0
+    contract.RUNS_LAUNCHES = 0
     bitonic.LAUNCHES = 0
     t0 = time.perf_counter()
     plan = pt.plan_spgemm(A, A, cfg)
@@ -181,6 +350,7 @@ def main():
     cold_ms = (time.perf_counter() - t0) * 1e3
     launches = {"stream_contract": contract.LAUNCHES,
                 "row_sort": bitonic.LAUNCHES}
+    check(contract.RUNS_LAUNCHES == 0, "the stream path launched K3")
     lo = plan.stream.layout
     print(f"config 3: m={h.rows} nnz(A)={h.nnz} generated in {t_gen:.2f} s, "
           f"oracle {t_ref:.2f} s; layout W={lo.W} G={lo.G} "
@@ -240,20 +410,69 @@ def main():
     print(f"plan.execute(A2, A2): {reuse_ms:.1f} ms, matches the oracle",
           flush=True)
 
+    del A, A2, C, C2, Cw, plan
+    torch.cuda.empty_cache()
+
+    # 6. K3, and K2 at esc_fixed's sort shapes
+    k3 = {}
+    for R, W in [(65536, 2048), (64, 256)]:
+        k3[(R, W)] = contract_runs_case(gen, R, W)
+        err, ms, pms = k3[(R, W)]
+        print(f"K3 contract_runs ({R}, {W}): max_abs_err {err:.3g}, kernel "
+              f"{ms:.4f} ms, plain {pms:.4f} ms, bound "
+              f"{bound_ms(13 * R * W):.4f} ms [{smi}]", flush=True)
+    for R, W, n_pay in [(65536, 4096, 2), (65536, 2048, 1)]:
+        _, ms, pms, lms = sort_case(gen, R, W, n_pay)
+        print(f"K2 row_sort ({R}, {W}) payloads={n_pay} (esc_fixed): kernel "
+              f"{ms:.4f} ms, plain {pms:.4f} ms, torch.sort + gather "
+              f"{lms:.4f} ms, bound {bound_ms(8 * (1 + n_pay) * R * W):.4f} "
+              f"ms [{smi}]", flush=True)
+    torch.cuda.empty_cache()
+
+    # 7. esc_fixed at bench config 1's size
+    esc_launches, esc_line = esc_phase(pt, smi)
+    torch.cuda.empty_cache()
+
+    # 8. the gather probes
+    probe_launches, probes = probe_phase(gen, smi)
+
+    k1_bytes = 17 * 512 * 8192
     kernels = [
         {"name": "stream_contract", "route": "cuda",
          "source": "speck_tpu_torch/csrc/stream_contract.cu",
          "replaces": "speck_tpu/ops/pallas_kernels.py:122",
          "launches": launches["stream_contract"],
          "max_abs_err": max(v[0] for v in k1.values()),
-         "ms": k1[(512, 8192)][1], "plain_ms": k1[(512, 8192)][2]},
+         "ms": k1[(512, 8192)][1], "plain_ms": k1[(512, 8192)][2],
+         "bound_ms": bound_ms(k1_bytes), "bound_by": "bytes",
+         "library_ms": None},
         {"name": "row_sort", "route": "cuda",
          "source": "speck_tpu_torch/csrc/row_sort.cu",
          "replaces": "speck_tpu/ops/bitonic.py:172",
-         "launches": launches["row_sort"],
+         "launches": launches["row_sort"] + esc_launches["row_sort"],
          "max_abs_err": max(v[0] for v in k2.values()),
-         "ms": k2[(512, 8192, 1)][1], "plain_ms": k2[(512, 8192, 1)][2]},
+         "ms": k2[(512, 8192, 1)][1], "plain_ms": k2[(512, 8192, 1)][2],
+         "bound_ms": bound_ms(16 * 512 * 8192), "bound_by": "bytes",
+         "library_ms": k2[(512, 8192, 1)][3]},
+        {"name": "contract_runs", "route": "cuda",
+         "source": "speck_tpu_torch/csrc/stream_contract.cu",
+         "replaces": "speck_tpu/ops/pallas_kernels.py:153",
+         "launches": esc_launches["contract_runs"],
+         "max_abs_err": max(v[0] for v in k3.values()),
+         "ms": k3[(65536, 2048)][1], "plain_ms": k3[(65536, 2048)][2],
+         "bound_ms": bound_ms(13 * 65536 * 2048), "bound_by": "bytes",
+         "library_ms": None},
     ]
+    for name, replaces in [
+            ("sublane_gather", "scripts/gather_microbench2.py:143"),
+            ("run_copy", "scripts/gather_microbench2.py:195 and "
+                         "scripts/expand_microbench.py:121")]:
+        kernels.append(dict(
+            {"name": name, "route": "cuda",
+             "source": "speck_tpu_torch/csrc/gather_probes.cu",
+             "replaces": replaces, "launches": probe_launches[name]},
+            **probes[name]))
+    print(esc_line, flush=True)
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -1,15 +1,18 @@
 """speck_tpu_torch — the PyTorch/CUDA port of speck_tpu's SpGEMM.
 
 Computes C = A @ B for CSR sparse matrices with torch tensors, on an
-NVIDIA Hopper GPU (hand-written CUDA kernels for the stream contract and
-the row sorts, ``csrc/``) or, with the kernels' plain torch versions, on
-the CPU. It mirrors ``speck_tpu``'s public names and plans; it imports
-torch, numpy and scipy, never jax.
+NVIDIA Hopper GPU (hand-written CUDA kernels for the contracts, the row
+sorts and the gather probes, ``csrc/``). The entry points run on the first
+CUDA card unless the caller passes ``device="cpu"``, which runs the
+kernels' plain torch versions; without a card the default raises. It
+mirrors ``speck_tpu``'s public names and plans; it imports torch, numpy
+and scipy, never jax.
 
-This slice ports the product-stream route (analysis, planning, chunked
-count-and-stage, wide-row levels and finish, gather emission) and the
-direct-copy route. Other routes raise ``NotImplementedError`` (see
-ROADMAP.md).
+Ported so far: the product-stream route (analysis, planning, chunked
+count-and-stage, wide-row levels and finish, gather emission), the
+direct-copy route, the fixed-cap expand-sort-contract ``ops.esc.esc_fixed``
+with its entry (``entry.entry``), and the gather probes (``probes/``).
+Other routes raise ``NotImplementedError`` (see ROADMAP.md).
 """
 
 from .formats.csr import HostCOO, HostCSR, coo_to_csr, csr_transpose

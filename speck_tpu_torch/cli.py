@@ -3,8 +3,9 @@
     python -m speck_tpu_torch.cli matrix.mtx [config.ini]
 
 Loads the matrix (B = A if square, else A^T), runs the warmup and the
-measured iterations on the first CUDA card (the CPU when there is none),
-and prints nnz(C), the mean complete-call time, GFLOPS and nnz(C)/s.
+measured iterations on the first CUDA card (without one it raises; a
+caller of ``main`` passes ``device="cpu"`` to run on the CPU), and prints
+nnz(C), the mean complete-call time, GFLOPS and nnz(C)/s.
 Config keys: InputFile, IterationsWarmUp, IterationsExecution,
 TrackIndividualTimes, TrackCompleteTimes, CompareResult, and the
 SpgemmConfig tuning keys.
@@ -15,7 +16,7 @@ from __future__ import annotations
 import sys
 
 
-def main(argv=None):
+def main(argv=None, device=None):
     argv = list(sys.argv if argv is None else argv)
     from .executor import Executor
     from .utils.config import Config
@@ -32,8 +33,8 @@ def main(argv=None):
               "Usage: python -m speck_tpu_torch.cli <matrix.mtx> "
               "[config.ini]", file=sys.stderr)
         return 1
-    print(f"device: {device_info().summary()}")
-    result = Executor(path, config=config).run()
+    print(f"device: {device_info(device).summary()}")
+    result = Executor(path, config=config, device=device).run()
     return 0 if result.compared_ok in (None, True) else 2
 
 

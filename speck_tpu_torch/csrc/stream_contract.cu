@@ -1,20 +1,29 @@
-// Stream contract kernel (K1) for NVIDIA Hopper (sm_90a).
+// Contract kernels for NVIDIA Hopper (sm_90a): K1 (stream contract) and K3
+// (column contract), one tiled segmented scan with a compile-time switch.
 //
-// Replaces: speck_tpu/ops/pallas_kernels.py, stream_contract_runs (Pallas
+// K1 replaces: speck_tpu/ops/pallas_kernels.py, stream_contract_runs (Pallas
 // body _stream_contract_kernel), the contract stage of every stream chunk,
 // merge level and wide finish.
+// K3 replaces: speck_tpu/ops/pallas_kernels.py:153, contract_runs (Pallas
+// body _contract_kernel, :46), the contract of esc._contract and of
+// esc_fixed (whose JAX form computes it as _run_boundaries + _run_sums).
 //
-// What it computes, per row of a (rid, col)-sorted (R, W) rectangle:
-//   last[i] = (slot i+1 starts a new (rid, col) run, or i is the row end)
+// What they compute, per row of a sorted (R, W) rectangle:
+//   last[i] = (slot i+1 starts a new run, or i is the row end)
 //             and col[i] < n_cols
 //   sums[i] = inclusive sum of val over the run that slot i belongs to,
-//             restarting where (rid, col) changes.
-// rid may be a full plane or a per-row constant (column stride 0).
+//             restarting where the run key changes.
+// K1's run key is (rid, col), rows (rid, col)-sorted; rid may be a full
+// plane or a per-row constant (column stride 0). K3's run key is col
+// alone, with the JAX form's sentinels: slot -1 holds -1 and slot W holds
+// -2, so a row's first and last slots compare against those.
 //
-// What bounds it on an H100: device memory. Each slot reads 12 bytes
-// (rid, col, val) and writes 5 (last, sum) for a handful of integer and
-// float operations, far below the card's operations-per-byte balance.
-// A (512, 8192) chunk moves ~71 MB, about 21 us at 3.35 TB/s.
+// What bounds them on an H100: device memory. K1 reads 12 bytes per slot
+// (rid, col, val) and K3 8 (col, val); both write 5 (last, sum), for a
+// handful of integer and float operations, far below the card's
+// operations-per-byte balance. A (512, 8192) K1 chunk moves ~71 MB, about
+// 21 us at 3.35 TB/s; esc_fixed's (65536, 2048) K3 rectangle moves
+// ~1.75 GB, about 0.52 ms.
 //
 // What the design does about it: one pass over the data, no intermediate
 // planes in device memory (the plain form makes 2*log2(W) full passes).
@@ -24,9 +33,10 @@
 // sequentially over a thread's 4 slots, by warp shuffles across a warp,
 // through shared memory across the 16 warps, and carries a (value, flag)
 // pair from tile to tile, so a row of any width (up to 2^24 in the wide
-// finish) is one CTA. Sums are taken in another order than the Hillis-
-// Steele doubling of the Pallas and plain forms: equal at tolerance, the
-// mask exactly.
+// finish) is one CTA. K3 is the same kernel with kHasRid = false: it never
+// loads a rid, so it moves 8 + 5 bytes per slot. Sums are taken in another
+// order than the Hillis-Steele doubling of the Pallas and plain forms:
+// equal at tolerance, the mask exactly.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -60,14 +70,14 @@ __device__ __forceinline__ Seg shfl_up(const Seg& s, int o) {
   return r;
 }
 
+template <bool kHasRid>
 __global__ void __launch_bounds__(kThreads)
-stream_contract_kernel(const int* __restrict__ rid, long long rid_rs,
-                       long long rid_cs, const int* __restrict__ col,
-                       const float* __restrict__ val,
-                       uint8_t* __restrict__ last, float* __restrict__ sums,
-                       long long W, int n_cols) {
+contract_kernel(const int* __restrict__ rid, long long rid_rs,
+                long long rid_cs, const int* __restrict__ col,
+                const float* __restrict__ val, uint8_t* __restrict__ last,
+                float* __restrict__ sums, long long W, int n_cols) {
   __shared__ int s_col[kTile + 2];   // slots base-1 .. base+kTile
-  __shared__ int s_rid[kTile + 2];
+  __shared__ int s_rid[kHasRid ? kTile + 2 : 1];
   __shared__ float s_val[kTile];     // values in, run sums out
   __shared__ uint8_t s_last[kTile];
   __shared__ Seg s_warp[kWarps];
@@ -76,7 +86,7 @@ stream_contract_kernel(const int* __restrict__ rid, long long rid_rs,
   const long long row = blockIdx.x;
   const int* crow = col + row * W;
   const float* vrow = val + row * W;
-  const int* rrow = rid + row * rid_rs;
+  const int* rrow = kHasRid ? rid + row * rid_rs : nullptr;
   uint8_t* lrow = last + row * W;
   float* srow = sums + row * W;
   const int tid = threadIdx.x;
@@ -90,13 +100,14 @@ stream_contract_kernel(const int* __restrict__ rid, long long rid_rs,
     const int n = (int)(W - base < kTile ? W - base : kTile);
     for (int x = tid; x < n + 2; x += kThreads) {
       const long long g = base - 1 + x;
-      int c = 0, r = 0;
-      if (g >= 0 && g < W) {
-        c = crow[g];
-        r = rrow[g * rid_cs];
-      }
+      // outside the row: the column-only form's sentinels (-1 before, -2
+      // after); K1 tests the row ends explicitly instead
+      int c = g < 0 ? -1 : -2;
+      if (g >= 0 && g < W) c = crow[g];
       s_col[x] = c;
-      s_rid[x] = r;
+      if constexpr (kHasRid) {
+        s_rid[x] = (g >= 0 && g < W) ? rrow[g * rid_cs] : 0;
+      }
     }
     for (int x = tid; x < n; x += kThreads) s_val[x] = vrow[base + x];
     __syncthreads();
@@ -111,10 +122,12 @@ stream_contract_kernel(const int* __restrict__ rid, long long rid_rs,
       if (x < n) {
         const long long g = base + x;
         const int s = x + 1;  // staged index of slot x
-        const int chg = (g == 0) || s_col[s] != s_col[s - 1] ||
-                        s_rid[s] != s_rid[s - 1];
-        const int nxt = (g == W - 1) || s_col[s + 1] != s_col[s] ||
-                        s_rid[s + 1] != s_rid[s];
+        int chg = s_col[s] != s_col[s - 1];
+        int nxt = s_col[s + 1] != s_col[s];
+        if constexpr (kHasRid) {
+          chg = chg || (g == 0) || s_rid[s] != s_rid[s - 1];
+          nxt = nxt || (g == W - 1) || s_rid[s + 1] != s_rid[s];
+        }
         s_last[x] = (uint8_t)(nxt && s_col[s] < n_cols);
         items[k].v = s_val[x];
         items[k].f = chg;
@@ -176,9 +189,20 @@ extern "C" int speck_stream_contract(const void* rid, long long rid_rs,
                                      void* stream) {
   if (R <= 0 || W <= 0) return 0;
   if (R > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  stream_contract_kernel<<<(unsigned)R, kThreads, 0, (cudaStream_t)stream>>>(
+  contract_kernel<true><<<(unsigned)R, kThreads, 0, (cudaStream_t)stream>>>(
       (const int*)rid, rid_rs, rid_cs, (const int*)col, (const float*)val,
       (uint8_t*)last, (float*)sums, W, n_cols);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int speck_contract_runs(const void* col, const void* val,
+                                   void* last, void* sums, long long R,
+                                   long long W, int n_cols, void* stream) {
+  if (R <= 0 || W <= 0) return 0;
+  if (R > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  contract_kernel<false><<<(unsigned)R, kThreads, 0, (cudaStream_t)stream>>>(
+      nullptr, 0, 0, (const int*)col, (const float*)val, (uint8_t*)last,
+      (float*)sums, W, n_cols);
   return (int)cudaGetLastError();
 }
 

@@ -6,8 +6,9 @@ TrackCompleteTimes, CompareResult; an optional scipy oracle product; a
 warmup loop, then a measured loop whose mean complete-call time is
 reported with GFLOPS = 2 * products / time and nnz(C)/s. Each timed call
 ends in ``torch.cuda.synchronize()`` on a CUDA device. The device is the
-first CUDA card when one is present, else the CPU (plain torch versions
-of the kernels); every result names it.
+first CUDA card unless the caller passes ``device="cpu"`` (plain torch
+versions of the kernels); without a card the default raises. Every
+result names the device.
 """
 
 from __future__ import annotations
@@ -24,6 +25,7 @@ from .ops.device_csr import device_get_csr, device_put_csr
 from .ops.spgemm import spgemm
 from .utils.compare import compare_csr
 from .utils.config import Config, SpgemmConfig, spgemm_config_from_ini
+from .utils.device import resolve_device
 from .utils.oracle import oracle_spgemm
 from .utils.timings import Timings, sync_tensors
 
@@ -48,9 +50,7 @@ class Executor:
         self.config = config or Config.get()
         self.spgemm_cfg = spgemm_cfg or spgemm_config_from_ini(self.config)
         self.dtype = dtype
-        self.device = torch.device(
-            device if device is not None else
-            ("cuda" if torch.cuda.is_available() else "cpu"))
+        self.device = resolve_device(device)
         self.verbose = verbose
 
     def run(self) -> RunResult:

@@ -1,7 +1,8 @@
 """Build and load the port's CUDA kernels (``speck_tpu_torch/csrc``).
 
-All ``.cu`` sources compile with ``nvcc`` for ``sm_90a`` into one shared
-library with a plain C interface, loaded with ctypes. The library lands in
+Each ``.cu`` source compiles with its own ``nvcc`` for ``sm_90a``, all
+started together, and the objects link into one shared library with a
+plain C interface, loaded with ctypes. The library lands in
 ``build/speck_tpu_torch/`` beside the package, named by a hash of the
 sources and flags, so an edited source rebuilds and an unchanged one is
 reused. Nothing builds at import: the first kernel launch calls
@@ -21,7 +22,7 @@ from typing import Optional
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "speck_tpu_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo"]
+              "-O3", "-Xcompiler", "-fPIC", "-lineinfo"]
 
 _LIB: Optional[ctypes.CDLL] = None
 
@@ -32,9 +33,15 @@ _SIGNATURES = {
     #  n_cols, stream)
     "speck_stream_contract": [_P, _I64, _I64, _P, _P, _P, _P, _I64, _I64,
                               ctypes.c_int, _P],
+    # (col, val, last, sums, R, W, n_cols, stream)
+    "speck_contract_runs": [_P, _P, _P, _P, _I64, _I64, ctypes.c_int, _P],
     # (key_in, key_out, p_in[3], p_out[3], n_payloads, R, W, stream)
     "speck_row_sort": [_P, _P, _P, _P, _P, _P, _P, _P, ctypes.c_int, _I64,
                        _I64, _P],
+    # (idx, tab, out, rows, S, stream)
+    "speck_sublane_gather": [_P, _P, _P, _I64, ctypes.c_int, _P],
+    # (offs, src, out, n_runs, L, stream)
+    "speck_run_copy": [_P, _P, _P, _I64, ctypes.c_int, _P],
 }
 
 
@@ -61,22 +68,44 @@ def library_path() -> Path:
     return BUILD_DIR / f"libspeck_kernels_{h.hexdigest()[:16]}.so"
 
 
+def _run(procs, verbose: bool) -> None:
+    """Wait for every (command, process) and raise if one failed."""
+    failed = []
+    for cmd, proc in procs:
+        stdout, stderr = proc.communicate()
+        if verbose or proc.returncode != 0:
+            print(stdout + stderr)
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}")
+    if failed:
+        raise RuntimeError("\n".join(failed))
+
+
 def build(verbose: bool = False) -> Path:
-    """Compile the kernels unless a library of these sources exists."""
+    """Compile the kernels unless a library of these sources exists: one
+    ``nvcc -c`` per source, all at once, then one link."""
     out = library_path()
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tag = f"{out.stem}.{os.getpid()}"
+    nvcc = _nvcc()
+    flags = (["-Xptxas=-v"] if verbose else []) + NVCC_FLAGS
+    objs, procs = [], []
+    for src in (p for p in _sources() if p.suffix == ".cu"):
+        obj = BUILD_DIR / f"{tag}.{src.stem}.o"
+        cmd = [nvcc, *flags, "-c", "-o", str(obj), str(src)]
+        procs.append((cmd, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+        objs.append(obj)
+    _run(procs, verbose)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *[str(p) for p in _sources() if p.suffix == ".cu"]]
-    if verbose:
-        cmd.insert(1, "-Xptxas=-v")
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if verbose or res.returncode != 0:
-        print(res.stdout + res.stderr)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}): {' '.join(cmd)}")
+    cmd = [nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)]
+    _run([(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                 stderr=subprocess.PIPE, text=True))],
+         verbose)
+    for obj in objs:
+        obj.unlink()
     os.replace(tmp, out)
     return out
 

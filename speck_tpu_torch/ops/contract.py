@@ -1,5 +1,6 @@
-"""The stream contract: run-last mask and segmented run sums of
-(rid, col)-sorted rectangle rows.
+"""The contracts: run-last mask and segmented run sums of sorted rectangle
+rows, with a (rid, col) run key (the stream, K1) or a column key (the
+ESC rectangle, K3).
 
 ``stream_contract`` replaces ``speck_tpu``'s Pallas kernel
 ``pallas_kernels.stream_contract_runs``. On a CUDA tensor it launches the
@@ -12,6 +13,12 @@ with the plain version at tolerance; the mask agrees exactly.
 ``rid`` is either a full (R, W) plane or a per-row constant broadcast to
 (R, W) (stride 0 along W: the merge levels and the wide finish), which the
 kernel reads without materializing.
+
+``contract_runs`` replaces the Pallas kernel ``pallas_kernels.contract_runs``
+(the same function as ``esc._run_boundaries`` + ``esc._run_sums``). On a
+CUDA tensor it launches K3, the no-rid variant of the same CUDA kernel; on a
+CPU tensor it runs ``contract_runs_plain``, bit-identical to the JAX forms.
+Unlike the Pallas kernel it takes any width and any row count.
 """
 
 from __future__ import annotations
@@ -20,9 +27,43 @@ import torch
 
 from . import build
 
-# launches of the CUDA kernel in this process (the plain version does not
-# count)
+# launches of the CUDA kernels in this process (the plain versions do not
+# count): K1 (stream_contract) and K3 (contract_runs)
 LAUNCHES = 0
+RUNS_LAUNCHES = 0
+
+
+def run_sums(val, first):
+    """Segmented inclusive sums restarting at every ``first`` slot, by
+    Hillis-Steele doubling in the JAX forms' order."""
+    W = val.shape[1]
+    v, f = val, first
+    d = 1
+    while d < W:
+        v_s = torch.cat([torch.zeros_like(v[:, :d]), v[:, :-d]], dim=1)
+        f_s = torch.cat([torch.ones_like(f[:, :d]), f[:, :-d]], dim=1)
+        v = torch.where(f, v, v + v_s)
+        f = f | f_s
+        d <<= 1
+    return v
+
+
+def run_boundaries(col, n_cols: int):
+    """(first, last) of equal-column runs of a column-sorted rectangle;
+    sentinel ``n_cols`` runs are excluded from ``last``."""
+    R = col.shape[0]
+    prev = torch.cat([torch.full((R, 1), -1, dtype=col.dtype,
+                                 device=col.device), col[:, :-1]], dim=1)
+    nxt = torch.cat([col[:, 1:], torch.full((R, 1), -2, dtype=col.dtype,
+                                            device=col.device)], dim=1)
+    return col != prev, (col != nxt) & (col < n_cols)
+
+
+def contract_runs_plain(col, val, n_cols: int):
+    """(last, run_sum) of column-sorted rows: ``run_boundaries`` and
+    ``run_sums``."""
+    first, last = run_boundaries(col, n_cols)
+    return last, run_sums(val, first)
 
 
 def contract_plain(rid, col, val, n_cols: int):
@@ -37,29 +78,25 @@ def contract_plain(rid, col, val, n_cols: int):
     nxt_change = torch.cat(
         [changed[:, 1:], torch.ones((G, 1), dtype=torch.bool, device=dev)],
         dim=1)
-    last = nxt_change & (col < n_cols)
-    v, f = val, changed
-    d = 1
-    while d < W:
-        v_s = torch.cat([torch.zeros_like(v[:, :d]), v[:, :-d]], dim=1)
-        f_s = torch.cat([torch.ones_like(f[:, :d]), f[:, :-d]], dim=1)
-        v = torch.where(f, v, v + v_s)
-        f = f | f_s
-        d <<= 1
-    return last, v
+    return nxt_change & (col < n_cols), run_sums(val, changed)
+
+
+def _check_col_val(col, val, what):
+    if col.dim() != 2 or col.dtype != torch.int32 or not col.is_contiguous():
+        raise ValueError(f"{what}: col must be a contiguous (R, W) int32 "
+                         "tensor")
+    if col.shape[1] < 1:
+        raise ValueError(f"{what}: rows must be at least 1 wide")
+    if (val.shape != col.shape or val.dtype != torch.float32
+            or not val.is_contiguous()):
+        raise ValueError(f"{what}: val must be a contiguous (R, W) float32 "
+                         "tensor")
+    if val.device != col.device:
+        raise ValueError(f"{what}: tensors on different devices")
 
 
 def _check(rid, col, val):
-    if col.dim() != 2 or col.dtype != torch.int32 or not col.is_contiguous():
-        raise ValueError("stream_contract: col must be a contiguous (R, W) "
-                         "int32 tensor")
-    R, W = col.shape
-    if W < 1:
-        raise ValueError("stream_contract: rows must be at least 1 wide")
-    if (val.shape != col.shape or val.dtype != torch.float32
-            or not val.is_contiguous()):
-        raise ValueError("stream_contract: val must be a contiguous (R, W) "
-                         "float32 tensor")
+    _check_col_val(col, val, "stream_contract")
     if rid.shape != col.shape or rid.dtype != torch.int32:
         raise ValueError("stream_contract: rid must be an (R, W) int32 "
                          "tensor")
@@ -90,4 +127,26 @@ def stream_contract(rid, col, val, n_cols: int):
     build.check(err, "stream_contract launch")
     global LAUNCHES
     LAUNCHES += 1
+    return last, sums
+
+
+def contract_runs(col, val, n_cols: int):
+    """(last bool (R, W), run_sum float32 (R, W)) of column-sorted rows."""
+    _check_col_val(col, val, "contract_runs")
+    if col.device.type == "cpu":
+        return contract_runs_plain(col, val, n_cols)
+    if col.device.type != "cuda":
+        raise ValueError(f"contract_runs: unsupported device {col.device}")
+    R, W = col.shape
+    last = torch.empty((R, W), dtype=torch.bool, device=col.device)
+    sums = torch.empty_like(val)
+    if R == 0:
+        return last, sums
+    lib = build.library()
+    err = lib.speck_contract_runs(
+        col.data_ptr(), val.data_ptr(), last.data_ptr(), sums.data_ptr(), R,
+        W, int(n_cols), torch.cuda.current_stream(col.device).cuda_stream)
+    build.check(err, "contract_runs launch")
+    global RUNS_LAUNCHES
+    RUNS_LAUNCHES += 1
     return last, sums

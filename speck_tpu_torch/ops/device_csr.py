@@ -16,6 +16,7 @@ import numpy as np
 import torch
 
 from ..formats.csr import HostCSR
+from ..utils.device import resolve_device
 
 _NP_TO_TORCH = {np.dtype(np.float32): torch.float32,
                 np.dtype(np.float64): torch.float64}
@@ -79,10 +80,11 @@ def is_canonical_host(row_offsets, col_ids) -> bool:
     return bool(nondesc.all())
 
 
-def device_put_csr(m: HostCSR, dtype=torch.float32, device="cpu",
+def device_put_csr(m: HostCSR, dtype=torch.float32, device="cuda",
                    check_canonical: bool = True) -> DeviceCSR:
-    """Upload a HostCSR to ``device`` (int32 indices, ``dtype`` values)."""
-    device = torch.device(device)
+    """Upload a HostCSR to ``device`` (int32 indices, ``dtype`` values);
+    ``device="cpu"`` asks for the CPU."""
+    device = resolve_device(device)
 
     def put(x, dt):
         return torch.as_tensor(np.ascontiguousarray(x, dtype=dt),

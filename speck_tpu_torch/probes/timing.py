@@ -1,0 +1,38 @@
+"""Timing helpers of the probes: CUDA-event medians and the card's line."""
+
+from __future__ import annotations
+
+import statistics
+import subprocess
+
+import torch
+
+
+def card() -> str:
+    """The card's name and power limit, as nvidia-smi prints them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+
+
+def cuda_ms(fn, reps: int = 5) -> float:
+    """Median over ``reps`` calls of fn's device time (CUDA events), after
+    one warm-up call."""
+    fn()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def report(name: str, ms: float, n: int, nbytes: int, smi: str) -> None:
+    """One line: time, elements per second and useful bytes per second."""
+    print(f"{name}: {ms:.4f} ms, {n / ms / 1e3:.0f} M elem/s, "
+          f"{nbytes / ms / 1e6:.1f} GB/s [{smi}]", flush=True)

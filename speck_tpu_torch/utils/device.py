@@ -1,4 +1,6 @@
-"""Device introspection: the torch device's name, count and memory."""
+"""Device introspection: the torch device's name, count and memory, and the
+rule for the port's entry points: the first CUDA card unless the caller
+passes ``device="cpu"``; without a card that default raises."""
 
 from __future__ import annotations
 
@@ -6,6 +8,17 @@ import dataclasses
 from typing import Optional
 
 import torch
+
+
+def resolve_device(device=None) -> torch.device:
+    """``device`` as a torch.device, ``cuda`` when it is None. A CUDA device
+    without a card raises: the CPU runs only when asked for by name."""
+    device = torch.device("cuda" if device is None else device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "speck_tpu_torch: no CUDA card is available; pass device=\"cpu\" "
+            "to run on the CPU (the kernels' plain torch versions)")
+    return device
 
 
 @dataclasses.dataclass(frozen=True)
@@ -17,8 +30,7 @@ class DeviceInfo:
 
     @classmethod
     def current(cls, device=None) -> "DeviceInfo":
-        device = torch.device(device if device is not None else
-                              ("cuda" if torch.cuda.is_available() else "cpu"))
+        device = resolve_device(device)
         if device.type != "cuda":
             return cls("cpu", "cpu", 1, None)
         props = torch.cuda.get_device_properties(device)

@@ -23,3 +23,18 @@ def make_powerlaw(m=131072, avg=12, alpha=2.2, seed=5) -> HostCSR:
     mat = sp.csr_matrix((vals, (rows, cols)), shape=(m, m))
     mat.sum_duplicates()
     return HostCSR.from_scipy(mat)
+
+
+def make_banded(n=65536, half_band=16, seed=3) -> HostCSR:
+    """Square banded matrix with 2 * half_band + 1 diagonals of standard
+    normal values (bench config 1: ``make_banded(65536, 16, seed=3)``),
+    float64 values."""
+    import scipy.sparse as sp
+
+    rs = np.random.RandomState(seed)
+    offs = list(range(-half_band, half_band + 1))
+    mat = sp.diags(
+        [rs.standard_normal(n - abs(o)) for o in offs], offs,
+        shape=(n, n), format="csr",
+    )
+    return HostCSR.from_scipy(mat)

@@ -9,15 +9,20 @@ Tolerances: masks, keys and structure exact; contract sums within
 1e-6 + 1e-5 * (sum of |val| over the run prefix), the fp32 bound for a
 sum taken in another order (the kernel's segmented scan against the plain
 doubling); per-row (key, payload) multisets exact (the bitonic network
-is not stable)."""
+is not stable); the gather probes and esc_fixed's structure exact, its
+values within rel_tol 2e-3 of the scipy oracle."""
 
 import numpy as np
 import pytest
 import torch
 
 import speck_tpu_torch as pt
+from speck_tpu_torch import entry as tentry
 from speck_tpu_torch.ops import bitonic, contract
-from speck_tpu_torch.utils.generators import make_powerlaw
+from speck_tpu_torch.ops.esc import esc_fixed
+from speck_tpu_torch.parallel import padded_to_host_csr
+from speck_tpu_torch.probes import gather_microbench2 as gm
+from speck_tpu_torch.utils.generators import make_banded, make_powerlaw
 
 N_COLS = 300
 
@@ -87,6 +92,75 @@ def test_contract_kernel_matches_plain(rs, cuda_device, R, W, const_rid):
     mag = contract.contract_plain(args[0], args[1], args[2].abs(), N_COLS)[1]
     err = (sum_k.cpu() - sum_p).abs()
     assert bool((err <= 1e-6 + 1e-5 * mag).all()), float(err.max())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("R,W", [(64, 256), (32, 2048), (3, 1), (5, 3000),
+                                 (2, 70000)])
+def test_contract_runs_kernel_matches_plain(rs, cuda_device, R, W):
+    _, col, val = sorted_rect(rs, R, W, const_rid=True)
+    col[0, 0] = -1                     # the column form's sentinel values
+    col[-1, -1] = -2
+    col, val = torch.from_numpy(col), torch.from_numpy(val)
+    last_p, sum_p = contract.contract_runs_plain(col, val, N_COLS)
+    n0 = contract.RUNS_LAUNCHES
+    last_k, sum_k = contract.contract_runs(col.to(cuda_device),
+                                           val.to(cuda_device), N_COLS)
+    torch.cuda.synchronize()
+    assert contract.RUNS_LAUNCHES == n0 + 1
+    assert torch.equal(last_k.cpu(), last_p)
+    mag = contract.contract_runs_plain(col, val.abs(), N_COLS)[1]
+    err = (sum_k.cpu() - sum_p).abs()
+    assert bool((err <= 1e-6 + 1e-5 * mag).all()), float(err.max())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("S,rows", [(2048, 3000), (100, 17), (3000, 5)])
+def test_sublane_gather_kernel_matches_plain(rs, cuda_device, S, rows):
+    tab = torch.from_numpy(rs.standard_normal((S, 128)).astype(np.float32))
+    idx = torch.from_numpy(rs.integers(0, S, (rows, 128)).astype(np.int32))
+    n0 = gm.LAUNCHES["sublane_gather"]
+    got = gm.sublane_gather(idx.to(cuda_device), tab.to(cuda_device))
+    torch.cuda.synchronize()
+    assert gm.LAUNCHES["sublane_gather"] == n0 + 1
+    assert torch.equal(got.cpu(), gm.sublane_gather_plain(idx, tab))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("L", [128, 384])
+def test_run_copy_kernel_matches_plain(rs, cuda_device, L):
+    n = 5003
+    src = torch.from_numpy(rs.standard_normal(n).astype(np.float32))
+    offs = rs.integers(0, n - L + 1, (33, 7)).astype(np.int32)
+    offs[0, :4] = [0, 1, 2, 3]         # every alignment
+    offs[-1, -1] = n - L               # the source's last element
+    offs = torch.from_numpy(offs)
+    n0 = gm.LAUNCHES["run_copy"]
+    got = gm.run_copy(offs.to(cuda_device), src.to(cuda_device), L)
+    torch.cuda.synchronize()
+    assert gm.LAUNCHES["run_copy"] == n0 + 1
+    assert torch.equal(got.cpu(), gm.run_copy_plain(offs, src, L))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["entry", "banded", "powerlaw"])
+def test_esc_fixed_on_card_matches_oracle(cuda_device, case):
+    if case == "entry":
+        a, b = tentry._example_matrices()
+    elif case == "banded":
+        a = b = make_banded(3000, half_band=4, seed=3)
+    else:
+        a = b = make_powerlaw(400, avg=4, seed=3)
+    cap = 256 if case == "entry" else tentry.fixed_cap(a, b)
+    args = tentry.esc_args(a, b, cuda_device)
+    n1, n2 = contract.RUNS_LAUNCHES, bitonic.LAUNCHES
+    out = esc_fixed(*args, cap=cap, n_cols=b.cols)
+    torch.cuda.synchronize()
+    assert contract.RUNS_LAUNCHES > n1 and bitonic.LAUNCHES > n2
+    got = padded_to_host_csr(*out, a.rows, b.cols)
+    r = pt.compare_csr(pt.oracle_spgemm(a, b), got, compare_data=True,
+                       rel_tol=2e-3)
+    assert r.ok, r.message
 
 
 @pytest.mark.gpu

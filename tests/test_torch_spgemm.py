@@ -14,6 +14,7 @@ import sys
 import numpy as np
 import pytest
 import scipy.sparse as sp
+import torch
 
 import speck_tpu as st
 import speck_tpu_torch as pt
@@ -76,7 +77,7 @@ def _run_both(h, kw, execute_new=False):
     cj = st.SpgemmConfig(**dict(_BASE, **kw))
     ct = pt.SpgemmConfig(**dict(_BASE, **kw))
     Aj = st.device_put_csr(h)
-    At = pt.device_put_csr(pt.HostCSR.from_host(h))
+    At = pt.device_put_csr(pt.HostCSR.from_host(h), device="cpu")
     pj = st.plan_spgemm(Aj, Aj, cj)
     ptp = pt.plan_spgemm(At, At, ct)
     if not execute_new:
@@ -85,7 +86,7 @@ def _run_both(h, kw, execute_new=False):
     h2 = st.HostCSR(rows=h.rows, cols=h.cols, row_offsets=h.row_offsets,
                     col_ids=h.col_ids, data=h.data * 2.0 + 0.25)
     Aj2 = st.device_put_csr(h2)
-    At2 = pt.device_put_csr(pt.HostCSR.from_host(h2))
+    At2 = pt.device_put_csr(pt.HostCSR.from_host(h2), device="cpu")
     return h2, st.device_get_csr(pj.execute(Aj2, Aj2)), \
         pt.device_get_csr(ptp.execute(At2, At2)), ptp
 
@@ -129,7 +130,7 @@ def test_spgemm_entry_point_and_cli(tmp_path):
     """The public spgemm and the port's runspECK CLI on a .mtx file."""
     h = pt.HostCSR.from_host(_direct())
     cfg = pt.SpgemmConfig(**dict(_BASE, stream_width=64))
-    A = pt.device_put_csr(h)
+    A = pt.device_put_csr(h, device="cpu")
     C = pt.device_get_csr(pt.spgemm(A, A, cfg))
     assert pt.compare_csr(pt.oracle_spgemm(h, h), C, compare_data=True,
                           rel_tol=2e-3).ok
@@ -145,12 +146,12 @@ def test_spgemm_entry_point_and_cli(tmp_path):
     ini.write_text("IterationsWarmUp=1\nIterationsExecution=1\n"
                    "CompareResult=true\nEnableDense=false\nEnableDia=false\n"
                    "EnableSdia=false\nDiaRows=false\n")
-    assert main(["cli", path, str(ini)]) == 0
+    assert main(["cli", path, str(ini)], device="cpu") == 0
 
 
 def test_float64_raises():
     h = pt.HostCSR.from_host(_direct())
-    A = pt.device_put_csr(h, np.float64)
+    A = pt.device_put_csr(h, np.float64, device="cpu")
     with pytest.raises(NotImplementedError, match="float64"):
         pt.spgemm(A, A, pt.SpgemmConfig(**_BASE))
 
@@ -164,7 +165,7 @@ def test_banded_input_raises_where_dia_would_run():
     h = st.HostCSR.from_scipy(mat)
     Aj = st.device_put_csr(h)
     assert st.plan_spgemm(Aj, Aj).dia is not None   # the reference's route
-    At = pt.device_put_csr(pt.HostCSR.from_host(h))
+    At = pt.device_put_csr(pt.HostCSR.from_host(h), device="cpu")
     with pytest.raises(NotImplementedError, match="DIA"):
         pt.spgemm(At, At)
 
@@ -175,7 +176,7 @@ def test_banded_input_raises_where_dia_would_run():
                                   dict(stream_sort_impl="bitonic")])
 def test_unported_knobs_raise(knob):
     h = pt.HostCSR.from_host(_direct())
-    A = pt.device_put_csr(h)
+    A = pt.device_put_csr(h, device="cpu")
     with pytest.raises(NotImplementedError):
         pt.spgemm(A, A, pt.SpgemmConfig(**dict(_BASE, **knob)))
 
@@ -187,11 +188,19 @@ def test_port_imports_no_jax():
         "m = sp.random(50, 50, 0.1, format='csr',"
         " random_state=np.random.RandomState(0))\n"
         "h = pt.HostCSR.from_scipy(m)\n"
-        "A = pt.device_put_csr(h)\n"
+        "A = pt.device_put_csr(h, device='cpu')\n"
         "cfg = pt.SpgemmConfig(enable_dense=False, enable_dia=False,"
         " enable_sdia=False, dia_rows=False)\n"
         "C = pt.device_get_csr(pt.spgemm(A, A, cfg))\n"
         "assert pt.compare_csr(pt.oracle_spgemm(h, h), C).ok\n"
+        "import speck_tpu_torch.probes.expand_microbench\n"
+        "import speck_tpu_torch.probes.gather_microbench2\n"
+        "from speck_tpu_torch.entry import _example_matrices, entry\n"
+        "from speck_tpu_torch.parallel import padded_to_host_csr\n"
+        "fn, args = entry(device='cpu')\n"
+        "a, b = _example_matrices()\n"
+        "got = padded_to_host_csr(*fn(*args), a.rows, b.cols)\n"
+        "assert pt.compare_csr(pt.oracle_spgemm(a, b), got).ok\n"
         "assert 'jax' not in sys.modules, 'jax was imported'\n"
         "assert not any(k.startswith('speck_tpu.') or k == 'speck_tpu'"
         " for k in sys.modules)\n")
@@ -199,3 +208,49 @@ def test_port_imports_no_jax():
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
+
+
+@pytest.mark.parametrize("call", ["device_put_csr", "executor",
+                                  "device_info", "cli", "entry"])
+def test_entry_points_default_to_the_card(monkeypatch, call):
+    """Without a device argument every entry point takes the card, and
+    without one it raises, naming device="cpu"; it never falls back."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    h = pt.HostCSR.from_host(_direct())
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        if call == "device_put_csr":
+            pt.device_put_csr(h)
+        elif call == "executor":
+            from speck_tpu_torch.executor import Executor
+            Executor("unused.mtx")
+        elif call == "device_info":
+            pt.device_info()
+        elif call == "cli":
+            from speck_tpu_torch.cli import main
+            main(["cli", "unused.mtx"])
+        else:
+            from speck_tpu_torch.entry import entry
+            entry()
+
+
+def test_no_card_raises_in_a_fresh_process():
+    """With CUDA_VISIBLE_DEVICES="" the default device_put_csr and Executor
+    raise the clear error instead of running on the CPU."""
+    code = (
+        "import numpy as np, scipy.sparse as sp\n"
+        "import speck_tpu_torch as pt\n"
+        "from speck_tpu_torch.executor import Executor\n"
+        "h = pt.HostCSR.from_scipy(sp.random(9, 9, 0.3, format='csr',"
+        " random_state=np.random.RandomState(0)))\n"
+        "for f in (lambda: pt.device_put_csr(h),"
+        " lambda: Executor('unused.mtx')):\n"
+        "    try:\n"
+        "        f()\n"
+        "    except RuntimeError as e:\n"
+        "        assert 'device=\"cpu\"' in str(e), e\n"
+        "    else:\n"
+        "        raise SystemExit('ran without a card')\n")
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr + res.stdout

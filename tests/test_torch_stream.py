@@ -62,13 +62,14 @@ def _pair(case):
     h = _MATS[case]()
     kw = dict(_BASE, **CASES[case])
     return (h, st.device_put_csr(h), st.SpgemmConfig(**kw),
-            pt.device_put_csr(pt.HostCSR.from_host(h)), pt.SpgemmConfig(**kw))
+            pt.device_put_csr(pt.HostCSR.from_host(h), device="cpu"),
+            pt.SpgemmConfig(**kw))
 
 
 def test_analysis_fields_equal():
     h = _powerlaw()
     Aj = st.device_put_csr(h)
-    At = pt.device_put_csr(pt.HostCSR.from_host(h))
+    At = pt.device_put_csr(pt.HostCSR.from_host(h), device="cpu")
     rj = j_analyze(Aj, Aj)
     rt = t_analyze(At, At)
     for f in ("row_ops", "a_len", "work", "row_ops_f", "max_work",
