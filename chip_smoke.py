@@ -13,31 +13,34 @@ Phases (any failure raises and exits non-zero; nothing falls back):
   3. each kernel against its plain version at the main path's shapes
      (K1 stream_contract at (512, 8192) and (4, 65536) with a per-row rid;
      K2 row_sort at (512, 8192) with 1 and 3 payloads and at (2, 2^20)):
-     masks and keys equal, (key, payload) pairs equal as per-row
-     multisets, sums within atol 1e-6 + rtol 1e-5 of the run prefix's sum
-     of magnitudes (fp32 sums in another order); times from CUDA events,
-     median of 5, kernel beside plain;
+     masks equal, K2's keys and payloads equal to the stable plain sort's
+     bit for bit, sums within atol 1e-6 + rtol 1e-5 of the run prefix's
+     sum of magnitudes (fp32 sums in another order); times from CUDA
+     events, medians of 5 (K2, its plain version and torch.sort + gather
+     in turns);
   4. spgemm on make_powerlaw(262144, seed=7), A·A, f32, default
      SpgemmConfig: launch counts of both kernels from that run must be
-     > 0 and the plan must have wide rows; result against the oracle
-     (structure exact, values rel_tol 2e-3); cold call, median of 3 warm
-     calls, GFLOPS = 2 * products / time;
+     > 0 and the plan must have wide rows; K2's launches by (R, W,
+     payloads); result against the oracle (structure exact, values
+     rel_tol 2e-3); cold call, median of 3 warm calls, GFLOPS =
+     2 * products / time;
   5. plan.execute(A2, A2) with new values on the same structure (the
      two-phase numeric path) against the oracle;
   6. K3 contract_runs against its plain version at (65536, 2048)
      (esc_fixed's rectangle on config 1) and (64, 256) (the entry's), and
-     K2 at esc_fixed's sort shapes: mask equal, sums within atol 1e-6 +
-     rtol 1e-5 of the run prefix's sum of magnitudes; medians of 5 and
-     the bound;
+     K2 at esc_fixed's sort shapes, checked and timed as in phase 3;
   7. esc_fixed on make_banded(65536, 16, seed=3) (bench config 1), A·A,
      f32, cap = 2048 by the fixed-cap rule: launch counts of K3 and K2 in
-     that call > 0; result against the oracle (structure exact, values
-     rel_tol 2e-3); cold call, median of 3 warm calls, GFLOPS, peak
-     device memory; then entry()'s fn once against the oracle;
+     that call > 0, K2's launches by shape; result against the oracle
+     (structure exact, values rel_tol 2e-3); cold call, median of 3 warm
+     calls, GFLOPS, peak device memory; then entry()'s fn once against
+     the oracle;
+  7b. K2 at every other shape phases 4 and 7 launched it at, as phase 3;
   8. the gather probes' mains (python -m speck_tpu_torch.probes...) with
      their launch counts, then sublane_gather (N = 2^22, S = 2048) and
      run_copy (G = 512, K = 64, L = 128 over a 2^21 source) against their
-     plain versions, exactly equal; times and GB/s.
+     plain versions, exactly equal; each timed against its library call in
+     turns over PROBE_REPS rounds (medians, quartiles and extremes), GB/s.
 Bounds (bound_ms): the bytes each function must move (inputs read once,
 outputs written once) over 3.35 TB/s, the H100 SXM's device memory rate
 (NVIDIA's data sheet); every kernel here is bound by bytes. library_ms is
@@ -55,10 +58,12 @@ import time
 import numpy as np
 import torch
 
-from speck_tpu_torch.probes.timing import card, cuda_ms
+from speck_tpu_torch.probes.timing import card, cuda_ms, cuda_ms_turns
 
 
 HBM_BYTES_PER_MS = 3.35e12 / 1e3
+# rounds of the probes' kernel-against-library timing
+PROBE_REPS = 61
 
 
 def bound_ms(nbytes):
@@ -68,12 +73,6 @@ def bound_ms(nbytes):
 def check(cond, what):
     if not cond:
         raise RuntimeError(f"chip_smoke: {what}")
-
-
-def pair_multiset(key, pay):
-    """Per row, the sorted (key, payload) pairs as int64."""
-    x = (key.long() << 32) | (pay.view(torch.int32).long() & 0xffffffff)
-    return torch.sort(x, dim=1).values
 
 
 def contract_case(gen, R, W, const_rid, n_cols=4096):
@@ -132,7 +131,11 @@ def contract_runs_case(gen, R, W, n_cols=4096):
     return float(err.max()), ms, plain_ms
 
 
-def sort_case(gen, R, W, n_pay):
+def sort_case(gen, R, W, n_pay, reps=5):
+    """K2 against sort_plain at (R, W, n_pay) on random keys below 2^24
+    with an eighth of each row INT32_MAX (3 digit passes): keys and
+    payloads equal (both sorts are stable); then K2, sort_plain and one
+    torch.sort + a gather per payload timed in turns, medians of reps."""
     from speck_tpu_torch.ops import bitonic
 
     dev = torch.device("cuda")
@@ -142,22 +145,39 @@ def sort_case(gen, R, W, n_pay):
     pays = [torch.randint(-(1 << 30), 1 << 30, (R, W), generator=gen,
                           device=dev, dtype=torch.int32)
             for _ in range(n_pay - 1)]
-    pays.append(torch.randn((R, W), generator=gen, device=dev))
+    if n_pay:
+        pays.append(torch.randn((R, W), generator=gen, device=dev))
     key_k, pay_k = bitonic.row_sort(key, pays)
     key_p, pay_p = bitonic.sort_plain(key, pays)
     torch.cuda.synchronize()
     check(torch.equal(key_k, key_p), f"K2 keys differ at {(R, W, n_pay)}")
     for a, b in zip(pay_k, pay_p):
-        check(torch.equal(pair_multiset(key_k, a), pair_multiset(key_p, b)),
-              f"K2 (key, payload) pairs differ at {(R, W, n_pay)}")
-    ms = cuda_ms(lambda: bitonic.row_sort(key, pays))
-    plain_ms = cuda_ms(lambda: bitonic.sort_plain(key, pays))
+        check(torch.equal(a.view(torch.int32), b.view(torch.int32)),
+              f"K2 payloads differ at {(R, W, n_pay)}")
+    del key_k, pay_k, key_p, pay_p
 
     def library():  # one unstable torch.sort, then a gather per payload
         key_s, perm = torch.sort(key, dim=1)
         return key_s, [torch.gather(p, 1, perm) for p in pays]
 
-    return 0.0, ms, plain_ms, cuda_ms(library)
+    t = cuda_ms_turns({"kernel": lambda: bitonic.row_sort(key, pays),
+                       "plain": lambda: bitonic.sort_plain(key, pays),
+                       "library": library}, reps)
+    return (0.0, statistics.median(t["kernel"]),
+            statistics.median(t["plain"]), statistics.median(t["library"]))
+
+
+def sort_line(R, W, n_pay, res, smi, where=""):
+    _, ms, pms, lms = res
+    print(f"K2 row_sort ({R}, {W}) payloads={n_pay}{where}: kernel "
+          f"{ms:.4f} ms, plain {pms:.4f} ms, torch.sort + gather "
+          f"{lms:.4f} ms ({lms / ms:.2f}x the kernel's time), bound "
+          f"{bound_ms(8 * (1 + n_pay) * R * W):.4f} ms [{smi}]", flush=True)
+
+
+def shape_histogram(what, shapes):
+    print(f"K2 launches by (R, W, payloads) in {what}: "
+          f"{dict(sorted(shapes.items()))}", flush=True)
 
 
 def esc_phase(pt, smi):
@@ -182,12 +202,14 @@ def esc_phase(pt, smi):
     contract.RUNS_LAUNCHES = 0
     contract.LAUNCHES = 0
     bitonic.LAUNCHES = 0
+    bitonic.LAUNCH_SHAPES.clear()
     t0 = time.perf_counter()
     out = esc_fixed(*args, cap=cap, n_cols=h.cols)
     torch.cuda.synchronize()
     cold_ms = (time.perf_counter() - t0) * 1e3
     launches = {"contract_runs": contract.RUNS_LAUNCHES,
                 "row_sort": bitonic.LAUNCHES}
+    shapes = dict(bitonic.LAUNCH_SHAPES)
     peak = torch.cuda.max_memory_allocated()
     check(all(v > 0 for v in launches.values()),
           f"a kernel was not launched on the esc_fixed path: {launches}")
@@ -215,6 +237,7 @@ def esc_phase(pt, smi):
             f"{peak / 2**30:.2f} GiB ({(peak - base_mem) / 2**30:.2f} GiB "
             f"above the inputs); launches {launches}")
     print(line, flush=True)
+    shape_histogram("one esc_fixed call on config 1", shapes)
 
     a, b = tentry._example_matrices()
     fn, eargs = tentry.entry()
@@ -223,7 +246,7 @@ def esc_phase(pt, smi):
                        rel_tol=2e-3)
     check(r.ok, f"entry() differs from the oracle: {r.message}")
     print("entry(): fn(*args) on the card matches the oracle", flush=True)
-    return launches, line
+    return launches, shapes, line
 
 
 def probe_phase(gen, smi):
@@ -251,12 +274,6 @@ def probe_phase(gen, smi):
           "sublane_gather differs from its plain version")
     idx64 = idx.long()
     g_bytes = 4 * N + 4 * S * 128 + 4 * N
-    out = {"sublane_gather": {
-        "max_abs_err": 0.0,
-        "ms": cuda_ms(lambda: gm.sublane_gather(idx, tab)),
-        "plain_ms": cuda_ms(lambda: gm.sublane_gather_plain(idx, tab)),
-        "bound_ms": bound_ms(g_bytes), "bound_by": "bytes",
-        "library_ms": cuda_ms(lambda: torch.gather(tab, 0, idx64))}}
 
     G, K, L, n = 512, 64, 128, 1 << 21
     src = torch.randn(n, generator=gen, device=dev)
@@ -273,18 +290,39 @@ def probe_phase(gen, smi):
     edge.index_add_(0, flat + L, -torch.ones_like(flat, dtype=torch.int32))
     covered = int((torch.cumsum(edge, 0) > 0).sum())
     c_bytes = 4 * G * K + 4 * covered + 4 * G * K * L
-    out["run_copy"] = {
-        "max_abs_err": 0.0,
-        "ms": cuda_ms(lambda: gm.run_copy(offs, src, L)),
-        "plain_ms": cuda_ms(lambda: gm.run_copy_plain(offs, src, L)),
-        "bound_ms": bound_ms(c_bytes), "bound_by": "bytes",
-        "library_ms": cuda_ms(lambda: src[ix])}
-    for name, nbytes in (("sublane_gather", g_bytes), ("run_copy", c_bytes)):
-        m = out[name]
+
+    # each kernel and its library call in turns, PROBE_REPS rounds
+    cases = {
+        "sublane_gather": (g_bytes, "torch.gather",
+                           lambda: gm.sublane_gather(idx, tab),
+                           lambda: gm.sublane_gather_plain(idx, tab),
+                           lambda: torch.gather(tab, 0, idx64)),
+        "run_copy": (c_bytes, "one indexing call",
+                     lambda: gm.run_copy(offs, src, L),
+                     lambda: gm.run_copy_plain(offs, src, L),
+                     lambda: src[ix])}
+    out = {}
+    for name, (nbytes, lib_name, kernel, plain, library) in cases.items():
+        t = cuda_ms_turns({"kernel": kernel, "library": library},
+                          PROBE_REPS)
+        m = {"max_abs_err": 0.0, "ms": statistics.median(t["kernel"]),
+             "plain_ms": cuda_ms(plain), "bound_ms": bound_ms(nbytes),
+             "bound_by": "bytes",
+             "library_ms": statistics.median(t["library"])}
+        out[name] = m
+
+        def spread(v):  # min, quartiles, max
+            q = statistics.quantiles(v, n=4)
+            return ", ".join(f"{x:.4f}" for x in (min(v), q[0], q[2], max(v)))
+
+        wins = sum(a < b for a, b in zip(t["kernel"], t["library"]))
         print(f"{name}: kernel {m['ms']:.4f} ms "
-              f"({nbytes / m['ms'] / 1e6:.1f} GB/s), plain "
-              f"{m['plain_ms']:.4f} ms, library {m['library_ms']:.4f} ms, "
-              f"bound {m['bound_ms']:.4f} ms; launches in the probes "
+              f"({nbytes / m['ms'] / 1e6:.1f} GB/s), {lib_name} "
+              f"{m['library_ms']:.4f} ms, medians of {PROBE_REPS} in turns "
+              f"(min, quartiles, max: kernel {spread(t['kernel'])}; library "
+              f"{spread(t['library'])}); kernel faster in {wins} of "
+              f"{PROBE_REPS} turns; plain {m['plain_ms']:.4f} ms, bound "
+              f"{m['bound_ms']:.4f} ms; launches in the probes "
               f"{launches[name]} [{smi}]", flush=True)
     return launches, out
 
@@ -322,13 +360,9 @@ def main():
               f"max_abs_err {err:.3g}, kernel {ms:.4f} ms, plain "
               f"{pms:.4f} ms [{smi}]", flush=True)
     k2 = {}
-    for R, W, n_pay in [(512, 8192, 1), (512, 8192, 3), (2, 1 << 20, 1)]:
-        k2[(R, W, n_pay)] = sort_case(gen, R, W, n_pay)
-        _, ms, pms, lms = k2[(R, W, n_pay)]
-        print(f"K2 row_sort ({R}, {W}) payloads={n_pay}: kernel {ms:.4f} ms,"
-              f" plain {pms:.4f} ms, torch.sort + gather {lms:.4f} ms, bound "
-              f"{bound_ms(8 * (1 + n_pay) * R * W):.4f} ms [{smi}]",
-              flush=True)
+    for shape in [(512, 8192, 1), (512, 8192, 3), (2, 1 << 20, 1)]:
+        k2[shape] = sort_case(gen, *shape)
+        sort_line(*shape, k2[shape], smi)
 
     # 4. the main path at bench config 3's size
     t0 = time.perf_counter()
@@ -343,6 +377,7 @@ def main():
     contract.LAUNCHES = 0
     contract.RUNS_LAUNCHES = 0
     bitonic.LAUNCHES = 0
+    bitonic.LAUNCH_SHAPES.clear()
     t0 = time.perf_counter()
     plan = pt.plan_spgemm(A, A, cfg)
     C = plan.execute()
@@ -350,6 +385,7 @@ def main():
     cold_ms = (time.perf_counter() - t0) * 1e3
     launches = {"stream_contract": contract.LAUNCHES,
                 "row_sort": bitonic.LAUNCHES}
+    stream_shapes = dict(bitonic.LAUNCH_SHAPES)
     check(contract.RUNS_LAUNCHES == 0, "the stream path launched K3")
     lo = plan.stream.layout
     print(f"config 3: m={h.rows} nnz(A)={h.nnz} generated in {t_gen:.2f} s, "
@@ -359,6 +395,7 @@ def main():
           f"finish_classes={len(plan.stream.finish['classes'] or [])} "
           f"ladder_levels={plan.stream.finish['ladder_levels']}; "
           f"launches {launches}", flush=True)
+    shape_histogram("the config 3 plan_spgemm + execute", stream_shapes)
     check(all(v > 0 for v in launches.values()),
           f"a kernel was not launched on the main path: {launches}")
     check(lo.n_wide > 0, "config 3 planned no wide rows")
@@ -421,17 +458,21 @@ def main():
         print(f"K3 contract_runs ({R}, {W}): max_abs_err {err:.3g}, kernel "
               f"{ms:.4f} ms, plain {pms:.4f} ms, bound "
               f"{bound_ms(13 * R * W):.4f} ms [{smi}]", flush=True)
-    for R, W, n_pay in [(65536, 4096, 2), (65536, 2048, 1)]:
-        _, ms, pms, lms = sort_case(gen, R, W, n_pay)
-        print(f"K2 row_sort ({R}, {W}) payloads={n_pay} (esc_fixed): kernel "
-              f"{ms:.4f} ms, plain {pms:.4f} ms, torch.sort + gather "
-              f"{lms:.4f} ms, bound {bound_ms(8 * (1 + n_pay) * R * W):.4f} "
-              f"ms [{smi}]", flush=True)
-    torch.cuda.empty_cache()
+    for shape in [(65536, 4096, 2), (65536, 2048, 1)]:
+        k2[shape] = sort_case(gen, *shape)
+        sort_line(*shape, k2[shape], smi, " (esc_fixed)")
+        torch.cuda.empty_cache()
 
     # 7. esc_fixed at bench config 1's size
-    esc_launches, esc_line = esc_phase(pt, smi)
+    esc_launches, esc_shapes, esc_line = esc_phase(pt, smi)
     torch.cuda.empty_cache()
+
+    # 7b. K2 at every other shape that phases 4 and 7 launched it at
+    for shape in sorted(set(stream_shapes) | set(esc_shapes)):
+        if shape not in k2:
+            k2[shape] = sort_case(gen, *shape)
+            sort_line(*shape, k2[shape], smi, " (main-path shape)")
+            torch.cuda.empty_cache()
 
     # 8. the gather probes
     probe_launches, probes = probe_phase(gen, smi)

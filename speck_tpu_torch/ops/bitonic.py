@@ -1,33 +1,57 @@
-"""The row sort: each row of an int32 key sorted ascending, with up to
-three 32-bit payloads permuted the same way.
+"""The row sort: each row of an int32 key sorted ascending, stably, with up
+to three 32-bit payloads permuted the same way.
 
 ``row_sort`` replaces ``speck_tpu``'s Pallas kernel
 ``bitonic.bitonic_sort_pairs_pallas`` and, for rows of 2^20 and wider,
-``bitonic.blocked_sort_pairs``. On a CUDA tensor it launches the
-hand-written bitonic network ``csrc/row_sort.cu`` (shared-memory tiles,
-global-memory passes for strides wider than a tile). On a CPU tensor it
-runs ``sort_plain``: a stable ``torch.sort`` and a gather of the payloads.
+``bitonic.blocked_sort_pairs``; the module keeps the name of its
+counterpart, but the kernel is no longer a network. On a CUDA tensor it
+launches ``csrc/row_sort.cu``: a stable radix sort of (key, slot) pairs in
+shared memory, one CTA per tile of up to ``TILE`` slots, with as few 8-bit
+digit passes as the row's key range needs; rows wider than a tile then
+take merge-path passes over device memory. Each payload moves once, by the
+sorted slot. On a CPU tensor it runs ``sort_plain``: a stable
+``torch.sort`` and a gather of the payloads. Both are stable, so the
+kernel's keys and payloads equal the plain version's.
 
-The network is not stable. Every use in the stream is single-key with a
-key that orders the slots the result depends on: the packed
-(row, column) key, the unique compaction rank, or the column of one row,
-whose equal keys hold duplicates that are summed next. Structure is
-therefore exact and sums differ only in order.
+``sort_plan`` is the host side of a launch: the tile width, the number of
+merge passes and the scratch planes the wrapper allocates.
 """
 
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+from typing import Dict, NamedTuple, Sequence, Tuple
 
 import torch
 
 from . import build
 
 # launches of the CUDA kernel in this process (the plain version does not
-# count)
+# count), in all and by (R, W, payloads)
 LAUNCHES = 0
+LAUNCH_SHAPES: Dict[Tuple[int, int, int], int] = {}
 
 MAX_PAYLOADS = 3
+# slots one CTA sorts in shared memory (kMaxTile in csrc/row_sort.cu)
+TILE = 8192
+
+
+class SortPlan(NamedTuple):
+    tile: int               # slots a CTA sorts in shared memory
+    merge_passes: int       # merge passes over device memory after the tiles
+    scratch_shape: Tuple[int, ...]  # int32 (key, slot) planes, () for none
+
+
+def sort_plan(R: int, W: int, n_payloads: int = 0) -> SortPlan:
+    """The launch of a (R, W) sort. The payloads ride on neither the tiles
+    nor the merges (each moves once at the end), so their number changes
+    nothing here. A single merge pass reads one (key, slot) plane pair and
+    writes the outputs; more passes alternate between two pairs."""
+    if n_payloads > MAX_PAYLOADS:
+        raise ValueError(f"row_sort: at most {MAX_PAYLOADS} payloads")
+    tile = min(W, TILE)
+    passes = (W // tile).bit_length() - 1
+    scratch = (min(passes, 2), 2, R, W) if passes else ()
+    return SortPlan(tile, passes, scratch)
 
 
 def sort_plain(key, payloads):
@@ -54,7 +78,8 @@ def _check(key, payloads):
 
 def row_sort(key: torch.Tensor, payloads: Sequence[torch.Tensor] = ()
              ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, ...]]:
-    """Sort each row of ``key`` ascending; permute ``payloads`` alike."""
+    """Sort each row of ``key`` ascending, stably; permute ``payloads``
+    alike."""
     payloads = tuple(payloads)
     _check(key, payloads)
     if key.device.type == "cpu":
@@ -66,15 +91,20 @@ def row_sort(key: torch.Tensor, payloads: Sequence[torch.Tensor] = ()
     outs = tuple(torch.empty_like(p) for p in payloads)
     if R == 0:
         return key_out, outs
-    ins = [p.view(torch.int32).data_ptr() for p in payloads]
-    ptr_out = [p.view(torch.int32).data_ptr() for p in outs]
-    ins += [None] * (MAX_PAYLOADS - len(ins))
-    ptr_out += [None] * (MAX_PAYLOADS - len(ptr_out))
+    plan = sort_plan(R, W, len(payloads))
+    scratch = (torch.empty(plan.scratch_shape, dtype=torch.int32,
+                           device=key.device) if plan.merge_passes else None)
+    pad = [None] * (MAX_PAYLOADS - len(payloads))
+    ins = [p.data_ptr() for p in payloads] + pad
+    ptr_out = [p.data_ptr() for p in outs] + pad
     lib = build.library()
     err = lib.speck_row_sort(
         key.data_ptr(), key_out.data_ptr(), *ins, *ptr_out, len(payloads),
-        R, W, torch.cuda.current_stream(key.device).cuda_stream)
+        R, W, plan.tile, None if scratch is None else scratch.data_ptr(),
+        torch.cuda.current_stream(key.device).cuda_stream)
     build.check(err, "row_sort launch")
     global LAUNCHES
     LAUNCHES += 1
+    shape = (R, W, len(payloads))
+    LAUNCH_SHAPES[shape] = LAUNCH_SHAPES.get(shape, 0) + 1
     return key_out, outs

@@ -35,9 +35,10 @@ _SIGNATURES = {
                               ctypes.c_int, _P],
     # (col, val, last, sums, R, W, n_cols, stream)
     "speck_contract_runs": [_P, _P, _P, _P, _I64, _I64, ctypes.c_int, _P],
-    # (key_in, key_out, p_in[3], p_out[3], n_payloads, R, W, stream)
+    # (key_in, key_out, p_in[3], p_out[3], n_payloads, R, W, tile,
+    #  scratch, stream)
     "speck_row_sort": [_P, _P, _P, _P, _P, _P, _P, _P, ctypes.c_int, _I64,
-                       _I64, _P],
+                       _I64, _I64, _P, _P],
     # (idx, tab, out, rows, S, stream)
     "speck_sublane_gather": [_P, _P, _P, _I64, ctypes.c_int, _P],
     # (offs, src, out, n_runs, L, stream)

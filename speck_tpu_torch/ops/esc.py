@@ -7,8 +7,9 @@ capacity, with no host decisions: expand each row's products into a
 key sort and a doubling forward fill), sort each row by column, contract
 equal-column runs (``_contract``: kernel K3, ``contract.contract_runs``)
 and move the run totals to the front (``_compact_by_rank``). Every row sort
-is kernel K2 (``bitonic.row_sort``), padded to the next power of two with
-``INT32_MAX`` keys so that any ``cap`` works.
+is kernel K2 (``bitonic.row_sort``, a stable radix sort: equal keys keep
+their slot order, as in the JAX sorts), padded to the next power of two
+with ``INT32_MAX`` keys so that any ``cap`` works.
 ``direct_chunk`` fills single-A-nonzero rows: C row = valA * B row, already
 sorted, a gather plus a masked scatter with no expansion or sort.
 ``pack_csr_arrays`` interleaves (col id, value bits) into one (nnz, 2)
@@ -69,9 +70,11 @@ def direct_chunk(rows_padded, start: int, valid: int, a_indptr, a_indices,
 
 
 def _sort_rows(key, payloads):
-    """Each row of ``key`` sorted ascending, ``payloads`` permuted alike,
-    through K2 at the next power-of-two width (``INT32_MAX`` keys pad the
-    row and are cut off after the sort; real keys stay below them)."""
+    """Each row of ``key`` sorted ascending and stably, ``payloads``
+    permuted alike, through K2 at the next power-of-two width
+    (``INT32_MAX`` keys pad the row after its real slots and are cut off
+    after the sort; a stable sort keeps them behind any real key equal to
+    them)."""
     R, W = key.shape
     Wp = 1 << (W - 1).bit_length()
     if Wp != W:

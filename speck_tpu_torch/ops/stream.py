@@ -9,7 +9,8 @@ rectangle-row boundary. The stream is cut into (G, W) chunks. Per chunk:
   expand    decode each slot's row and A-slot record (boundary scatters
             plus forward fill), one packed B-record gather per product;
   sort      each rectangle row by the packed key rid_local << pack_bits |
-            col, dead slots last (kernel K2, ops/bitonic.row_sort);
+            col, dead slots last (kernel K2, ops/bitonic.row_sort, a
+            stable radix sort);
   contract  run-last mask and segmented run sums (kernel K1,
             ops/contract.stream_contract);
   count     exact nnz of every contained row by an O(m) segment

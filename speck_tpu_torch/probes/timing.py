@@ -4,6 +4,7 @@ from __future__ import annotations
 
 import statistics
 import subprocess
+from typing import Callable, Dict, List
 
 import torch
 
@@ -30,6 +31,28 @@ def cuda_ms(fn, reps: int = 5) -> float:
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def cuda_ms_turns(fns: Dict[str, Callable], reps: int = 5
+                  ) -> Dict[str, List[float]]:
+    """Device times (CUDA events, ms) of the functions in ``fns`` taken in
+    turns: one warm-up call each, then ``reps`` rounds that time each
+    function once, in the given order on even rounds and reversed on odd
+    ones, so that a drift of the card's clocks falls on all alike."""
+    for fn in fns.values():
+        fn()
+    names = list(fns)
+    times: Dict[str, List[float]] = {n: [] for n in names}
+    for rep in range(reps):
+        for name in (names if rep % 2 == 0 else names[::-1]):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fns[name]()
+            end.record()
+            torch.cuda.synchronize()
+            times[name].append(start.elapsed_time(end))
+    return times
 
 
 def report(name: str, ms: float, n: int, nbytes: int, smi: str) -> None:

@@ -8,9 +8,10 @@ also runs on a machine without it:
 Tolerances: masks, keys and structure exact; contract sums within
 1e-6 + 1e-5 * (sum of |val| over the run prefix), the fp32 bound for a
 sum taken in another order (the kernel's segmented scan against the plain
-doubling); per-row (key, payload) multisets exact (the bitonic network
-is not stable); the gather probes and esc_fixed's structure exact, its
-values within rel_tol 2e-3 of the scipy oracle."""
+doubling); the row sort's keys and every payload equal to the plain
+stable sort's, bit for bit (both are stable); the gather probes and
+esc_fixed's structure exact, its values within rel_tol 2e-3 of the scipy
+oracle."""
 
 import numpy as np
 import pytest
@@ -60,15 +61,21 @@ def sorted_rect(rs, R, W, const_rid):
     return rid, col, rs.standard_normal((R, W)).astype(np.float32)
 
 
-def assert_same_pairs(key, pay, key_o, pay_o):
-    """Sorted keys, and per row the same multiset of (key, payload)."""
-    np.testing.assert_array_equal(key_o, np.sort(key, axis=1))
-
-    def pairs(k, p):
-        x = (k.astype(np.int64) << 32) | (p.astype(np.int64) & 0xffffffff)
-        return np.sort(x, axis=1)
-
-    np.testing.assert_array_equal(pairs(key_o, pay_o), pairs(key, pay))
+def sort_on_card(device, key, pays):
+    """K2 on the card against sort_plain on the CPU: one launch, keys and
+    payloads equal bit for bit."""
+    n0 = bitonic.LAUNCHES
+    k_k, p_k = bitonic.row_sort(torch.from_numpy(key).to(device),
+                                [torch.from_numpy(p).to(device)
+                                 for p in pays])
+    torch.cuda.synchronize()
+    assert bitonic.LAUNCHES == n0 + 1
+    k_p, p_p = bitonic.sort_plain(torch.from_numpy(key),
+                                  [torch.from_numpy(p) for p in pays])
+    assert torch.equal(k_k.cpu(), k_p)
+    for a, b in zip(p_k, p_p):
+        assert a.dtype == b.dtype
+        assert torch.equal(a.cpu().view(torch.int32), b.view(torch.int32))
 
 
 @pytest.mark.gpu
@@ -172,16 +179,73 @@ def test_sort_kernel_matches_plain(rs, cuda_device, R, W, n_pay):
     key[:, : W // 4] = np.iinfo(np.int32).max
     pays = [rs.integers(-9, 9, size=(R, W)).astype(np.int32)
             for _ in range(n_pay)]
-    n0 = bitonic.LAUNCHES
-    k_k, p_k = bitonic.row_sort(torch.from_numpy(key).to(cuda_device),
-                                [torch.from_numpy(p).to(cuda_device)
-                                 for p in pays])
-    torch.cuda.synchronize()
-    assert bitonic.LAUNCHES == n0 + 1
-    for p, po in zip(pays, p_k):
-        assert_same_pairs(key, p, k_k.cpu().numpy(), po.cpu().numpy())
-    if not pays:
-        np.testing.assert_array_equal(k_k.cpu().numpy(), np.sort(key, 1))
+    sort_on_card(cuda_device, key, pays)
+
+
+I32 = np.iinfo(np.int32)
+
+
+def range_keys(rs, case, R, W):
+    """Keys of one K2 case: each spans the digit passes its name says."""
+    if case == "equal":                         # no pass
+        return np.full((R, W), -77, np.int32)
+    if case == "negative":                      # both ends of int32
+        key = rs.integers(I32.min, I32.max, size=(R, W), endpoint=True)
+        key[:, :5] = [I32.min, I32.max, -1, 0, I32.min]
+        return key.astype(np.int32)
+    if case.startswith("digits"):               # 8, 16, 24, 32-bit spans
+        bits = 8 * int(case[-1])
+        lo = int(rs.integers(-(1 << 30), 1 << 30))
+        key = lo + rs.integers(0, 1 << bits, size=(R, W), dtype=np.int64)
+        key[:, 0], key[:, -1] = lo, lo + (1 << bits) - 1
+        return np.clip(key, I32.min, I32.max).astype(np.int32)
+    if case == "pads":                          # INT32_MAX over a quarter
+        key = rs.integers(0, 300, size=(R, W)).astype(np.int32)
+        key[:, rs.permutation(W)[: W // 4]] = I32.max
+        return key
+    if case == "rank":                          # rank, or W + t
+        last = rs.random((R, W)) < 0.3
+        rank = np.cumsum(last, axis=1) - 1
+        return np.where(last, rank, W + np.arange(W)).astype(np.int32)
+    if case == "multi_wide":                    # several tiles, any key
+        return rs.integers(I32.min, I32.max, size=(R, W),
+                           endpoint=True).astype(np.int32)
+    # several tiles, many equal keys across tiles, pads
+    key = rs.integers(-500, 500, size=(R, W)).astype(np.int32)
+    key[:, rs.permutation(W)[: W // 8]] = I32.max
+    return key
+
+
+def special_floats(rs, R, W):
+    """float32 payload bits with NaNs of several patterns, -0.0 and
+    infinities among normal values."""
+    x = rs.standard_normal((R, W)).astype(np.float32).view(np.int32)
+    special = np.array([0x7fc00000, 0x7fc00001, 0xffc00000, 0x7f800001,
+                        0x80000000, 0x7f800000, 0xff800000],
+                       np.uint32).view(np.int32)
+    pick = rs.random((R, W)) < 0.2
+    x[pick] = special[rs.integers(0, len(special), int(pick.sum()))]
+    return x.view(np.float32)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case,R,W,n_pay", [
+    ("equal", 4, 4096, 2), ("equal", 2, 1 << 15, 1),
+    ("negative", 3, 8192, 1), ("negative", 2, 1 << 14, 2),
+    ("digits1", 5, 2048, 1), ("digits2", 5, 4096, 2),
+    ("digits3", 2, 8192, 3), ("digits4", 2, 8192, 0),
+    ("pads", 4, 1024, 3), ("rank", 6, 2048, 2), ("rank", 3, 256, 1),
+    ("digits2", 7, 1, 1), ("digits2", 9, 2, 2), ("digits3", 5, 16, 3),
+    ("multi", 1, 1 << 15, 3), ("multi", 2, 1 << 17, 1),
+    ("multi", 3, 1 << 20, 2), ("multi_wide", 2, 1 << 16, 0)])
+def test_sort_kernel_key_ranges(rs, cuda_device, case, R, W, n_pay):
+    key = range_keys(rs, case, R, W)
+    pays = [rs.integers(I32.min, I32.max, size=(R, W),
+                        endpoint=True).astype(np.int32)
+            for _ in range(n_pay - 1)]
+    if n_pay:
+        pays.append(special_floats(rs, R, W))
+    sort_on_card(cuda_device, key, pays)
 
 
 @pytest.mark.gpu

@@ -5,8 +5,10 @@ K1 (ops/contract.py, replaces pallas_kernels.stream_contract_runs) and K2
 the wrappers run their plain torch versions; those are held to the JAX
 forms (Pallas in interpret mode and the XLA forms): the contract
 bit-identically (rtol 0, same doubling order), the sort with equal keys
-and equal per-row (key, payload) multisets (the bitonic network is not
-stable). The CUDA kernels against the plain versions are in
+and equal per-row (key, payload) multisets (the JAX network is not
+stable; the port's sort is, and equals numpy's stable argsort). K2's
+launch plan (tile, merge passes, scratch) is host code and is tested
+here. The CUDA kernels against the plain versions are in
 test_torch_gpu.py."""
 
 import numpy as np
@@ -118,13 +120,61 @@ def test_sort_float_payload_round_trips(rng):
 def test_cpu_wrappers_take_plain_path_and_do_not_count(rng):
     rid, col, val = _sorted_rect(rng, 4, 128)
     n1, n2 = contract.LAUNCHES, bitonic.LAUNCHES
+    shapes = dict(bitonic.LAUNCH_SHAPES)
     contract.stream_contract(torch.from_numpy(rid), torch.from_numpy(col),
                              torch.from_numpy(val), N_COLS)
     bitonic.row_sort(torch.from_numpy(col), [torch.from_numpy(val)])
     assert (contract.LAUNCHES, bitonic.LAUNCHES) == (n1, n2)
+    assert bitonic.LAUNCH_SHAPES == shapes
 
 
-@pytest.mark.parametrize("case", ["sort_width", "sort_payloads",
+@pytest.mark.parametrize("n_pay", [0, 2])
+def test_sort_plain_is_stable(rng, n_pay):
+    """Equal keys keep their slot order, as the card's K2 does: the plain
+    version, which the card's tests hold K2 to exactly, is numpy's stable
+    argsort applied to every payload."""
+    key = rng.integers(-3, 3, size=(5, 512)).astype(np.int32)
+    key[:, ::7] = np.iinfo(np.int32).max
+    pays = [rng.integers(-1000, 1000, size=(5, 512)).astype(np.int32)
+            for _ in range(n_pay)]
+    k_t, p_t = bitonic.row_sort(torch.from_numpy(key),
+                                [torch.from_numpy(p) for p in pays])
+    order = np.argsort(key, axis=1, kind="stable")
+    np.testing.assert_array_equal(k_t.numpy(),
+                                  np.take_along_axis(key, order, 1))
+    for p, po in zip(pays, p_t):
+        np.testing.assert_array_equal(po.numpy(),
+                                      np.take_along_axis(p, order, 1))
+
+
+@pytest.mark.parametrize("R,W,n_pay,tile,passes,scratch", [
+    (65536, 4096, 2, 4096, 0, ()),             # esc_fixed's owner sorts
+    (65536, 2048, 1, 2048, 0, ()),             # its column sort
+    (65536, 2048, 2, 2048, 0, ()),             # its compaction
+    (512, 8192, 1, 8192, 0, ()),               # the stream chunk sort
+    (512, 8192, 3, 8192, 0, ()),               # its compaction with rid
+    (7, 1, 1, 1, 0, ()),
+    (3, 2, 2, 2, 0, ()),
+    (1, 1 << 14, 0, 8192, 1, (1, 2, 1, 1 << 14)),
+    (1, 1 << 15, 3, 8192, 2, (2, 2, 1, 1 << 15)),
+    (2, 1 << 17, 1, 8192, 4, (2, 2, 2, 1 << 17)),
+    (2, 1 << 20, 1, 8192, 7, (2, 2, 2, 1 << 20)),   # the wide finish
+    (3, 1 << 20, 2, 8192, 7, (2, 2, 3, 1 << 20)),
+    (1, 1 << 24, 1, 8192, 11, (2, 2, 1, 1 << 24))])  # the giant row
+def test_sort_plan(R, W, n_pay, tile, passes, scratch):
+    """K2's host plan: rows of one tile sort in one CTA with no scratch;
+    wider rows take log2(W / 8192) merge passes over one (key, slot) plane
+    pair for a single pass, two pairs for more. Planning launches
+    nothing."""
+    n0, shapes = bitonic.LAUNCHES, dict(bitonic.LAUNCH_SHAPES)
+    plan = bitonic.sort_plan(R, W, n_pay)
+    assert plan == (tile, passes, scratch)
+    assert plan.tile * 2 ** plan.merge_passes == W
+    assert bitonic.LAUNCHES == n0 and bitonic.LAUNCH_SHAPES == shapes
+
+
+@pytest.mark.parametrize("case", ["sort_width", "sort_plan_payloads",
+                                  "sort_payloads",
                                   "sort_dtype", "contract_dtype",
                                   "contract_shape"])
 def test_wrappers_reject_what_kernels_do_not_take(case):
@@ -133,6 +183,8 @@ def test_wrappers_reject_what_kernels_do_not_take(case):
     with pytest.raises(ValueError):
         if case == "sort_width":
             bitonic.row_sort(torch.zeros((2, 12), dtype=torch.int32), [])
+        elif case == "sort_plan_payloads":
+            bitonic.sort_plan(2, 64, 4)
         elif case == "sort_payloads":
             bitonic.row_sort(k, [k, k, k, k])
         elif case == "sort_dtype":
@@ -141,3 +193,12 @@ def test_wrappers_reject_what_kernels_do_not_take(case):
             contract.stream_contract(k, k, v.double(), N_COLS)
         else:
             contract.stream_contract(k[:, :32], k, v, N_COLS)
+
+
+def test_sort_profile_needs_a_card(monkeypatch):
+    """K2's profile times the card only: without one it raises, naming the
+    CPU argument, and times no plain version in its place."""
+    from speck_tpu_torch.probes import sort_profile
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA card"):
+        sort_profile.main()
