@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
 """Smoke check of speck_tpu_torch on one CUDA card: build the kernels,
 hold each against its plain torch version, then drive the product-stream
-SpGEMM once at bench config 3's size, the fixed-cap ESC (esc_fixed) at
-bench config 1's size and the gather probes, and check each against its
-reference.
+SpGEMM once at bench config 3's size and on the bench's giant row, the
+fixed-cap ESC (esc_fixed) at bench config 1's size and the gather probes,
+and check each against its reference.
 
     python3 chip_smoke.py
 
@@ -11,21 +11,28 @@ Phases (any failure raises and exits non-zero; nothing falls back):
   1. a CUDA card must be present; print its name and power limit;
   2. build the kernels from csrc/ with nvcc (sm_90a), print the seconds;
   3. each kernel against its plain version at the main path's shapes
-     (K1 stream_contract at (512, 8192) and (4, 65536) with a per-row rid;
-     K2 row_sort at (512, 8192) with 1 and 3 payloads and at (2, 2^20)):
-     masks equal, K2's keys and payloads equal to the stable plain sort's
-     bit for bit, sums within atol 1e-6 + rtol 1e-5 of the run prefix's
-     sum of magnitudes (fp32 sums in another order); times from CUDA
-     events, medians of 5 (K2, its plain version and torch.sort + gather
-     in turns);
+     (K1 stream_contract at (512, 8192) with a rid plane and at
+     (4, 65536) with a per-row rid; K2 row_sort at (512, 8192) with 1 and
+     3 payloads and at (2, 2^20)): masks equal, K2's keys and payloads
+     equal to the stable plain sort's bit for bit, K1's sums within
+     atol 1e-6 + rtol 1e-5 of the run prefix's sum of magnitudes (fp32
+     sums in another order) and two K1 launches bit-identical; times from
+     CUDA events around one call, medians of 5 in turns (K1 and its plain
+     version; K2, its plain version and torch.sort + gather);
   4. spgemm on make_powerlaw(262144, seed=7), A·A, f32, default
      SpgemmConfig: launch counts of both kernels from that run must be
-     > 0 and the plan must have wide rows; K2's launches by (R, W,
-     payloads); result against the oracle (structure exact, values
-     rel_tol 2e-3); cold call, median of 3 warm calls, GFLOPS =
-     2 * products / time;
+     > 0 and the plan must have wide rows; K1's launches by (R, W, rid)
+     and K2's by (R, W, payloads); result against the oracle (structure
+     exact, values rel_tol 2e-3); cold call, median of 3 warm calls,
+     GFLOPS = 2 * products / time;
   5. plan.execute(A2, A2) with new values on the same structure (the
      two-phase numeric path) against the oracle;
+  4b. (after 5) spgemm on the bench's giant row (make_giant_row(): 40,000
+     rows, 50,084,873 nonzeros, 5 * 10^7 products in row 0), A·A, f32,
+     default SpgemmConfig: launch counts > 0, the plan must have wide rows
+     and a finish class; K1's and K2's launches by shape; result against
+     the oracle (structure exact, values rel_tol 2e-3); cold call, median
+     of 3 warm calls, GFLOPS;
   6. K3 contract_runs against its plain version at (65536, 2048)
      (esc_fixed's rectangle on config 1) and (64, 256) (the entry's), and
      K2 at esc_fixed's sort shapes, checked and timed as in phase 3;
@@ -35,17 +42,33 @@ Phases (any failure raises and exits non-zero; nothing falls back):
      (structure exact, values rel_tol 2e-3); cold call, median of 3 warm
      calls, GFLOPS, peak device memory; then entry()'s fn once against
      the oracle;
-  7b. K2 at every other shape phases 4 and 7 launched it at, as phase 3;
+  7b. K1 at every shape phases 4 and 4b launched it at (and the shapes of
+     probes/contract_profile.py's table), K2 at every other shape phases
+     4, 4b and 7 launched it at, checked and timed as in phase 3, each
+     beside its bound;
   8. the gather probes' mains (python -m speck_tpu_torch.probes...) with
      their launch counts, then sublane_gather (N = 2^22, S = 2048) and
      run_copy (G = 512, K = 64, L = 128 over a 2^21 source) against their
      plain versions, exactly equal; each timed against its library call in
-     turns over PROBE_REPS rounds (medians, quartiles and extremes), GB/s.
+     turns over PROBE_REPS rounds (medians, quartiles and extremes), GB/s;
+  9. every torch.profiler session, after every CUDA-event time above: K1
+     and K3 at each shape timed before, their device time (the kernel and
+     the clear of its scratch, medians of cp.REPS calls) beside the bound;
+     one warm giant-row call: its device time, K1's and K2's share of it
+     and its longest kernels; then the probes of phase 8 in turns once
+     more, to show what a profiler session before them changes, and each
+     probe's and its library call's device time (medians of 5 profiled
+     calls).
 Bounds (bound_ms): the bytes each function must move (inputs read once,
 outputs written once) over 3.35 TB/s, the H100 SXM's device memory rate
 (NVIDIA's data sheet); every kernel here is bound by bytes. library_ms is
 one PyTorch call computing the same function, where there is one; the port
-never calls it.
+never calls it. Launches in the kernels' line: K1's over phases 4 and 4b,
+K2's over 4, 4b and 7. The line's ms is the CUDA-event time around one
+wrapper call, as plain_ms is; device_ms is the device time by
+torch.profiler from phase 9 (K1, K3 and the probes; null for K2): where a
+call is shorter on the card than its wrapper's host time, the event time
+holds the host time instead.
 The last lines are the kernels' JSON line, the card's nvidia-smi line and
 {"ok": true, "device": {...}}.
 """
@@ -58,7 +81,9 @@ import time
 import numpy as np
 import torch
 
-from speck_tpu_torch.probes.timing import card, cuda_ms, cuda_ms_turns
+from speck_tpu_torch.probes import contract_profile as cp
+from speck_tpu_torch.probes.timing import (card, cuda_ms, cuda_ms_turns,
+                                           device_us, profile_call)
 
 
 HBM_BYTES_PER_MS = 3.35e12 / 1e3
@@ -70,65 +95,85 @@ def bound_ms(nbytes):
     return nbytes / HBM_BYTES_PER_MS
 
 
+def products_of(h):
+    """Products of A·A, exactly: the B row length summed over A's
+    nonzeros (the plan's own count is float32)."""
+    b_len = np.diff(np.asarray(h.row_offsets, np.int64))
+    return int(b_len[np.asarray(h.col_ids, np.int64)].sum())
+
+
 def check(cond, what):
     if not cond:
         raise RuntimeError(f"chip_smoke: {what}")
 
 
-def contract_case(gen, R, W, const_rid, n_cols=4096):
+def contract_case(gen, R, W, kind, reps=5):
+    """K1 against contract_plain at (R, W) with a rid plane or a per-row rid
+    (kind "plane" or "row"): masks equal, sums within atol 1e-6 + rtol 1e-5
+    of the run prefix's sum of magnitudes (fp32 sums in another order), a
+    second launch bit-identical to the first; then the kernel and the plain
+    version timed in turns with CUDA events around one call, medians of
+    reps."""
     from speck_tpu_torch.ops import contract
 
-    dev = torch.device("cuda")
-    key = torch.sort(torch.randint(0, 1 << 22, (R, W), generator=gen,
-                                   device=dev, dtype=torch.int32), 1).values
-    if const_rid:
-        col = torch.sort(torch.randint(0, n_cols, (R, W), generator=gen,
-                                       device=dev, dtype=torch.int32),
-                         1).values
-        rid = (torch.arange(R, dtype=torch.int32, device=dev) + 5)[:, None]
-        rid = rid.expand(R, W)
-    else:
-        rid, col = key >> 12, key & (n_cols - 1)
-    dead = torch.arange(W, device=dev)[None, :] >= W - W // 8
-    col = torch.where(dead, n_cols, col).to(torch.int32).contiguous()
-    if not const_rid:
-        rid = torch.where(dead, rid[:, :1], rid).to(torch.int32).contiguous()
-    val = torch.randn((R, W), generator=gen, device=dev)
-    last_k, sum_k = contract.stream_contract(rid, col, val, n_cols)
-    last_p, sum_p = contract.contract_plain(rid, col, val, n_cols)
+    rid, col, val = cp.contract_inputs(gen, R, W, kind)
+    last_k, sum_k = contract.stream_contract(rid, col, val, cp.N_COLS)
+    last_2, sum_2 = contract.stream_contract(rid, col, val, cp.N_COLS)
+    last_p, sum_p = contract.contract_plain(rid, col, val, cp.N_COLS)
     torch.cuda.synchronize()
-    check(torch.equal(last_k, last_p), f"K1 mask differs at {(R, W)}")
-    # fp32 summation error scales with the sum of magnitudes over the run
-    # prefix: rtol 1e-5 against that, atol 1e-6
-    mag = contract.contract_plain(rid, col, val.abs(), n_cols)[1]
-    err = (sum_k - sum_p).abs()
-    check(bool((err <= 1e-6 + 1e-5 * mag).all()),
-          f"K1 sums differ at {(R, W)}: max abs {float(err.max())}")
-    ms = cuda_ms(lambda: contract.stream_contract(rid, col, val, n_cols))
-    plain_ms = cuda_ms(lambda: contract.contract_plain(rid, col, val, n_cols))
-    return float(err.max()), ms, plain_ms
+    check(torch.equal(last_k, last_p), f"K1 mask differs at {(R, W, kind)}")
+    mag = contract.contract_plain(rid, col, val.abs(), cp.N_COLS)[1]
+    err = float((sum_k - sum_p).abs().max())
+    check(cp.sums_close(sum_k, sum_p, mag),
+          f"K1 sums differ at {(R, W, kind)}: max abs {err}")
+    check(torch.equal(last_k, last_2) and torch.equal(
+        sum_k.view(torch.int32), sum_2.view(torch.int32)),
+        f"two K1 launches differ at {(R, W, kind)}")
+    del last_k, sum_k, last_2, sum_2, last_p, sum_p, mag
+
+    t = cuda_ms_turns(
+        {"kernel": lambda: contract.stream_contract(rid, col, val, cp.N_COLS),
+         "plain": lambda: contract.contract_plain(rid, col, val, cp.N_COLS)},
+        reps)
+    return (err, statistics.median(t["kernel"]),
+            statistics.median(t["plain"]))
 
 
-def contract_runs_case(gen, R, W, n_cols=4096):
+def contract_line(R, W, kind, res, smi, where=""):
+    err, ms, pms = res
+    print(f"K1 stream_contract ({R}, {W}) rid={kind}{where}: max_abs_err "
+          f"{err:.3g}, kernel {ms:.4f} ms, plain {pms:.4f} ms, bound "
+          f"{bound_ms(cp.k1_bytes(R, W, kind)):.4f} ms [{smi}]", flush=True)
+
+
+def device_line(what, d, nbytes, ev_ms, smi):
+    """Phase 9's line for one K1 or K3 shape: its device time by
+    torch.profiler (the kernel and the clear of its scratch) beside the
+    bound and the phase's CUDA-event time."""
+    dms, bms = sum(d.values()), bound_ms(nbytes)
+    print(f"{what}: device {dms:.4f} ms by torch.profiler (kernel "
+          f"{d[cp.KERNELS[0]]:.4f}, scratch clear {d[cp.KERNELS[1]]:.4f}), "
+          f"{dms / bms:.2f}x the bound {bms:.4f} ms; events around one call "
+          f"{ev_ms:.4f} ms [{smi}]", flush=True)
+
+
+def contract_runs_case(gen, R, W):
     from speck_tpu_torch.ops import contract
 
-    dev = torch.device("cuda")
-    col = torch.sort(torch.randint(0, n_cols, (R, W), generator=gen,
-                                   device=dev, dtype=torch.int32), 1).values
-    dead = torch.arange(W, device=dev)[None, :] >= W - W // 8
-    col = torch.where(dead, n_cols, col).to(torch.int32).contiguous()
-    val = torch.randn((R, W), generator=gen, device=dev)
-    last_k, sum_k = contract.contract_runs(col, val, n_cols)
-    last_p, sum_p = contract.contract_runs_plain(col, val, n_cols)
+    col, val = cp.runs_inputs(gen, R, W)
+    last_k, sum_k = contract.contract_runs(col, val, cp.N_COLS)
+    last_p, sum_p = contract.contract_runs_plain(col, val, cp.N_COLS)
     torch.cuda.synchronize()
     check(torch.equal(last_k, last_p), f"K3 mask differs at {(R, W)}")
-    mag = contract.contract_runs_plain(col, val.abs(), n_cols)[1]
-    err = (sum_k - sum_p).abs()
-    check(bool((err <= 1e-6 + 1e-5 * mag).all()),
-          f"K3 sums differ at {(R, W)}: max abs {float(err.max())}")
-    ms = cuda_ms(lambda: contract.contract_runs(col, val, n_cols))
-    plain_ms = cuda_ms(lambda: contract.contract_runs_plain(col, val, n_cols))
-    return float(err.max()), ms, plain_ms
+    mag = contract.contract_runs_plain(col, val.abs(), cp.N_COLS)[1]
+    err = float((sum_k - sum_p).abs().max())
+    check(cp.sums_close(sum_k, sum_p, mag),
+          f"K3 sums differ at {(R, W)}: max abs {err}")
+
+    ms = cuda_ms(lambda: contract.contract_runs(col, val, cp.N_COLS))
+    plain_ms = cuda_ms(lambda: contract.contract_runs_plain(col, val,
+                                                            cp.N_COLS))
+    return err, ms, plain_ms
 
 
 def sort_case(gen, R, W, n_pay, reps=5):
@@ -175,9 +220,19 @@ def sort_line(R, W, n_pay, res, smi, where=""):
           f"{bound_ms(8 * (1 + n_pay) * R * W):.4f} ms [{smi}]", flush=True)
 
 
-def shape_histogram(what, shapes):
-    print(f"K2 launches by (R, W, payloads) in {what}: "
+def shape_histogram(what, shapes, kernel="K2", key="payloads"):
+    print(f"{kernel} launches by (R, W, {key}) in {what}: "
           f"{dict(sorted(shapes.items()))}", flush=True)
+
+
+def reset_counts():
+    from speck_tpu_torch.ops import bitonic, contract
+
+    contract.LAUNCHES = 0
+    contract.LAUNCH_SHAPES.clear()
+    contract.RUNS_LAUNCHES = 0
+    bitonic.LAUNCHES = 0
+    bitonic.LAUNCH_SHAPES.clear()
 
 
 def esc_phase(pt, smi):
@@ -193,16 +248,12 @@ def esc_phase(pt, smi):
     ref = pt.oracle_spgemm(h, h)
     cap = tentry.fixed_cap(h, h)
     check(cap == 2048, f"config 1 fixed cap is {cap}, not 2048")
-    b_len = np.diff(np.asarray(h.row_offsets, np.int64))
-    products = float(b_len[np.asarray(h.col_ids, np.int64)].sum())
+    products = products_of(h)
     args = tentry.esc_args(h, h, "cuda")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     base_mem = torch.cuda.memory_allocated()
-    contract.RUNS_LAUNCHES = 0
-    contract.LAUNCHES = 0
-    bitonic.LAUNCHES = 0
-    bitonic.LAUNCH_SHAPES.clear()
+    reset_counts()
     t0 = time.perf_counter()
     out = esc_fixed(*args, cap=cap, n_cols=h.cols)
     torch.cuda.synchronize()
@@ -230,7 +281,7 @@ def esc_phase(pt, smi):
         warm.append((time.perf_counter() - t0) * 1e3)
     warm_ms = statistics.median(warm)
     line = (f"esc_fixed config 1 A*A f32 cap {cap} [{smi}]: nnz(C)="
-            f"{got.nnz} products={products:.0f} cold {cold_ms:.1f} ms, warm "
+            f"{got.nnz} products={products} cold {cold_ms:.1f} ms, warm "
             f"median of 3 {warm_ms:.2f} ms (all "
             f"{[round(w, 2) for w in warm]}), GFLOPS "
             f"{2 * products / (warm_ms * 1e6):.3f}, peak memory "
@@ -249,10 +300,108 @@ def esc_phase(pt, smi):
     return launches, shapes, line
 
 
+def giant_phase(pt, smi):
+    """Phase 4b: spgemm on the bench's giant row against the oracle; returns
+    the launch counts and shapes of the cold call and the summary line."""
+    from speck_tpu_torch.ops import bitonic, contract
+    from speck_tpu_torch.utils.generators import make_giant_row
+
+    t0 = time.perf_counter()
+    h = make_giant_row()
+    t_gen = time.perf_counter() - t0
+    check((h.rows, h.nnz) == (40000, 50084873),
+          f"the giant row is {(h.rows, h.nnz)}, not the bench's")
+    t0 = time.perf_counter()
+    ref = pt.oracle_spgemm(h, h)
+    t_ref = time.perf_counter() - t0
+    cfg = pt.SpgemmConfig()
+    A = pt.device_put_csr(h, torch.float32, "cuda")
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    plan = pt.plan_spgemm(A, A, cfg)
+    C = plan.execute()
+    torch.cuda.synchronize()
+    cold_ms = (time.perf_counter() - t0) * 1e3
+    launches = {"stream_contract": contract.LAUNCHES,
+                "row_sort": bitonic.LAUNCHES}
+    k1_shapes = dict(contract.LAUNCH_SHAPES)
+    k2_shapes = dict(bitonic.LAUNCH_SHAPES)
+    check(all(v > 0 for v in launches.values()),
+          f"a kernel was not launched on the giant-row path: {launches}")
+    check(contract.RUNS_LAUNCHES == 0, "the giant-row path launched K3")
+    lo = plan.stream.layout
+    classes = plan.stream.finish["classes"] or []
+    print(f"giant row: m={h.rows} nnz(A)={h.nnz} generated in {t_gen:.2f} "
+          f"s, oracle {t_ref:.2f} s; layout W={lo.W} G={lo.G} "
+          f"chunks={lo.n_chunks} n_wide={lo.n_wide} r_wide={lo.r_wide} "
+          f"fused={plan.stream.fused} finish classes "
+          f"{[(c['R2'], c['W2']) for c in classes]} ladder_levels="
+          f"{plan.stream.finish['ladder_levels']}; launches {launches}",
+          flush=True)
+    shape_histogram("the giant-row plan_spgemm + execute", k2_shapes)
+    shape_histogram("the giant-row plan_spgemm + execute", k1_shapes, "K1",
+                    "rid")
+    check(lo.n_wide > 0 and classes,
+          "the giant row planned no wide rows or no finish class")
+    Ch = pt.device_get_csr(C)
+    r = pt.compare_csr(ref, Ch)
+    check(r.ok, f"giant row structure differs from the oracle: {r.message}")
+    r = pt.compare_csr(ref, Ch, compare_data=True, rel_tol=2e-3)
+    check(r.ok, f"giant row values differ from the oracle: {r.message}")
+    check(bool(np.isfinite(Ch.data).all()), "non-finite values in C")
+
+    warm = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        Cw = pt.spgemm(A, A, cfg)
+        torch.cuda.synchronize()
+        warm.append((time.perf_counter() - t0) * 1e3)
+        check(Cw.nnz == C.nnz, "warm call nnz differs from the cold call")
+        del Cw
+    warm_ms = statistics.median(warm)
+    products = products_of(h)
+    line = (f"giant row A*A f32 [{smi}]: nnz(C)={C.nnz} products="
+            f"{products} cold {cold_ms:.1f} ms, warm median of 3 "
+            f"{warm_ms:.1f} ms (all {[round(w, 1) for w in warm]}), GFLOPS "
+            f"{2 * products / (warm_ms * 1e6):.3f}; launches {launches}")
+    print(line, flush=True)
+    return {"launches": launches, "k1_shapes": k1_shapes,
+            "k2_shapes": k2_shapes, "line": line, "h": h, "cfg": cfg}
+
+
+def giant_profile(pt, giant, smi):
+    """Phase 9: the giant row put on the card again, one call, then one
+    warm call under torch.profiler: its device time, K1's share (the
+    contract and the clears of its scratch) and K2's, and its longest
+    kernels; returns the summary line with them."""
+    cfg = giant.pop("cfg")
+    A = pt.device_put_csr(giant.pop("h"), torch.float32, "cuda")
+    pt.spgemm(A, A, cfg)
+    host_ms, dev_ms, kernels = profile_call(lambda: pt.spgemm(A, A, cfg))
+    k1_ms = sum(device_us(e) for e in kernels
+                if any(n in e.key for n in cp.KERNELS)) / 1e3
+    k2_ms = sum(device_us(e) for e in kernels
+                if "radix_tile_kernel" in e.key
+                or "merge_pass_kernel" in e.key) / 1e3
+    print(f"giant row profiled warm call: host {host_ms:.1f} ms, device "
+          f"{dev_ms:.2f} ms over {sum(e.count for e in kernels)} kernels "
+          f"(idle share {1 - dev_ms / host_ms:.3f}); K1 {k1_ms:.3f} ms "
+          f"with its scratch clears ({k1_ms / dev_ms:.1%} of the device "
+          f"time), K2 {k2_ms:.3f} ms ({k2_ms / dev_ms:.1%}) [{smi}]",
+          flush=True)
+    print("giant row profiled warm call, longest kernels: " + "; ".join(
+        f"{e.key[:60]} {device_us(e) / 1e3:.3f} ms x{e.count}"
+        for e in kernels[:6]), flush=True)
+    return (f"{giant['line']}; profiled call: device {dev_ms:.2f} ms (K1 "
+            f"{k1_ms:.3f}, K2 {k2_ms:.3f})")
+
+
 def probe_phase(gen, smi):
     """Phase 8: the probes' mains with their launch counts, then each probe
     kernel against its plain version at the scripts' sizes; returns the
-    counts and each kernel's measured numbers."""
+    counts, the cases and each kernel's measured numbers."""
     from speck_tpu_torch.probes import expand_microbench as em
     from speck_tpu_torch.probes import gather_microbench2 as gm
 
@@ -301,6 +450,12 @@ def probe_phase(gen, smi):
                      lambda: gm.run_copy(offs, src, L),
                      lambda: gm.run_copy_plain(offs, src, L),
                      lambda: src[ix])}
+    return launches, cases, probe_turns(cases, launches, smi)
+
+
+def probe_turns(cases, launches, smi, where=""):
+    """Each probe kernel and its library call in turns, PROBE_REPS rounds;
+    returns each kernel's measured numbers."""
     out = {}
     for name, (nbytes, lib_name, kernel, plain, library) in cases.items():
         t = cuda_ms_turns({"kernel": kernel, "library": library},
@@ -316,7 +471,7 @@ def probe_phase(gen, smi):
             return ", ".join(f"{x:.4f}" for x in (min(v), q[0], q[2], max(v)))
 
         wins = sum(a < b for a, b in zip(t["kernel"], t["library"]))
-        print(f"{name}: kernel {m['ms']:.4f} ms "
+        print(f"{name}{where}: kernel {m['ms']:.4f} ms "
               f"({nbytes / m['ms'] / 1e6:.1f} GB/s), {lib_name} "
               f"{m['library_ms']:.4f} ms, medians of {PROBE_REPS} in turns "
               f"(min, quartiles, max: kernel {spread(t['kernel'])}; library "
@@ -324,7 +479,7 @@ def probe_phase(gen, smi):
               f"{PROBE_REPS} turns; plain {m['plain_ms']:.4f} ms, bound "
               f"{m['bound_ms']:.4f} ms; launches in the probes "
               f"{launches[name]} [{smi}]", flush=True)
-    return launches, out
+    return out
 
 
 def main():
@@ -352,13 +507,9 @@ def main():
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     k1 = {}
-    for R, W, const in [(512, 8192, False), (4, 65536, True)]:
-        k1[(R, W)] = contract_case(gen, R, W, const)
-        err, ms, pms = k1[(R, W)]
-        rid_kind = "row" if const else "plane"
-        print(f"K1 stream_contract ({R}, {W}) rid={rid_kind}: "
-              f"max_abs_err {err:.3g}, kernel {ms:.4f} ms, plain "
-              f"{pms:.4f} ms [{smi}]", flush=True)
+    for shape in [(512, 8192, "plane"), (4, 65536, "row")]:
+        k1[shape] = contract_case(gen, *shape)
+        contract_line(*shape, k1[shape], smi)
     k2 = {}
     for shape in [(512, 8192, 1), (512, 8192, 3), (2, 1 << 20, 1)]:
         k2[shape] = sort_case(gen, *shape)
@@ -374,10 +525,7 @@ def main():
     cfg = pt.SpgemmConfig()
     A = pt.device_put_csr(h, torch.float32, "cuda")
     torch.cuda.synchronize()
-    contract.LAUNCHES = 0
-    contract.RUNS_LAUNCHES = 0
-    bitonic.LAUNCHES = 0
-    bitonic.LAUNCH_SHAPES.clear()
+    reset_counts()
     t0 = time.perf_counter()
     plan = pt.plan_spgemm(A, A, cfg)
     C = plan.execute()
@@ -386,6 +534,7 @@ def main():
     launches = {"stream_contract": contract.LAUNCHES,
                 "row_sort": bitonic.LAUNCHES}
     stream_shapes = dict(bitonic.LAUNCH_SHAPES)
+    k1_shapes = dict(contract.LAUNCH_SHAPES)
     check(contract.RUNS_LAUNCHES == 0, "the stream path launched K3")
     lo = plan.stream.layout
     print(f"config 3: m={h.rows} nnz(A)={h.nnz} generated in {t_gen:.2f} s, "
@@ -396,6 +545,8 @@ def main():
           f"ladder_levels={plan.stream.finish['ladder_levels']}; "
           f"launches {launches}", flush=True)
     shape_histogram("the config 3 plan_spgemm + execute", stream_shapes)
+    shape_histogram("the config 3 plan_spgemm + execute", k1_shapes, "K1",
+                    "rid")
     check(all(v > 0 for v in launches.values()),
           f"a kernel was not launched on the main path: {launches}")
     check(lo.n_wide > 0, "config 3 planned no wide rows")
@@ -415,8 +566,8 @@ def main():
         warm.append((time.perf_counter() - t0) * 1e3)
     warm_ms = statistics.median(warm)
     check(Cw.nnz == C.nnz, "warm call nnz differs from the cold call")
-    products = float(plan.sum_products)
-    print(f"config 3 A*A f32 [{smi}]: nnz(C)={C.nnz} products={products:.0f}"
+    products = products_of(h)
+    print(f"config 3 A*A f32 [{smi}]: nnz(C)={C.nnz} products={products}"
           f" cold {cold_ms:.1f} ms, warm median of 3 {warm_ms:.1f} ms "
           f"(all {[round(w, 1) for w in warm]}), "
           f"GFLOPS {2 * products / (warm_ms * 1e6):.3f}, "
@@ -450,6 +601,10 @@ def main():
     del A, A2, C, C2, Cw, plan
     torch.cuda.empty_cache()
 
+    # 4b. the bench's giant row through spgemm
+    giant = giant_phase(pt, smi)
+    torch.cuda.empty_cache()
+
     # 6. K3, and K2 at esc_fixed's sort shapes
     k3 = {}
     for R, W in [(65536, 2048), (64, 256)]:
@@ -467,32 +622,80 @@ def main():
     esc_launches, esc_shapes, esc_line = esc_phase(pt, smi)
     torch.cuda.empty_cache()
 
-    # 7b. K2 at every other shape that phases 4 and 7 launched it at
-    for shape in sorted(set(stream_shapes) | set(esc_shapes)):
+    # 7b. K1 at every shape phases 4 and 4b launched it at (and the shapes
+    # of the probe's table), K2 at every other shape of 4, 4b and 7
+    k1_all = set(k1_shapes) | set(giant["k1_shapes"]) | set(cp.SHAPES)
+    for shape in sorted(k1_all):
+        if shape not in k1:
+            k1[shape] = contract_case(gen, *shape)
+            contract_line(*shape, k1[shape], smi, " (main-path shape)")
+            torch.cuda.empty_cache()
+    k2_all = set(stream_shapes) | set(giant["k2_shapes"]) | set(esc_shapes)
+    for shape in sorted(k2_all):
         if shape not in k2:
             k2[shape] = sort_case(gen, *shape)
             sort_line(*shape, k2[shape], smi, " (main-path shape)")
             torch.cuda.empty_cache()
 
     # 8. the gather probes
-    probe_launches, probes = probe_phase(gen, smi)
+    probe_launches, probe_cases, probes = probe_phase(gen, smi)
 
-    k1_bytes = 17 * 512 * 8192
+    # 9. the profiled phase, after every CUDA-event time of the phases
+    # above: K1's and K3's device times, the giant row's profiled call, then
+    # the probes in turns once more, to show what a profiler session before
+    # them changes
+    k1_dev, k3_dev = {}, {}
+    for shape in sorted(k1):
+        rid, col, val = cp.contract_inputs(gen, *shape)
+        k1_dev[shape] = cp.kernel_device_ms(
+            lambda: contract.stream_contract(rid, col, val, cp.N_COLS))
+        device_line(f"K1 stream_contract ({shape[0]}, {shape[1]}) "
+                    f"rid={shape[2]}", k1_dev[shape], cp.k1_bytes(*shape),
+                    k1[shape][1], smi)
+        del rid, col, val
+    for R, W in sorted(k3):
+        col, val = cp.runs_inputs(gen, R, W)
+        k3_dev[(R, W)] = cp.kernel_device_ms(
+            lambda: contract.contract_runs(col, val, cp.N_COLS))
+        device_line(f"K3 contract_runs ({R}, {W})", k3_dev[(R, W)],
+                    13 * R * W, k3[(R, W)][1], smi)
+        del col, val
+        torch.cuda.empty_cache()
+    giant_line = giant_profile(pt, giant, smi)
+    torch.cuda.empty_cache()
+    probe_turns(probe_cases, probe_launches, smi,
+                " (after the profiled phase)")
+    # each probe's device time and its library call's, without the host
+    # time that their event times hold (medians of 5 profiled calls)
+    for name, (_, lib_name, kernel, _, library) in probe_cases.items():
+        probes[name]["device_ms"] = statistics.median(
+            profile_call(kernel)[1] for _ in range(5))
+        lib_dev = statistics.median(profile_call(library)[1]
+                                    for _ in range(5))
+        print(f"{name}: device {probes[name]['device_ms']:.4f} ms by "
+              f"torch.profiler, {lib_name} {lib_dev:.4f} ms [{smi}]",
+              flush=True)
+
+    k1_main = (512, 8192, "plane")
     kernels = [
         {"name": "stream_contract", "route": "cuda",
          "source": "speck_tpu_torch/csrc/stream_contract.cu",
          "replaces": "speck_tpu/ops/pallas_kernels.py:122",
-         "launches": launches["stream_contract"],
+         "launches": (launches["stream_contract"]
+                      + giant["launches"]["stream_contract"]),
          "max_abs_err": max(v[0] for v in k1.values()),
-         "ms": k1[(512, 8192)][1], "plain_ms": k1[(512, 8192)][2],
-         "bound_ms": bound_ms(k1_bytes), "bound_by": "bytes",
+         "ms": k1[k1_main][1], "device_ms": sum(k1_dev[k1_main].values()),
+         "plain_ms": k1[k1_main][2],
+         "bound_ms": bound_ms(cp.k1_bytes(*k1_main)), "bound_by": "bytes",
          "library_ms": None},
         {"name": "row_sort", "route": "cuda",
          "source": "speck_tpu_torch/csrc/row_sort.cu",
          "replaces": "speck_tpu/ops/bitonic.py:172",
-         "launches": launches["row_sort"] + esc_launches["row_sort"],
+         "launches": (launches["row_sort"] + giant["launches"]["row_sort"]
+                      + esc_launches["row_sort"]),
          "max_abs_err": max(v[0] for v in k2.values()),
-         "ms": k2[(512, 8192, 1)][1], "plain_ms": k2[(512, 8192, 1)][2],
+         "ms": k2[(512, 8192, 1)][1], "device_ms": None,
+         "plain_ms": k2[(512, 8192, 1)][2],
          "bound_ms": bound_ms(16 * 512 * 8192), "bound_by": "bytes",
          "library_ms": k2[(512, 8192, 1)][3]},
         {"name": "contract_runs", "route": "cuda",
@@ -500,7 +703,9 @@ def main():
          "replaces": "speck_tpu/ops/pallas_kernels.py:153",
          "launches": esc_launches["contract_runs"],
          "max_abs_err": max(v[0] for v in k3.values()),
-         "ms": k3[(65536, 2048)][1], "plain_ms": k3[(65536, 2048)][2],
+         "ms": k3[(65536, 2048)][1],
+         "device_ms": sum(k3_dev[(65536, 2048)].values()),
+         "plain_ms": k3[(65536, 2048)][2],
          "bound_ms": bound_ms(13 * 65536 * 2048), "bound_by": "bytes",
          "library_ms": None},
     ]
@@ -513,6 +718,7 @@ def main():
              "source": "speck_tpu_torch/csrc/gather_probes.cu",
              "replaces": replaces, "launches": probe_launches[name]},
             **probes[name]))
+    print(giant_line, flush=True)
     print(esc_line, flush=True)
     print(json.dumps({"kernels": kernels}))
     print(smi)

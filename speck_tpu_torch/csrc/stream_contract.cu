@@ -1,9 +1,9 @@
 // Contract kernels for NVIDIA Hopper (sm_90a): K1 (stream contract) and K3
-// (column contract), one tiled segmented scan with a compile-time switch.
+// (column contract), one flat segmented scan with compile-time switches.
 //
-// K1 replaces: speck_tpu/ops/pallas_kernels.py, stream_contract_runs (Pallas
-// body _stream_contract_kernel), the contract stage of every stream chunk,
-// merge level and wide finish.
+// K1 replaces: speck_tpu/ops/pallas_kernels.py:122, stream_contract_runs
+// (Pallas body _stream_contract_kernel, :95), the contract stage of every
+// stream chunk, merge level and wide finish.
 // K3 replaces: speck_tpu/ops/pallas_kernels.py:153, contract_runs (Pallas
 // body _contract_kernel, :46), the contract of esc._contract and of
 // esc_fixed (whose JAX form computes it as _run_boundaries + _run_sums).
@@ -16,38 +16,93 @@
 // K1's run key is (rid, col), rows (rid, col)-sorted; rid may be a full
 // plane or a per-row constant (column stride 0). K3's run key is col
 // alone, with the JAX form's sentinels: slot -1 holds -1 and slot W holds
-// -2, so a row's first and last slots compare against those.
+// -2, so a row's last slot ends a run unless its column is -2. A row head
+// restarts the sums in both (the JAX doubling shifts zeros in there).
 //
-// What bounds them on an H100: device memory. K1 reads 12 bytes per slot
-// (rid, col, val) and K3 8 (col, val); both write 5 (last, sum), for a
-// handful of integer and float operations, far below the card's
-// operations-per-byte balance. A (512, 8192) K1 chunk moves ~71 MB, about
-// 21 us at 3.35 TB/s; esc_fixed's (65536, 2048) K3 rectangle moves
-// ~1.75 GB, about 0.52 ms.
+// What bounds them on an H100: device memory. K1 reads 12 bytes a slot
+// with a rid plane (rid, col, val) and 8 with a per-row rid, which it never
+// reads: a row head is a run start already, and the rid is constant along
+// the row. Both write 5 (last, sum): 17 and 13 bytes a slot, for a handful
+// of integer and float operations, far below the card's operations-per-byte
+// balance. A (512, 8192) chunk moves 71 MB, 21.3 us at 3.35 TB/s; the
+// giant row's (1, 2^23) finish 109 MB, 32.6 us. K3 moves 13 bytes a slot:
+// esc_fixed's (65536, 2048) rectangle 1.75 GB, 0.52 ms.
 //
-// What the design does about it: one pass over the data, no intermediate
-// planes in device memory (the plain form makes 2*log2(W) full passes).
-// One CTA owns one row and walks it in tiles of 2048 slots (512 threads x
-// 4 consecutive slots). Each tile is staged through shared memory so the
-// global loads and stores are coalesced. The segmented scan runs
-// sequentially over a thread's 4 slots, by warp shuffles across a warp,
-// through shared memory across the 16 warps, and carries a (value, flag)
-// pair from tile to tile, so a row of any width (up to 2^24 in the wide
-// finish) is one CTA. K3 is the same kernel with kHasRid = false: it never
-// loads a rid, so it moves 8 + 5 bytes per slot. Sums are taken in another
-// order than the Hillis-Steele doubling of the Pallas and plain forms:
-// equal at tolerance, the mask exactly.
+// Why the first design lost: one CTA owned one row and walked it serially
+// in 2048-slot tiles, five __syncthreads() a tile, 4-byte loads staged
+// through shared memory, 1-byte stores. A (512, 8192) chunk filled the card
+// (0.0738 ms against 0.0213), but a row wider than a few tiles ran on one
+// SM: (4, 65536) with a per-row rid took 0.1170 ms against a 0.0010 bound,
+// about 3.7 us a tile, 32 tiles in series; the giant row's (1, 2^23)
+// finish, 4096 tiles on one SM, about 15 ms (NVIDIA H100 80GB HBM3,
+// 700.00 W; PERF.md).
+//
+// What this design does about it:
+// - Flat tiles. The rectangle is R*W contiguous slots; a CTA takes one tile
+//   of kTile = 4096 slots (256 threads x 16 consecutive slots), so a shape
+//   spreads over as many SMs as it has tiles, whatever its rows. Slots with
+//   g % W == 0 are forced run starts.
+// - 16-byte accesses. A thread loads its 16 slots of col, val (and rid) as
+//   int4/float4, stores its sums as four float4 and its 16 last flags as
+//   one 16-byte word. The neighbour slots come by warp shuffle; a warp's
+//   edge lanes read slots g-1 and g+16 directly. The ragged last tile takes
+//   a masked scalar path.
+// - One pass: the sums are a segmented scan over (value, run-start) pairs,
+//   sequential over a thread's 16 slots, by shuffles across a warp and
+//   through shared memory across the 8 warps.
+// - Carry across tiles by decoupled look-back (Merrill and Garland, NVIDIA
+//   2016). A tile takes its id from a global atomic counter, so every
+//   lower tile is already running and the look-back cannot deadlock. A
+//   tile that holds a run start publishes its inclusive prefix at once (the
+//   sum since its last run start); a tile without one publishes its
+//   aggregate, looks back for its carry and then publishes its prefix. A
+//   tile whose first slot starts a run needs no carry and does not look.
+//   The look-back stops at the nearest published prefix, so with runs
+//   shorter than a tile it is one step. Where W divides the tile (K3 on
+//   esc_fixed's power-of-two rows) every tile starts at a row head: the
+//   wrapper passes no scratch, the tile is blockIdx.x, and nothing is
+//   published or read back.
+// - Deterministic sums. The look-back finds the nearest prefix P_q, then
+//   folds forward in tile order, carry = P_q, then carry = carry + A_j for
+//   each later tile j (or carry = P_j where that tile has published its
+//   prefix meanwhile, which is the same float, since every P_j is that
+//   same left fold). Aggregates are never added to each other first, so a
+//   tile's carry is the same float sequence whichever predecessor had
+//   published: two launches give bit-identical sums.
+// - Scratch: word 0 the tile counter, then one 8-byte status word a tile
+//   (low half the float value, high half the flags: aggregate or prefix).
+//   The wrapper allocates it (torch.empty) and the launcher clears it on
+//   the caller's stream before the kernel, by a kernel of its own
+//   (contract_scratch_clear), so that a profile counts the clear with K1 by
+//   name: no epoch tag, no state kept between launches, and a CUDA graph
+//   that replays the launch replays the clear too. The kernel allocates
+//   nothing. The wrapper checks that every input is 16-byte aligned.
+// Sums are taken in another order than the Hillis-Steele doubling of the
+// Pallas and plain forms: equal at tolerance, the mask exactly.
+//
+// nvcc -Xptxas -v (sm_90a): contract_kernel<true, false> (K1, rid plane)
+// 64 registers, <false, false> (K1, per-row rid) 60, <false, true> (K3)
+// 72, contract_scratch_clear 24; no spills, no stack, 76 bytes of static
+// shared memory. Device time with the clear (about 1 us) on an H100 80GB
+// HBM3 at 700 W (probes/contract_profile.py, PERF.md): 0.0308 ms at
+// (512, 8192), 1.45x the bound; 0.0648 ms at (1, 2^23), 1.99x; K3 0.581 ms
+// at (65536, 2048). CUDA events around one wrapper call read more at the
+// small shapes: the wrapper's host time and the two launches lead there.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kThreads = 512;
-constexpr int kItems = 4;
+constexpr int kThreads = 256;
+constexpr int kItems = 16;
 constexpr int kTile = kThreads * kItems;
 constexpr int kWarps = kThreads / 32;
 constexpr unsigned kFull = 0xffffffffu;
+
+// flags in a tile's status word (0: nothing published yet)
+constexpr unsigned kAggregate = 1u;  // value: the tile's own sum (no start)
+constexpr unsigned kPrefix = 2u;     // value: the sum since the last start
 
 // Segmented-sum element: the sum since the last run start inside the span,
 // and whether a run starts inside it. seg_op(a, b) covers a then b.
@@ -70,140 +125,323 @@ __device__ __forceinline__ Seg shfl_up(const Seg& s, int o) {
   return r;
 }
 
-template <bool kHasRid>
-__global__ void __launch_bounds__(kThreads)
-contract_kernel(const int* __restrict__ rid, long long rid_rs,
-                long long rid_cs, const int* __restrict__ col,
-                const float* __restrict__ val, uint8_t* __restrict__ last,
-                float* __restrict__ sums, long long W, int n_cols) {
-  __shared__ int s_col[kTile + 2];   // slots base-1 .. base+kTile
-  __shared__ int s_rid[kHasRid ? kTile + 2 : 1];
-  __shared__ float s_val[kTile];     // values in, run sums out
-  __shared__ uint8_t s_last[kTile];
-  __shared__ Seg s_warp[kWarps];
-  __shared__ Seg s_carry;            // everything before the tile
+__device__ __forceinline__ unsigned long long load_status(
+    const unsigned long long* p) {
+  unsigned long long w;
+  asm volatile("ld.relaxed.gpu.global.u64 %0, [%1];"
+               : "=l"(w) : "l"(p) : "memory");
+  return w;
+}
 
-  const long long row = blockIdx.x;
-  const int* crow = col + row * W;
-  const float* vrow = val + row * W;
-  const int* rrow = kHasRid ? rid + row * rid_rs : nullptr;
-  uint8_t* lrow = last + row * W;
-  float* srow = sums + row * W;
+__device__ __forceinline__ void store_status(unsigned long long* p, float v,
+                                             unsigned flags) {
+  const unsigned long long w =
+      ((unsigned long long)flags << 32) | __float_as_uint(v);
+  asm volatile("st.relaxed.gpu.global.u64 [%0], %1;"
+               :: "l"(p), "l"(w) : "memory");
+}
+
+// The inclusive prefix through tile t - 1, for tile t >= 1 (tile 0 always
+// publishes a prefix: slot 0 starts a run). Called by one whole warp.
+__device__ float look_back(const unsigned long long* status, long long t,
+                           int lane) {
+  // backward, 32 tiles a step: lane i reads tile end - i; wait until the
+  // whole window has published, stop at the window with a prefix
+  long long end = t - 1;
+  unsigned long long w;
+  unsigned pmask;
+  while (true) {
+    const long long j = end - lane;
+    do {
+      w = j >= 0 ? load_status(status + j)
+                 : (unsigned long long)kPrefix << 32;
+    } while (__any_sync(kFull, (unsigned)(w >> 32) == 0u));
+    pmask = __ballot_sync(kFull, ((unsigned)(w >> 32) & kPrefix) != 0u);
+    if (pmask) break;
+    end -= 32;
+  }
+  // forward, a left fold in tile order from the nearest prefix
+  int k = __ffs(pmask) - 1;
+  float c = __shfl_sync(kFull, __uint_as_float((unsigned)w), k);
+  while (true) {
+    for (int i = k - 1; i >= 0; --i) {
+      const float v = __shfl_sync(kFull, __uint_as_float((unsigned)w), i);
+      const unsigned f = __shfl_sync(kFull, (unsigned)(w >> 32), i);
+      c = (f & kPrefix) ? v : c + v;
+    }
+    if (end == t - 1) return c;
+    end += 32;
+    w = load_status(status + end - lane);  // published: seen on the way back
+    k = 32;
+  }
+}
+
+// A thread's kItems slots from g0 on: 16-byte loads in a full tile,
+// masked scalar loads in the ragged last one.
+template <bool kRidPlane>
+__device__ __forceinline__ void load_items(const int* __restrict__ rid,
+                                           const int* __restrict__ col,
+                                           const float* __restrict__ val,
+                                           long long N, long long g0,
+                                           bool full, int* c, int* r,
+                                           float* v) {
+  if (full) {
+    const int4* c4 = reinterpret_cast<const int4*>(col + g0);
+    const float4* v4 = reinterpret_cast<const float4*>(val + g0);
+    const int4* r4 =
+        kRidPlane ? reinterpret_cast<const int4*>(rid + g0) : nullptr;
+#pragma unroll
+    for (int q = 0; q < kItems / 4; ++q) {
+      const int4 a = c4[q];
+      c[4 * q] = a.x; c[4 * q + 1] = a.y; c[4 * q + 2] = a.z;
+      c[4 * q + 3] = a.w;
+      const float4 b = v4[q];
+      v[4 * q] = b.x; v[4 * q + 1] = b.y; v[4 * q + 2] = b.z;
+      v[4 * q + 3] = b.w;
+      if constexpr (kRidPlane) {
+        const int4 e = r4[q];
+        r[4 * q] = e.x; r[4 * q + 1] = e.y; r[4 * q + 2] = e.z;
+        r[4 * q + 3] = e.w;
+      } else {
+        r[4 * q] = r[4 * q + 1] = r[4 * q + 2] = r[4 * q + 3] = 0;
+      }
+    }
+  } else {
+#pragma unroll
+    for (int k = 0; k < kItems; ++k) {
+      const long long g = g0 + k;
+      c[k] = g < N ? col[g] : 0;
+      v[k] = g < N ? val[g] : 0.f;
+      r[k] = (kRidPlane && g < N) ? rid[g] : 0;
+    }
+  }
+}
+
+template <bool kRidPlane, bool kColSentinel>
+__global__ void __launch_bounds__(kThreads)
+contract_kernel(const int* __restrict__ rid, const int* __restrict__ col,
+                const float* __restrict__ val, uint8_t* __restrict__ last,
+                float* __restrict__ sums, long long N, long long W,
+                int n_cols, unsigned long long* __restrict__ scratch) {
+  __shared__ unsigned s_tile;
+  __shared__ Seg s_warp[kWarps];
+  __shared__ float s_carry;
+  __shared__ int s_start;  // the tile's first slot starts a run
+
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
-  const Seg ident = {0.f, 0};
-
-  if (tid == 0) s_carry = ident;
-
-  for (long long base = 0; base < W; base += kTile) {
-    const int n = (int)(W - base < kTile ? W - base : kTile);
-    for (int x = tid; x < n + 2; x += kThreads) {
-      const long long g = base - 1 + x;
-      // outside the row: the column-only form's sentinels (-1 before, -2
-      // after); K1 tests the row ends explicitly instead
-      int c = g < 0 ? -1 : -2;
-      if (g >= 0 && g < W) c = crow[g];
-      s_col[x] = c;
-      if constexpr (kHasRid) {
-        s_rid[x] = (g >= 0 && g < W) ? rrow[g * rid_cs] : 0;
-      }
-    }
-    for (int x = tid; x < n; x += kThreads) s_val[x] = vrow[base + x];
-    __syncthreads();
-
-    // this thread's kItems consecutive slots
-    Seg items[kItems];
-    Seg agg = ident;
-#pragma unroll
-    for (int k = 0; k < kItems; ++k) {
-      const int x = tid * kItems + k;
-      items[k] = ident;
-      if (x < n) {
-        const long long g = base + x;
-        const int s = x + 1;  // staged index of slot x
-        int chg = s_col[s] != s_col[s - 1];
-        int nxt = s_col[s + 1] != s_col[s];
-        if constexpr (kHasRid) {
-          chg = chg || (g == 0) || s_rid[s] != s_rid[s - 1];
-          nxt = nxt || (g == W - 1) || s_rid[s + 1] != s_rid[s];
-        }
-        s_last[x] = (uint8_t)(nxt && s_col[s] < n_cols);
-        items[k].v = s_val[x];
-        items[k].f = chg;
-      }
-      agg = (k == 0) ? items[0] : seg_op(agg, items[k]);
-    }
-
-    // inclusive scan of the thread aggregates within the warp
-    Seg inc = agg;
-#pragma unroll
-    for (int o = 1; o < 32; o <<= 1) {
-      const Seg up = shfl_up(inc, o);
-      if (lane >= o) inc = seg_op(up, inc);
-    }
-    Seg ex = shfl_up(inc, 1);
-    if (lane == 0) ex = ident;
-    if (lane == 31) s_warp[warp] = inc;
-    __syncthreads();
-
-    // inclusive scan of the warp totals
-    if (warp == 0) {
-      Seg w = lane < kWarps ? s_warp[lane] : ident;
-#pragma unroll
-      for (int o = 1; o < 32; o <<= 1) {
-        const Seg up = shfl_up(w, o);
-        if (lane >= o) w = seg_op(up, w);
-      }
-      if (lane < kWarps) s_warp[lane] = w;
+  // Rows that divide the tile start a run at every tile's first slot: no
+  // tile needs a carry, so the wrapper passes no scratch and the tile is
+  // blockIdx.x. Otherwise the tile is the next from the tile counter.
+  long long t = blockIdx.x;
+  if (scratch != nullptr) {
+    if (tid == 0) {
+      s_tile = atomicAdd(reinterpret_cast<unsigned*>(scratch), 1u);
     }
     __syncthreads();
-
-    Seg run = seg_op(s_carry, warp > 0 ? s_warp[warp - 1] : ident);
-    run = seg_op(run, ex);
-#pragma unroll
-    for (int k = 0; k < kItems; ++k) {
-      const int x = tid * kItems + k;
-      if (x < n) {
-        run = seg_op(run, items[k]);
-        s_val[x] = run.v;
-      }
-    }
-    __syncthreads();
-
-    if (tid == 0) s_carry = seg_op(s_carry, s_warp[kWarps - 1]);
-    for (int x = tid; x < n; x += kThreads) {
-      srow[base + x] = s_val[x];
-      lrow[base + x] = s_last[x];
-    }
-    __syncthreads();
+    t = s_tile;
   }
+  const long long g0 = t * kTile + (long long)tid * kItems;
+  const bool full = (t + 1) * kTile <= N;
+  int c[kItems], r[kItems];
+  float v[kItems];
+  load_items<kRidPlane>(rid, col, val, N, g0, full, c, r, v);
+
+  // slot g0 - 1: the previous lane's last slot; lane 0 reads it
+  int c_prev = __shfl_up_sync(kFull, c[kItems - 1], 1);
+  int r_prev = __shfl_up_sync(kFull, r[kItems - 1], 1);
+  if (lane == 0 && g0 > 0 && g0 <= N) {
+    c_prev = col[g0 - 1];
+    if constexpr (kRidPlane) r_prev = rid[g0 - 1];
+  }
+
+  // run starts (bit k: slot g0 + k) and row ends; p walks the position in
+  // the row, so slot N (past the end) reads as a row head
+  const unsigned w32 = (unsigned)W;
+  unsigned p = (unsigned)(g0 % W);
+  unsigned head = 0, row_end = 0;
+#pragma unroll
+  for (int k = 0; k < kItems; ++k) {
+    const bool h = p == 0 || c[k] != c_prev || (kRidPlane && r[k] != r_prev);
+    head |= (unsigned)h << k;
+    if (p == w32 - 1) row_end |= 1u << k;
+    c_prev = c[k];
+    r_prev = r[k];
+    p = p + 1 == w32 ? 0 : p + 1;
+  }
+  // slot g0 + kItems: the next lane's first; lane 31 decides it itself
+  unsigned nxt = __shfl_down_sync(kFull, head & 1u, 1);
+  if (lane == 31) {
+    const long long gn = g0 + kItems;
+    if (gn >= N || p == 0) {
+      nxt = 1;
+    } else {
+      nxt = col[gn] != c[kItems - 1];
+      if constexpr (kRidPlane) nxt |= rid[gn] != r[kItems - 1];
+    }
+  }
+  unsigned lastm = (head >> 1) | (nxt << (kItems - 1));
+  unsigned live = 0;
+#pragma unroll
+  for (int k = 0; k < kItems; ++k) {
+    live |= (unsigned)(c[k] < n_cols) << k;
+    if constexpr (kColSentinel) {
+      // a row's last slot is compared with the sentinel -2
+      if ((row_end >> k) & 1u) {
+        lastm = (lastm & ~(1u << k)) | ((unsigned)(c[k] != -2) << k);
+      }
+    }
+  }
+  lastm &= live;
+
+  // this thread's aggregate, then an inclusive scan within the warp
+  Seg agg = {v[0], (int)(head & 1u)};
+#pragma unroll
+  for (int k = 1; k < kItems; ++k) {
+    agg = seg_op(agg, Seg{v[k], (int)((head >> k) & 1u)});
+  }
+  Seg inc = agg;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const Seg up = shfl_up(inc, o);
+    if (lane >= o) inc = seg_op(up, inc);
+  }
+  Seg ex = shfl_up(inc, 1);
+  if (lane == 0) ex = Seg{0.f, 0};
+  if (lane == 31) s_warp[warp] = inc;
+  if (tid == 0) s_start = head & 1u;
+  __syncthreads();
+
+  // warp 0: scan the warp totals, publish, look back for the carry
+  if (warp == 0) {
+    Seg w = lane < kWarps ? s_warp[lane] : Seg{0.f, 0};
+#pragma unroll
+    for (int o = 1; o < kWarps; o <<= 1) {
+      const Seg up = shfl_up(w, o);
+      if (lane >= o) w = seg_op(up, w);
+    }
+    if (lane < kWarps) s_warp[lane] = w;
+    float carry = 0.f;
+    if (scratch != nullptr) {
+      unsigned long long* status = scratch + 1;
+      const float total_v = __shfl_sync(kFull, w.v, kWarps - 1);
+      const int total_f = __shfl_sync(kFull, w.f, kWarps - 1);
+      if (lane == 0) {
+        store_status(status + t, total_v, total_f ? kPrefix : kAggregate);
+      }
+      if (!s_start) {
+        carry = look_back(status, t, lane);
+        if (lane == 0 && !total_f) {
+          store_status(status + t, carry + total_v, kPrefix);
+        }
+      }
+    }
+    if (lane == 0) s_carry = carry;
+  }
+  __syncthreads();
+
+  Seg run = {s_carry, 0};
+  if (warp > 0) run = seg_op(run, s_warp[warp - 1]);
+  run = seg_op(run, ex);
+  float out[kItems];
+#pragma unroll
+  for (int k = 0; k < kItems; ++k) {
+    run = seg_op(run, Seg{v[k], (int)((head >> k) & 1u)});
+    out[k] = run.v;
+  }
+
+  if (full) {
+    float4* s4 = reinterpret_cast<float4*>(sums + g0);
+#pragma unroll
+    for (int q = 0; q < kItems / 4; ++q) {
+      s4[q] = make_float4(out[4 * q], out[4 * q + 1], out[4 * q + 2],
+                          out[4 * q + 3]);
+    }
+    // one byte a flag: spread bit k of lastm to byte k
+    unsigned b[4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const unsigned n4 = (lastm >> (4 * q)) & 0xfu;
+      b[q] = (n4 & 1u) | ((n4 >> 1) & 1u) << 8 | ((n4 >> 2) & 1u) << 16 |
+             ((n4 >> 3) & 1u) << 24;
+    }
+    *reinterpret_cast<uint4*>(last + g0) = make_uint4(b[0], b[1], b[2], b[3]);
+  } else {
+#pragma unroll
+    for (int k = 0; k < kItems; ++k) {
+      const long long g = g0 + k;
+      if (g < N) {
+        sums[g] = out[k];
+        last[g] = (uint8_t)((lastm >> k) & 1u);
+      }
+    }
+  }
+}
+
+// Zeroes the n words of a launch's scratch (the tile counter and the status
+// words) before the launch.
+__global__ void __launch_bounds__(kThreads)
+contract_scratch_clear(unsigned long long* __restrict__ scratch,
+                       long long n) {
+  for (long long i = (long long)blockIdx.x * kThreads + threadIdx.x; i < n;
+       i += (long long)gridDim.x * kThreads) {
+    scratch[i] = 0ull;
+  }
+}
+
+template <bool kRidPlane, bool kColSentinel>
+int launch(const void* rid, const void* col, const void* val, void* last,
+           void* sums, long long R, long long W, int n_cols, void* scratch,
+           void* stream) {
+  if (R <= 0 || W <= 0) return 0;
+  if (W > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  const long long N = R * W;
+  const long long tiles = (N + kTile - 1) / kTile;
+  if (tiles > 0x7fffffffLL || (scratch == nullptr && kTile % W != 0)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  if (scratch != nullptr) {
+    const long long n = tiles + 1;
+    const long long blocks = (n + kThreads - 1) / kThreads;
+    contract_scratch_clear<<<(unsigned)(blocks < 1024 ? blocks : 1024),
+                             kThreads, 0, (cudaStream_t)stream>>>(
+        (unsigned long long*)scratch, n);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  contract_kernel<kRidPlane, kColSentinel>
+      <<<(unsigned)tiles, kThreads, 0, (cudaStream_t)stream>>>(
+          (const int*)rid, (const int*)col, (const float*)val,
+          (uint8_t*)last, (float*)sums, N, W, n_cols,
+          (unsigned long long*)scratch);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-extern "C" int speck_stream_contract(const void* rid, long long rid_rs,
-                                     long long rid_cs, const void* col,
+// rid: a contiguous (R, W) plane, or null for a per-row rid (never read).
+// scratch: 1 + ceil(R * W / 4096) 8-byte words (the tile counter and the
+// status words; cleared here), or null where W divides 4096 (no tile needs
+// a carry).
+extern "C" int speck_stream_contract(const void* rid, const void* col,
                                      const void* val, void* last, void* sums,
                                      long long R, long long W, int n_cols,
-                                     void* stream) {
-  if (R <= 0 || W <= 0) return 0;
-  if (R > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  contract_kernel<true><<<(unsigned)R, kThreads, 0, (cudaStream_t)stream>>>(
-      (const int*)rid, rid_rs, rid_cs, (const int*)col, (const float*)val,
-      (uint8_t*)last, (float*)sums, W, n_cols);
-  return (int)cudaGetLastError();
+                                     void* scratch, void* stream) {
+  if (rid != nullptr) {
+    return launch<true, false>(rid, col, val, last, sums, R, W, n_cols,
+                               scratch, stream);
+  }
+  return launch<false, false>(nullptr, col, val, last, sums, R, W, n_cols,
+                              scratch, stream);
 }
 
 extern "C" int speck_contract_runs(const void* col, const void* val,
                                    void* last, void* sums, long long R,
-                                   long long W, int n_cols, void* stream) {
-  if (R <= 0 || W <= 0) return 0;
-  if (R > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  contract_kernel<false><<<(unsigned)R, kThreads, 0, (cudaStream_t)stream>>>(
-      nullptr, 0, 0, (const int*)col, (const float*)val, (uint8_t*)last,
-      (float*)sums, W, n_cols);
-  return (int)cudaGetLastError();
+                                   long long W, int n_cols, void* scratch,
+                                   void* stream) {
+  return launch<false, true>(nullptr, col, val, last, sums, R, W, n_cols,
+                             scratch, stream);
 }
 
 extern "C" const char* speck_error_string(int err) {

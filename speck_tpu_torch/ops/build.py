@@ -29,12 +29,13 @@ _LIB: Optional[ctypes.CDLL] = None
 _P = ctypes.c_void_p
 _I64 = ctypes.c_longlong
 _SIGNATURES = {
-    # (rid, rid_row_stride, rid_col_stride, col, val, last, sums, R, W,
-    #  n_cols, stream)
-    "speck_stream_contract": [_P, _I64, _I64, _P, _P, _P, _P, _I64, _I64,
-                              ctypes.c_int, _P],
-    # (col, val, last, sums, R, W, n_cols, stream)
-    "speck_contract_runs": [_P, _P, _P, _P, _I64, _I64, ctypes.c_int, _P],
+    # (rid plane or null for a per-row rid, col, val, last, sums, R, W,
+    #  n_cols, scratch or null, stream)
+    "speck_stream_contract": [_P, _P, _P, _P, _P, _I64, _I64, ctypes.c_int,
+                              _P, _P],
+    # (col, val, last, sums, R, W, n_cols, scratch or null, stream)
+    "speck_contract_runs": [_P, _P, _P, _P, _I64, _I64, ctypes.c_int, _P,
+                            _P],
     # (key_in, key_out, p_in[3], p_out[3], n_payloads, R, W, tile,
     #  scratch, stream)
     "speck_row_sort": [_P, _P, _P, _P, _P, _P, _P, _P, ctypes.c_int, _I64,

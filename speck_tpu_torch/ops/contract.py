@@ -4,15 +4,18 @@ ESC rectangle, K3).
 
 ``stream_contract`` replaces ``speck_tpu``'s Pallas kernel
 ``pallas_kernels.stream_contract_runs``. On a CUDA tensor it launches the
-hand-written kernel ``csrc/stream_contract.cu``; on a CPU tensor it runs
-``contract_plain``, the torch form of ``stream._contract_rect`` in the same
-Hillis-Steele doubling order, so on the CPU it is bit-identical to both
-JAX forms. The kernel sums each run in another order, so its sums agree
-with the plain version at tolerance; the mask agrees exactly.
+hand-written kernel ``csrc/stream_contract.cu``: a flat segmented scan over
+the R*W slots in tiles of ``TILE``, one CTA a tile, the carry passed
+between tiles by a deterministic decoupled look-back. On a CPU tensor it
+runs ``contract_plain``, the torch form of ``stream._contract_rect`` in the
+same Hillis-Steele doubling order, so on the CPU it is bit-identical to
+both JAX forms. The kernel sums each run in another order, so its sums
+agree with the plain version at tolerance; the mask agrees exactly, and
+two launches on the same input agree bit for bit.
 
 ``rid`` is either a full (R, W) plane or a per-row constant broadcast to
-(R, W) (stride 0 along W: the merge levels and the wide finish), which the
-kernel reads without materializing.
+(R, W) (stride 0 along W: the merge levels and the wide finish). The
+kernel never reads a per-row rid: a row head starts a run anyway.
 
 ``contract_runs`` replaces the Pallas kernel ``pallas_kernels.contract_runs``
 (the same function as ``esc._run_boundaries`` + ``esc._run_sums``). On a
@@ -23,14 +26,21 @@ Unlike the Pallas kernel it takes any width and any row count.
 
 from __future__ import annotations
 
+from typing import Dict, Tuple
+
 import torch
 
 from . import build
 
 # launches of the CUDA kernels in this process (the plain versions do not
-# count): K1 (stream_contract) and K3 (contract_runs)
+# count): K1 (stream_contract), in all and by (R, W, "plane" or "row"), and
+# K3 (contract_runs)
 LAUNCHES = 0
+LAUNCH_SHAPES: Dict[Tuple[int, int, str], int] = {}
 RUNS_LAUNCHES = 0
+
+# slots one CTA takes (kTile in csrc/stream_contract.cu)
+TILE = 4096
 
 
 def run_sums(val, first):
@@ -107,6 +117,26 @@ def _check(rid, col, val):
         raise ValueError("stream_contract: tensors on different devices")
 
 
+def _check_kernel_inputs(what, *planes):
+    """The kernel's 16-byte loads need contiguous, 16-byte aligned planes
+    (as the allocator gives them); raise for any other."""
+    for x in planes:
+        if not x.is_contiguous() or x.data_ptr() % 16:
+            raise ValueError(f"{what}: on the card every (R, W) plane must "
+                             "be contiguous and 16-byte aligned")
+
+
+def _scratch(col):
+    """The kernel's scratch for col's (R, W), which the launcher clears:
+    the tile counter and a status word a tile; None where W divides the
+    tile, since every tile then starts at a row head and needs no carry."""
+    R, W = col.shape
+    if TILE % W == 0:
+        return None
+    return torch.empty(1 + -(-R * W // TILE), dtype=torch.int64,
+                       device=col.device)
+
+
 def stream_contract(rid, col, val, n_cols: int):
     """(last bool (R, W), run_sum float32 (R, W)) of sorted rows."""
     _check(rid, col, val)
@@ -119,14 +149,20 @@ def stream_contract(rid, col, val, n_cols: int):
     sums = torch.empty_like(val)
     if R == 0:
         return last, sums
-    lib = build.library()
-    err = lib.speck_stream_contract(
-        rid.data_ptr(), rid.stride(0), rid.stride(1), col.data_ptr(),
-        val.data_ptr(), last.data_ptr(), sums.data_ptr(), R, W, int(n_cols),
+    per_row = rid.stride(1) == 0
+    _check_kernel_inputs("stream_contract", col, val,
+                         *(() if per_row else (rid,)))
+    scratch = _scratch(col)
+    err = build.library().speck_stream_contract(
+        None if per_row else rid.data_ptr(), col.data_ptr(), val.data_ptr(),
+        last.data_ptr(), sums.data_ptr(), R, W, int(n_cols),
+        None if scratch is None else scratch.data_ptr(),
         torch.cuda.current_stream(col.device).cuda_stream)
     build.check(err, "stream_contract launch")
     global LAUNCHES
     LAUNCHES += 1
+    shape = (R, W, "row" if per_row else "plane")
+    LAUNCH_SHAPES[shape] = LAUNCH_SHAPES.get(shape, 0) + 1
     return last, sums
 
 
@@ -142,10 +178,12 @@ def contract_runs(col, val, n_cols: int):
     sums = torch.empty_like(val)
     if R == 0:
         return last, sums
-    lib = build.library()
-    err = lib.speck_contract_runs(
+    _check_kernel_inputs("contract_runs", col, val)
+    scratch = _scratch(col)
+    err = build.library().speck_contract_runs(
         col.data_ptr(), val.data_ptr(), last.data_ptr(), sums.data_ptr(), R,
-        W, int(n_cols), torch.cuda.current_stream(col.device).cuda_stream)
+        W, int(n_cols), None if scratch is None else scratch.data_ptr(),
+        torch.cuda.current_stream(col.device).cuda_stream)
     build.check(err, "contract_runs launch")
     global RUNS_LAUNCHES
     RUNS_LAUNCHES += 1

@@ -1,0 +1,183 @@
+"""The contract kernels by shape on the card (``ops/contract``):
+
+    python -m speck_tpu_torch.probes.contract_profile
+
+K1 (``stream_contract``) at every shape the two spgemm paths launch it at
+(bench config 3 and the giant row; ``SHAPES``) and K3 (``contract_runs``)
+at esc_fixed's, on sorted random inputs (``contract_inputs``,
+``runs_inputs``), each checked against its plain version, then timed three
+ways, each over every shape before the next: one wrapper call between CUDA
+events (median and extremes of REPS calls); the host time a wrapper call
+takes (REPS calls back to back, no synchronize between); and the call's
+device time from ``torch.profiler`` (the kernel and the clear of its
+scratch, medians over REPS calls, ``kernel_device_ms``), last, so that no
+event time follows a profiler session. Beside them the bound: the bytes
+each input is read and each output written once, at 3.35 TB/s. The
+module uses only the wrappers' names and ``timing.card``/``cuda_ms_turns``,
+so the same file run inside an older tree of the package times that tree's
+kernels.
+"""
+
+from __future__ import annotations
+
+import statistics
+import time
+
+import torch
+
+HBM_BYTES_PER_MS = 3.35e12 / 1e3
+N_COLS = 4096
+REPS = 21
+
+# K1: (R, W, rid kind) with the launches on the main paths (default
+# SpgemmConfig): bench config 3 and the bench's giant row; (4, 65536, row)
+# is the per-row case of the first design's measurement
+SHAPES = [(512, 8192, "plane"), (136, 8192, "plane"), (8, 16384, "row"),
+          (1, 32768, "row"), (64, 65536, "plane"), (16, 65536, "plane"),
+          (1, 1 << 23, "row"), (4, 65536, "row")]
+RUNS_SHAPES = [(65536, 2048), (64, 256)]
+
+
+def k1_bytes(R: int, W: int, kind: str) -> int:
+    """Device bytes of one K1 call: rid (a plane only), col and val read,
+    last and sums written."""
+    return (17 if kind == "plane" else 13) * R * W
+
+
+def contract_inputs(gen, R: int, W: int, kind: str, n_cols: int = N_COLS):
+    """(rid, col, val) on the card, rows sorted by (rid, col), the last
+    eighth of each row dead (col = n_cols). "plane": rid and col from one
+    sorted random key (short runs); "row": a per-row rid broadcast along W
+    and sorted columns below n_cols (runs of about W / n_cols)."""
+    dev = torch.device("cuda")
+    if kind == "row":
+        col = torch.sort(torch.randint(0, n_cols, (R, W), generator=gen,
+                                       device=dev, dtype=torch.int32),
+                         1).values
+        rid = (torch.arange(R, dtype=torch.int32, device=dev) + 5)[:, None]
+        rid = rid.expand(R, W)
+    else:
+        key = torch.sort(torch.randint(0, 1 << 22, (R, W), generator=gen,
+                                       device=dev, dtype=torch.int32),
+                         1).values
+        rid, col = key >> 12, key & (n_cols - 1)
+    dead = torch.arange(W, device=dev)[None, :] >= W - W // 8
+    col = torch.where(dead, n_cols, col).to(torch.int32).contiguous()
+    if kind != "row":
+        rid = torch.where(dead, rid[:, :1], rid).to(torch.int32).contiguous()
+    return rid, col, torch.randn((R, W), generator=gen, device=dev)
+
+
+def runs_inputs(gen, R: int, W: int, n_cols: int = N_COLS):
+    """(col, val) on the card for K3: sorted columns, the last eighth
+    dead."""
+    dev = torch.device("cuda")
+    col = torch.sort(torch.randint(0, n_cols, (R, W), generator=gen,
+                                   device=dev, dtype=torch.int32), 1).values
+    dead = torch.arange(W, device=dev)[None, :] >= W - W // 8
+    col = torch.where(dead, n_cols, col).to(torch.int32).contiguous()
+    return col, torch.randn((R, W), generator=gen, device=dev)
+
+
+def sums_close(got, want, mag) -> bool:
+    """fp32 sums taken in another order: within 1e-6 + 1e-5 of the run
+    prefix's sum of magnitudes."""
+    return bool(((got - want).abs() <= 1e-6 + 1e-5 * mag).all())
+
+
+# the kernels one K1 or K3 call launches: the contract itself and the clear
+# of its scratch (none where W divides the tile, nor in older trees)
+KERNELS = ("contract_kernel", "contract_scratch_clear")
+
+
+def kernel_device_ms(fn, reps: int = REPS) -> dict:
+    """Device time (ms) of one call of fn by ``torch.profiler``, after one
+    warm-up call, for each of ``KERNELS`` (a kernel name holds it): the
+    median over reps calls, 0.0 where fn launched no such kernel. The sum
+    is the call's device time, without its wrapper's host time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    times = {n: [] for n in KERNELS}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            for n in KERNELS:
+                if n in e.name:
+                    times[n].append(e.time_range.elapsed_us() / 1e3)
+    if not times[KERNELS[0]]:
+        raise RuntimeError(f"no {KERNELS[0]} kernel in the profile")
+    return {n: statistics.median(t) if t else 0.0 for n, t in times.items()}
+
+
+def host_ms(fn, reps: int = REPS) -> float:
+    """Host time of one call of fn: reps calls back to back, then one
+    synchronize outside the clock."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    dt = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return dt * 1e3 / reps
+
+
+def main():
+    from speck_tpu_torch.ops import contract
+    from speck_tpu_torch.probes.timing import card, cuda_ms_turns
+
+    if not torch.cuda.is_available():
+        raise RuntimeError("contract_profile: no CUDA card (the profile "
+                           "times the card only)")
+    smi = card()
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(2)
+    cases = []  # (what, fn, bytes), each checked against its plain version
+    for R, W, kind in SHAPES:
+        rid, col, val = contract_inputs(gen, R, W, kind)
+        last_k, sum_k = contract.stream_contract(rid, col, val, N_COLS)
+        last_p, sum_p = contract.contract_plain(rid, col, val, N_COLS)
+        mag = contract.contract_plain(rid, col, val.abs(), N_COLS)[1]
+        if not (torch.equal(last_k, last_p)
+                and sums_close(sum_k, sum_p, mag)):
+            raise RuntimeError(f"K1 differs from contract_plain at "
+                               f"{(R, W, kind)}")
+        cases.append((f"K1 stream_contract ({R}, {W}) rid={kind}",
+                      lambda a=(rid, col, val): contract.stream_contract(
+                          *a, N_COLS), k1_bytes(R, W, kind)))
+    for R, W in RUNS_SHAPES:
+        col, val = runs_inputs(gen, R, W)
+        last_k, sum_k = contract.contract_runs(col, val, N_COLS)
+        last_p, sum_p = contract.contract_runs_plain(col, val, N_COLS)
+        mag = contract.contract_runs_plain(col, val.abs(), N_COLS)[1]
+        if not (torch.equal(last_k, last_p)
+                and sums_close(sum_k, sum_p, mag)):
+            raise RuntimeError(f"K3 differs from contract_runs_plain at "
+                               f"{(R, W)}")
+        cases.append((f"K3 contract_runs ({R}, {W})",
+                      lambda a=(col, val): contract.contract_runs(*a, N_COLS),
+                      13 * R * W))
+    del last_k, sum_k, last_p, sum_p, mag
+    torch.cuda.empty_cache()
+    # events and host times first, then every profiler session: a CUDA-event
+    # time taken after a profiler session may read differently
+    ev = [cuda_ms_turns({"kernel": fn}, REPS)["kernel"] for _, fn, _ in cases]
+    host = [host_ms(fn) for _, fn, _ in cases]
+    dev = [kernel_device_ms(fn) for _, fn, _ in cases]
+    for (what, _, nbytes), k, h, d in zip(cases, ev, host, dev):
+        print(f"{what}: kernel {statistics.median(k):.4f} ms (min "
+              f"{min(k):.4f}, max {max(k):.4f}) between events, device "
+              f"{sum(d.values()):.4f} ms (kernel {d[KERNELS[0]]:.4f}, "
+              f"scratch clear {d[KERNELS[1]]:.4f}), host {h:.4f} ms a call, "
+              f"bound {nbytes / HBM_BYTES_PER_MS:.4f} ms; medians of {REPS} "
+              f"[{smi}]", flush=True)
+
+
+if __name__ == "__main__":
+    main()

@@ -13,16 +13,7 @@ card's name and power limit.
 
 from __future__ import annotations
 
-import time
-
 import torch
-
-
-def _device_us(evt) -> float:
-    for name in ("device_time_total", "cuda_time_total"):
-        if hasattr(evt, name):
-            return float(getattr(evt, name))
-    return 0.0
 
 
 def stage_split(args, cap: int, n_cols: int):
@@ -67,7 +58,7 @@ def main():
     from ..ops.esc import esc_fixed
     from ..utils.device import resolve_device
     from ..utils.generators import make_banded
-    from .timing import card
+    from .timing import card, device_us, profile_call
 
     resolve_device(None)
     smi = card()
@@ -81,19 +72,10 @@ def main():
     for name, ms in split:
         print(f"stage {name}: {ms:.3f} ms [{smi}]", flush=True)
 
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        esc_fixed(*args, cap=cap, n_cols=h.cols)
-        torch.cuda.synchronize()
-        host_ms = (time.perf_counter() - t0) * 1e3
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    kernels.sort(key=_device_us, reverse=True)
-    total_ms = sum(_device_us(e) for e in kernels) / 1e3
+    host_ms, total_ms, kernels = profile_call(
+        lambda: esc_fixed(*args, cap=cap, n_cols=h.cols))
     for e in kernels[:15]:
-        print(f"kernel {e.key[:90]}: {_device_us(e) / 1e3:.3f} ms over "
+        print(f"kernel {e.key[:90]}: {device_us(e) / 1e3:.3f} ms over "
               f"{e.count} launches [{smi}]", flush=True)
     print(f"profiled call: host {host_ms:.2f} ms, device {total_ms:.2f} ms "
           f"over {sum(e.count for e in kernels)} kernels, idle share "

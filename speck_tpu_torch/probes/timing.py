@@ -1,9 +1,11 @@
-"""Timing helpers of the probes: CUDA-event medians and the card's line."""
+"""Timing helpers of the probes: CUDA-event medians, a profiled call and
+the card's line."""
 
 from __future__ import annotations
 
 import statistics
 import subprocess
+import time
 from typing import Callable, Dict, List
 
 import torch
@@ -53,6 +55,32 @@ def cuda_ms_turns(fns: Dict[str, Callable], reps: int = 5
             torch.cuda.synchronize()
             times[name].append(start.elapsed_time(end))
     return times
+
+
+def device_us(evt) -> float:
+    """A profiler event's device time in microseconds."""
+    for name in ("device_time_total", "cuda_time_total"):
+        if hasattr(evt, name):
+            return float(getattr(evt, name))
+    return 0.0
+
+
+def profile_call(fn):
+    """One call of fn under ``torch.profiler``, ending in a synchronize:
+    (host ms, device ms summed over the kernels, the kernels' events by
+    device time, longest first)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    kernels.sort(key=device_us, reverse=True)
+    return host_ms, sum(device_us(e) for e in kernels) / 1e3, kernels
 
 
 def report(name: str, ms: float, n: int, nbytes: int, smi: str) -> None:

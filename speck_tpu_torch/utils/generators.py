@@ -38,3 +38,29 @@ def make_banded(n=65536, half_band=16, seed=3) -> HostCSR:
         shape=(n, n), format="csr",
     )
     return HostCSR.from_scipy(mat)
+
+
+def make_giant_row(mg=40000, NH=5000, HN=10000, seed=17) -> HostCSR:
+    """The bench's giant-row matrix (``bench.py`` ``giant_row_5e7_products
+    _AxA``), whose defaults it gives exactly; the bench's offsets 10000,
+    25000 and 5000 are mg/4, 5mg/8 and mg/8 here, so a smaller mg scales
+    the same shape. Row 0 holds NH entries, at the columns of the heavy rows
+    mg/4..; each heavy row holds HN entries at shifted columns from 5mg/8
+    on (HN <= mg/4), so row 0 of A @ A has NH * HN products (5 * 10^7);
+    rows 1 .. mg/8 - 1 hold 16 random entries each. float64 values."""
+    import scipy.sparse as sp
+
+    q, cb, nl = mg // 4, 5 * mg // 8, mg // 8
+    rsg = np.random.RandomState(seed)
+    hrow = np.repeat(np.arange(q, q + NH), HN)
+    hcol = ((np.tile(np.arange(HN), NH)
+             + np.repeat(np.arange(NH) * 37, HN)) % q) + cb
+    lr = np.repeat(np.arange(1, nl), 16)
+    lc = rsg.randint(1, nl, lr.shape[0])
+    gm = sp.csr_matrix(
+        (rsg.standard_normal(NH + hrow.shape[0] + lr.shape[0]),
+         (np.concatenate([np.zeros(NH, int), hrow, lr]),
+          np.concatenate([np.arange(q, q + NH), hcol, lc]))),
+        shape=(mg, mg))
+    gm.sum_duplicates()
+    return HostCSR.from_scipy(gm)

@@ -56,7 +56,7 @@ def sorted_rect(rs, R, W, const_rid):
             order = np.lexsort((c, rr))
             rr, c = rr[order], c[order]
             rid[r, :live] = rr
-            rid[r, live:] = rr[-1]
+            rid[r, live:] = rr[-1] if live else 0
         col[r, :live] = c
     return rid, col, rs.standard_normal((R, W)).astype(np.float32)
 
@@ -78,21 +78,60 @@ def sort_on_card(device, key, pays):
         assert torch.equal(a.cpu().view(torch.int32), b.view(torch.int32))
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("R,W,const_rid", [(16, 8192, False),
-                                           (2, 65536, True), (3, 1, False),
-                                           (5, 3000, False)])
-def test_contract_kernel_matches_plain(rs, cuda_device, R, W, const_rid):
-    rid, col, val = sorted_rect(rs, R, W, const_rid)
+T = contract.TILE
+
+
+def contract_rect(rs, R, W, kind):
+    """(rid, col, val) of one K1 case, and whether the rid is per row.
+    False and True: sorted_rect with a rid plane or a per-row rid;
+    "rid_edge": one row whose run key changes only by its rid, exactly at
+    each tile edge (one column throughout); "one_col": one row that is all
+    one column (runs of many tiles); "pad3q": rows whose last three
+    quarters are the dead column, a per-row rid."""
+    if kind in (False, True):
+        return sorted_rect(rs, R, W, kind) + (kind,)
+    g = np.arange(R * W).reshape(R, W)
+    val = rs.standard_normal((R, W)).astype(np.float32)
+    if kind == "rid_edge":
+        return (g // T).astype(np.int32), np.full((R, W), 5, np.int32), \
+            val, False
+    if kind == "one_col":
+        return np.zeros((R, W), np.int32), np.full((R, W), 9, np.int32), \
+            val, False
+    rid = np.repeat(np.arange(R, dtype=np.int32)[:, None] + 3, W, 1)
+    col = np.sort(rs.integers(0, N_COLS, (R, W)), 1).astype(np.int32)
+    col[:, W // 4:] = N_COLS
+    return rid, col, val, True
+
+
+def contract_on_card(device, rid, col, val, per_row):
     args = [torch.from_numpy(x) for x in (rid, col, val)]
-    last_p, sum_p = contract.contract_plain(*args, N_COLS)
-    dev_args = [x.to(cuda_device) for x in args]
-    if const_rid:  # the per-row broadcast form the levels use
-        dev_args[0] = dev_args[0][:, :1].contiguous().expand(R, W)
+    dev_args = [x.to(device) for x in args]
+    R, W = col.shape
+    if per_row:  # the per-row broadcast form the levels use (stride 0)
+        dev_args[0] = dev_args[0][:, 0].contiguous().as_strided((R, W),
+                                                                (1, 0))
     n0 = contract.LAUNCHES
     last_k, sum_k = contract.stream_contract(*dev_args, N_COLS)
     torch.cuda.synchronize()
     assert contract.LAUNCHES == n0 + 1
+    return args, dev_args, last_k, sum_k
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("R,W,kind", [
+    (16, 8192, False), (2, 65536, True), (3, 1, False), (5, 3000, False),
+    # tile edges: W = T - 1, T, T + 1 (R * W not a multiple of T but at T)
+    (3, 4095, False), (2, 4096, False), (3, 4097, True), (5, 4097, False),
+    (1, 3 * 4096, "rid_edge"), (2, 5 * 4096 + 7, "rid_edge"),
+    (1, 1 << 18, "one_col"), (3, 70001, "one_col"), (4, 40000, "pad3q"),
+    (1, 1 << 20, True), (3, 70000, True), (5000, 1, True),
+    (9001, 1, False)])
+def test_contract_kernel_matches_plain(rs, cuda_device, R, W, kind):
+    rid, col, val, per_row = contract_rect(rs, R, W, kind)
+    args, _, last_k, sum_k = contract_on_card(cuda_device, rid, col, val,
+                                              per_row)
+    last_p, sum_p = contract.contract_plain(*args, N_COLS)
     assert torch.equal(last_k.cpu(), last_p)
     # fp32 summation error scales with the sum of magnitudes in the run
     # prefix, not with the (possibly cancelled) sum itself
@@ -102,8 +141,53 @@ def test_contract_kernel_matches_plain(rs, cuda_device, R, W, const_rid):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("R,W,kind", [(1, 1 << 20, "sorted"),
+                                      (64, 8192, False)])
+def test_contract_kernel_is_deterministic(rs, cuda_device, R, W, kind):
+    """Two launches on the same input give bit-identical sums and masks:
+    the look-back folds its carry in tile order whichever tile had
+    published. (1, 2^20): 40 columns, runs of about 6 tiles."""
+    if kind == "sorted":
+        col = np.sort(rs.integers(0, 40, (R, W)), 1).astype(np.int32)
+        rid = np.zeros((R, W), np.int32)
+        val = rs.standard_normal((R, W)).astype(np.float32)
+        per_row = False
+    else:
+        rid, col, val, per_row = contract_rect(rs, R, W, kind)
+    _, dev_args, last_1, sum_1 = contract_on_card(cuda_device, rid, col, val,
+                                                  per_row)
+    for _ in range(3):
+        last_2, sum_2 = contract.stream_contract(*dev_args, N_COLS)
+        torch.cuda.synchronize()
+        assert torch.equal(last_1, last_2)
+        assert torch.equal(sum_1.view(torch.int32), sum_2.view(torch.int32))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("which", ["rid", "col", "val", "runs"])
+def test_contract_kernels_reject_unaligned_planes(cuda_device, which):
+    """The kernels load 16 bytes at a time: a plane that starts off a
+    16-byte boundary raises, and nothing is launched."""
+    def plane(dtype, off):  # a contiguous (2, 64) plane, off slots in
+        return torch.zeros(128 + off, dtype=dtype,
+                           device=cuda_device)[off:].view(2, 64)
+
+    rid = plane(torch.int32, int(which == "rid"))
+    col = plane(torch.int32, int(which in ("col", "runs")))
+    val = plane(torch.float32, int(which == "val"))
+    n0 = contract.LAUNCHES + contract.RUNS_LAUNCHES
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        if which == "runs":
+            contract.contract_runs(col, val, N_COLS)
+        else:
+            contract.stream_contract(rid, col, val, N_COLS)
+    assert contract.LAUNCHES + contract.RUNS_LAUNCHES == n0
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("R,W", [(64, 256), (32, 2048), (3, 1), (5, 3000),
-                                 (2, 70000)])
+                                 (2, 70000), (3, 4095), (2, 4097),
+                                 (1, 1 << 20), (4097, 1)])
 def test_contract_runs_kernel_matches_plain(rs, cuda_device, R, W):
     _, col, val = sorted_rect(rs, R, W, const_rid=True)
     col[0, 0] = -1                     # the column form's sentinel values

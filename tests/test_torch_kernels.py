@@ -121,11 +121,32 @@ def test_cpu_wrappers_take_plain_path_and_do_not_count(rng):
     rid, col, val = _sorted_rect(rng, 4, 128)
     n1, n2 = contract.LAUNCHES, bitonic.LAUNCHES
     shapes = dict(bitonic.LAUNCH_SHAPES)
+    k1_shapes = dict(contract.LAUNCH_SHAPES)
     contract.stream_contract(torch.from_numpy(rid), torch.from_numpy(col),
                              torch.from_numpy(val), N_COLS)
+    contract.stream_contract(torch.from_numpy(rid[:, :1]).expand(4, 128),
+                             torch.from_numpy(col), torch.from_numpy(val),
+                             N_COLS)
     bitonic.row_sort(torch.from_numpy(col), [torch.from_numpy(val)])
     assert (contract.LAUNCHES, bitonic.LAUNCHES) == (n1, n2)
     assert bitonic.LAUNCH_SHAPES == shapes
+    assert contract.LAUNCH_SHAPES == k1_shapes
+
+
+@pytest.mark.parametrize("R,W,words", [(3, 5000, 5), (1, 1 << 23, 2049),
+                                       (512, 8192, 1025), (7, 4097, 9),
+                                       (65536, 2048, None), (64, 256, None),
+                                       (5, 1, None), (2, 4096, None)])
+def test_contract_scratch(R, W, words):
+    """K1's scratch: a tile counter and a status word a tile of 4096 slots
+    (8 bytes each; the launcher clears them); none where W divides the
+    tile (every tile starts at a row head, so no tile needs a carry: K3 on
+    esc_fixed's power-of-two rows)."""
+    sc = contract._scratch(torch.empty((R, W), dtype=torch.int32))
+    if words is None:
+        assert sc is None
+    else:
+        assert sc.dtype == torch.int64 and sc.shape == (words,)
 
 
 @pytest.mark.parametrize("n_pay", [0, 2])
