@@ -2,8 +2,10 @@
 """Smoke check of speck_tpu_torch on one CUDA card: build the kernels,
 hold each against its plain torch version, then drive the product-stream
 SpGEMM once at bench config 3's size and on the bench's giant row, the
-fixed-cap ESC (esc_fixed) at bench config 1's size and the gather probes,
-and check each against its reference.
+fixed-cap ESC (esc_fixed) at bench config 1's size, the diagonal-plane
+routes of spgemm on bench configs 1, 1b, the 27-point stencil and the fp64
+banded config, and the gather probes, and check each against its
+reference.
 
     python3 chip_smoke.py
 
@@ -42,10 +44,21 @@ Phases (any failure raises and exits non-zero; nothing falls back):
      (structure exact, values rel_tol 2e-3); cold call, median of 3 warm
      calls, GFLOPS, peak device memory; then entry()'s fn once against
      the oracle;
-  7b. K1 at every shape phases 4 and 4b launched it at (and the shapes of
-     probes/contract_profile.py's table), K2 at every other shape phases
-     4, 4b and 7 launched it at, checked and timed as in phase 3, each
-     beside its bound;
+  7c. (after 7, before 7b) spgemm, default SpgemmConfig, on the
+     diagonal-plane cells (DIA_CELLS): config 1 (make_banded(65536, 16,
+     seed=3), f32: DIA, uniform emit, no K1 or K2 launch; then
+     plan.execute(A2, A2) with new values, and its warm time beside
+     esc_fixed's), stencil27 (make_stencil27(102), f32:
+     sparse DIA through the lite gate), fp64 (make_banded(16384, 8,
+     seed=9), float64: DIA, float64 values out), config 1b (make_mixed(),
+     f32: the per-row DIA split beside stream rows, K1 and K2 launched).
+     Each against the full oracle (structure exact, values rel_tol 2e-3,
+     fp64 1e-9); the cold call, the median of 3 warm calls, GFLOPS,
+     nnz(C)/s, peak memory, synchronizing calls in one warm call;
+  7b. K1 at every shape phases 4, 4b and 7c launched it at (and the
+     shapes of probes/contract_profile.py's table), K2 at every other shape
+     phases 4, 4b, 7 and 7c launched it at, checked and timed as in phase
+     3, each beside its bound;
   8. the gather probes' mains (python -m speck_tpu_torch.probes...) with
      their launch counts, then sublane_gather (N = 2^22, S = 2048) and
      run_copy (G = 512, K = 64, L = 128 over a 2^21 source) against their
@@ -55,7 +68,9 @@ Phases (any failure raises and exits non-zero; nothing falls back):
      and K3 at each shape timed before, their device time (the kernel and
      the clear of its scratch, medians of cp.REPS calls) beside the bound;
      one warm giant-row call: its device time, K1's and K2's share of it
-     and its longest kernels; then the probes of phase 8 in turns once
+     and its longest kernels; one warm call of each phase 7c cell: its
+     device time, idle share (1 - device / host time) and five longest
+     kernels; then the probes of phase 8 in turns once
      more, to show what a profiler session before them changes, and each
      probe's and its library call's device time (medians of 5 profiled
      calls).
@@ -63,9 +78,9 @@ Bounds (bound_ms): the bytes each function must move (inputs read once,
 outputs written once) over 3.35 TB/s, the H100 SXM's device memory rate
 (NVIDIA's data sheet); every kernel here is bound by bytes. library_ms is
 one PyTorch call computing the same function, where there is one; the port
-never calls it. Launches in the kernels' line: K1's over phases 4 and 4b,
-K2's over 4, 4b and 7. The line's ms is the CUDA-event time around one
-wrapper call, as plain_ms is; device_ms is the device time by
+never calls it. Launches in the kernels' line: K1's over phases 4, 4b and
+7c (config 1b), K2's over 4, 4b, 7 and 7c. The line's ms is the CUDA-event
+time around one wrapper call, as plain_ms is; device_ms is the device time by
 torch.profiler from phase 9 (K1, K3 and the probes; null for K2): where a
 call is shorter on the card than its wrapper's host time, the event time
 holds the host time instead.
@@ -235,9 +250,171 @@ def reset_counts():
     bitonic.LAUNCH_SHAPES.clear()
 
 
+def sync_count(fn):
+    """Synchronizing calls (readbacks and pageable copies) in one call of
+    fn, as torch.cuda's sync debug mode reports them."""
+    import warnings
+
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            fn()
+            torch.cuda.synchronize()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    return len(caught)
+
+
+def timed_ms(fn):
+    """Host clock around one call of fn, ending in a synchronize."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3, out
+
+
+# the diagonal-plane cells (phase 7c): name, generator call, value dtype,
+# rel_tol against the oracle
+DIA_CELLS = [
+    ("config 1", ("make_banded", (65536, 16, 3)), torch.float32, 2e-3),
+    ("stencil27", ("make_stencil27", (102, 19)), torch.float32, 2e-3),
+    ("fp64", ("make_banded", (16384, 8, 9)), torch.float64, 1e-9),
+    ("config 1b", ("make_mixed", ()), torch.float32, 2e-3),
+]
+
+
+def dia_cell(pt, smi, name, gen_call, dtype, rel_tol):
+    """Phase 7c, one cell: spgemm of the matrix with itself through the
+    entry points, default SpgemmConfig(): the route asserted, the result
+    against the oracle, the cold call, the median of 3 warm calls, GFLOPS,
+    nnz(C)/s, peak memory, synchronizing calls; returns the numbers."""
+    from speck_tpu_torch.ops import bitonic, contract
+    from speck_tpu_torch.utils import generators
+
+    fn_name, args = gen_call
+    t0 = time.perf_counter()
+    h = getattr(generators, fn_name)(*args)
+    t_gen = time.perf_counter() - t0
+    cfg = pt.SpgemmConfig()
+    A = pt.device_put_csr(h, dtype, "cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base_mem = torch.cuda.memory_allocated()
+    reset_counts()
+    plan = None
+
+    def cold():
+        nonlocal plan
+        plan = pt.plan_spgemm(A, A, cfg)
+        return plan.execute()
+
+    cold_ms, C = timed_ms(cold)
+    peak = torch.cuda.max_memory_allocated()
+    launches = {"stream_contract": contract.LAUNCHES,
+                "row_sort": bitonic.LAUNCHES}
+    shapes = (dict(contract.LAUNCH_SHAPES), dict(bitonic.LAUNCH_SHAPES))
+    if name == "config 1b":
+        check(plan.dia is None and plan.dia_rows is not None
+              and plan.stream.layout.n_stream_rows > 0,
+              "config 1b did not take the per-row DIA split beside the "
+              "stream")
+        check(all(v > 0 for v in launches.values()),
+              f"a kernel was not launched on config 1b: {launches}")
+        route = (f"per-row DIA split: spans {plan.dia_rows.span_a}, "
+                 f"{plan.dia_rows.span_b}, {plan.dia_rows.span_c}; "
+                 f"{plan.stream.layout.n_stream_rows} stream rows")
+    else:
+        check(plan.dia is not None, f"{name} did not take a DIA route")
+        if name == "stencil27":
+            check(plan.dia.off_a is not None
+                  and h.nnz > cfg.host_analysis_max_nnz,
+                  "stencil27 did not take sparse DIA through the lite gate")
+        else:
+            check(plan.dia.off_a is None, f"{name} took sparse DIA")
+        if name == "config 1":
+            check(plan.dia.uniform is not None,
+                  "config 1 did not take the uniform emit")
+        route = (f"{'sparse ' if plan.dia.off_a else ''}DIA: spans "
+                 f"{plan.dia.span_a}, {plan.dia.span_b}, {plan.dia.span_c}; "
+                 f"uniform emit {plan.dia.uniform is not None}")
+    check(C.data.dtype == dtype, f"{name}: C holds {C.data.dtype} values")
+    Ch = pt.device_get_csr(C)
+    check(bool(np.isfinite(Ch.data).all()), f"non-finite values in {name}")
+    t0 = time.perf_counter()
+    ref = pt.oracle_spgemm(h, h)
+    r = pt.compare_csr(ref, Ch)
+    check(r.ok, f"{name} structure differs from the oracle: {r.message}")
+    r = pt.compare_csr(ref, Ch, compare_data=True, rel_tol=rel_tol)
+    check(r.ok, f"{name} values differ from the oracle: {r.message}")
+    del ref
+    t_ref = time.perf_counter() - t0
+    del C, Ch
+    warm = []
+    for _ in range(3):
+        ms, Cw = timed_ms(lambda: pt.spgemm(A, A, cfg))
+        check(Cw.nnz == plan.nnz, f"{name}: warm call nnz differs")
+        warm.append(ms)
+        del Cw
+    warm_ms = statistics.median(warm)
+    syncs = sync_count(lambda: pt.spgemm(A, A, cfg))
+    products = products_of(h)
+    out = {"name": name, "warm_ms": warm_ms, "cold_ms": cold_ms,
+           "launches": launches, "shapes": shapes, "h": h, "dtype": dtype}
+    line = (f"{name} A*A {str(dtype).replace('torch.', '')} [{smi}]: m="
+            f"{h.rows} nnz(A)={h.nnz} nnz(C)={plan.nnz} products={products}; "
+            f"{route}; cold {cold_ms:.1f} ms, warm median of 3 "
+            f"{warm_ms:.2f} ms (all {[round(w, 2) for w in warm]}), GFLOPS "
+            f"{2 * products / (warm_ms * 1e6):.3f}, nnz(C)/s "
+            f"{plan.nnz / (warm_ms * 1e-3):.4g}, peak memory "
+            f"{peak / 2**30:.2f} GiB ({(peak - base_mem) / 2**30:.2f} GiB "
+            f"above the inputs), synchronizing calls {syncs}; K1 and K2 "
+            f"launches in the cold call {launches}; generated in "
+            f"{t_gen:.2f} s, oracle and its checks {t_ref:.2f} s")
+    print(line, flush=True)
+    out["line"] = line
+    if name == "config 1":
+        # plan reuse with new values
+        h2 = pt.HostCSR.from_parts(h.rows, h.cols, h.row_offsets, h.col_ids,
+                                   h.data * 2.0 + 0.25)
+        A2 = pt.device_put_csr(h2, dtype, "cuda")
+        reuse_ms, C2 = timed_ms(lambda: plan.execute(A2, A2))
+        r = pt.compare_csr(pt.oracle_spgemm(h2, h2), pt.device_get_csr(C2),
+                           compare_data=True, rel_tol=rel_tol)
+        check(r.ok, f"config 1 plan reuse differs from the oracle: "
+              f"{r.message}")
+        print(f"config 1 plan.execute(A2, A2): {reuse_ms:.2f} ms, matches "
+              f"the oracle", flush=True)
+        del A2, C2
+    del A, plan
+    torch.cuda.empty_cache()
+    return out
+
+
+def dia_profile(pt, cell, smi):
+    """Phase 9, one DIA cell: the matrix on the card again, one call, then
+    one warm call under torch.profiler: its device time, idle share and
+    five longest kernels; returns the line."""
+    cfg = pt.SpgemmConfig()
+    A = pt.device_put_csr(cell.pop("h"), cell["dtype"], "cuda")
+    pt.spgemm(A, A, cfg)
+    host_ms, dev_ms, kernels = profile_call(lambda: pt.spgemm(A, A, cfg))
+    line = (f"{cell['name']} profiled warm call: host {host_ms:.2f} ms, "
+            f"device {dev_ms:.3f} ms over {sum(e.count for e in kernels)} "
+            f"kernels (idle share {1 - dev_ms / host_ms:.3f}) [{smi}]; "
+            "longest kernels: " + "; ".join(
+                f"{e.key[:60]} {device_us(e) / 1e3:.3f} ms x{e.count}"
+                for e in kernels[:5]))
+    print(line, flush=True)
+    del A
+    torch.cuda.empty_cache()
+    return line
+
+
 def esc_phase(pt, smi):
     """Phase 7: esc_fixed on bench config 1 against the oracle; returns the
-    launch counts of that call and the summary line."""
+    launch counts of that call, the summary line and the warm time."""
     from speck_tpu_torch import entry as tentry
     from speck_tpu_torch.ops import bitonic, contract
     from speck_tpu_torch.ops.esc import esc_fixed
@@ -297,7 +474,7 @@ def esc_phase(pt, smi):
                        rel_tol=2e-3)
     check(r.ok, f"entry() differs from the oracle: {r.message}")
     print("entry(): fn(*args) on the card matches the oracle", flush=True)
-    return launches, shapes, line
+    return launches, shapes, line, warm_ms
 
 
 def giant_phase(pt, smi):
@@ -574,14 +751,8 @@ def main():
           f"nnz(C)/s {C.nnz / (warm_ms * 1e-3):.4g}", flush=True)
 
     # synchronizing calls in one warm call (readbacks and pageable copies)
-    torch.cuda.set_sync_debug_mode("warn")
-    import warnings
-    with warnings.catch_warnings(record=True) as caught:
-        warnings.simplefilter("always")
-        pt.spgemm(A, A, cfg)
-        torch.cuda.synchronize()
-    torch.cuda.set_sync_debug_mode("default")
-    print(f"synchronizing calls in one spgemm: {len(caught)}", flush=True)
+    print(f"synchronizing calls in one spgemm: "
+          f"{sync_count(lambda: pt.spgemm(A, A, cfg))}", flush=True)
 
     # 5. plan reuse with new values (two-phase numeric path)
     h2 = pt.HostCSR.from_parts(h.rows, h.cols, h.row_offsets, h.col_ids,
@@ -619,18 +790,30 @@ def main():
         torch.cuda.empty_cache()
 
     # 7. esc_fixed at bench config 1's size
-    esc_launches, esc_shapes, esc_line = esc_phase(pt, smi)
+    esc_launches, esc_shapes, esc_line, esc_warm = esc_phase(pt, smi)
     torch.cuda.empty_cache()
 
-    # 7b. K1 at every shape phases 4 and 4b launched it at (and the shapes
-    # of the probe's table), K2 at every other shape of 4, 4b and 7
-    k1_all = set(k1_shapes) | set(giant["k1_shapes"]) | set(cp.SHAPES)
+    # 7c. the diagonal-plane cells through spgemm
+    dia_cells = [dia_cell(pt, smi, *c) for c in DIA_CELLS]
+    print(f"config 1 warm call: spgemm (DIA) {dia_cells[0]['warm_ms']:.2f} "
+          f"ms, esc_fixed {esc_warm:.2f} ms [{smi}]", flush=True)
+    onebee = dia_cells[3]["launches"]
+    onebee_k1, onebee_k2 = dia_cells[3]["shapes"]
+    shape_histogram("the config 1b plan_spgemm + execute", onebee_k2)
+    shape_histogram("the config 1b plan_spgemm + execute", onebee_k1, "K1",
+                    "rid")
+
+    # 7b. K1 at every shape phases 4, 4b and 7c launched it at (and the
+    # shapes of the probe's table), K2 at every other shape of 4, 4b, 7, 7c
+    k1_all = (set(k1_shapes) | set(giant["k1_shapes"]) | set(cp.SHAPES)
+              | set(onebee_k1))
     for shape in sorted(k1_all):
         if shape not in k1:
             k1[shape] = contract_case(gen, *shape)
             contract_line(*shape, k1[shape], smi, " (main-path shape)")
             torch.cuda.empty_cache()
-    k2_all = set(stream_shapes) | set(giant["k2_shapes"]) | set(esc_shapes)
+    k2_all = (set(stream_shapes) | set(giant["k2_shapes"]) | set(esc_shapes)
+              | set(onebee_k2))
     for shape in sorted(k2_all):
         if shape not in k2:
             k2[shape] = sort_case(gen, *shape)
@@ -663,6 +846,7 @@ def main():
         torch.cuda.empty_cache()
     giant_line = giant_profile(pt, giant, smi)
     torch.cuda.empty_cache()
+    dia_lines = [dia_profile(pt, cell, smi) for cell in dia_cells]
     probe_turns(probe_cases, probe_launches, smi,
                 " (after the profiled phase)")
     # each probe's device time and its library call's, without the host
@@ -682,7 +866,8 @@ def main():
          "source": "speck_tpu_torch/csrc/stream_contract.cu",
          "replaces": "speck_tpu/ops/pallas_kernels.py:122",
          "launches": (launches["stream_contract"]
-                      + giant["launches"]["stream_contract"]),
+                      + giant["launches"]["stream_contract"]
+                      + onebee["stream_contract"]),
          "max_abs_err": max(v[0] for v in k1.values()),
          "ms": k1[k1_main][1], "device_ms": sum(k1_dev[k1_main].values()),
          "plain_ms": k1[k1_main][2],
@@ -692,7 +877,7 @@ def main():
          "source": "speck_tpu_torch/csrc/row_sort.cu",
          "replaces": "speck_tpu/ops/bitonic.py:172",
          "launches": (launches["row_sort"] + giant["launches"]["row_sort"]
-                      + esc_launches["row_sort"]),
+                      + esc_launches["row_sort"] + onebee["row_sort"]),
          "max_abs_err": max(v[0] for v in k2.values()),
          "ms": k2[(512, 8192, 1)][1], "device_ms": None,
          "plain_ms": k2[(512, 8192, 1)][2],
@@ -720,6 +905,9 @@ def main():
             **probes[name]))
     print(giant_line, flush=True)
     print(esc_line, flush=True)
+    for cell, line in zip(dia_cells, dia_lines):
+        print(cell["line"], flush=True)
+        print(line, flush=True)
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -10,9 +10,11 @@ and scipy, never jax.
 
 Ported so far: the product-stream route (analysis, planning, chunked
 count-and-stage, wide-row levels and finish, gather emission), the
-direct-copy route, the fixed-cap expand-sort-contract ``ops.esc.esc_fixed``
-with its entry (``entry.entry``), and the gather probes (``probes/``).
-Other routes raise ``NotImplementedError`` (see ROADMAP.md).
+direct-copy route, the diagonal-plane routes (DIA, sparse DIA and the
+per-row DIA split, ``ops/dia.py``), the fixed-cap expand-sort-contract
+``ops.esc.esc_fixed`` with its entry (``entry.entry``), and the gather
+probes (``probes/``). Other routes raise ``NotImplementedError`` (see
+ROADMAP.md).
 """
 
 from .formats.csr import HostCOO, HostCSR, coo_to_csr, csr_transpose

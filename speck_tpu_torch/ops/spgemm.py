@@ -1,10 +1,11 @@
 """SpGEMM orchestrator (torch port of ``speck_tpu/ops/spgemm.py``): the
-product-stream and direct-copy routes.
+product-stream, direct-copy and diagonal-plane routes.
 
 Stages (stage names as in the reference's timings):
 
   1. analysis     host numpy (HostCSR attached) or ops/analysis.analyze
-  2. planning     stream.plan_device_stream: one device pass, ONE readback
+  2. planning     the routing gates, then stream.plan_device_stream: one
+                  device pass, ONE readback
   3. counting     one fused count-and-stage pass per (G, W) chunk
                   (stream.stream_chunk)
   4. wide rows    merge levels + the wide finish (_run_wide), with one
@@ -13,18 +14,25 @@ Stages (stage names as in the reference's timings):
   6. emission     gather emit of the staged chunks, or the two-phase
                   numeric chunks; wide rows and direct rows scatter
 
-It keeps exactly the reference's host readbacks (the planning pack, the
-wide-row totals, the nnz) and adds none: no boolean-mask indexing,
+Row routing as the reference's: a matrix whose diagonal band passes the
+gates runs whole over diagonal planes (ops/dia.py: contiguous DIA over a
+band, ``_plan_dia``; sparse DIA over present-offset lists, ``_plan_sdia``;
+planes, convolution and staging in counting, the meta readback in allocC,
+the emit in numeric); otherwise the per-row DIA split (``DiaRowGroup``)
+takes the banded bulk beside the stream and direct rows.
+
+It keeps exactly the reference's host readbacks (the planning pack or the
+early gate, the wide-row totals, the nnz; on the DIA routes the diagonal
+bitmap and the meta) and adds none: no boolean-mask indexing,
 ``.nonzero()`` or ``.item()`` on the device path.
 
-Routes that are not ported yet fail loudly: ``plan_spgemm`` evaluates the
-reference's host gates (``_dia_spans``, ``_sdia_gate``,
-``_host_dense_plausible``, ``_host_dia_rows_plausible``) and raises
+Routes that are not ported yet fail loudly: ``plan_spgemm`` raises
 ``NotImplementedError`` naming the route where the reference would take
-it, and ``check_supported`` does the same for float64 values, the
-accumulator, row blocking past ``ProductOverflow`` and the TPU A/B knobs.
-The contract and the row sorts always run the hand-written kernels on a
-CUDA device (ops/contract.py, ops/bitonic.py).
+the dense tiles (``_host_dense_plausible``) or would run float64 values on
+the stream, and ``check_supported`` does the same for the accumulator,
+row blocking past ``ProductOverflow`` and the TPU A/B knobs. The contract
+and the row sorts always run the hand-written kernels on a CUDA device
+(ops/contract.py, ops/bitonic.py).
 """
 
 from __future__ import annotations
@@ -41,8 +49,30 @@ from ..utils.config import ProductOverflow, SpgemmConfig
 from ..utils.timings import StageTimer, Timings, sync_tensors
 from .analysis import (analyze, cumsum1d, host_analyze, host_band_extremes,
                        host_gate_lite)
+from .dense import dense_gather_emit
 from .device_csr import DeviceCSR, host_of
-from .esc import direct_chunk, pack_csr_arrays, packable
+from .dia import (
+    DiaState,
+    dia_conv,
+    dia_count_pipeline,
+    dia_count_stage,
+    dia_emit_edge,
+    dia_numeric_stage,
+    dia_offsets_meta,
+    dia_planes,
+    dia_row_inband,
+    dia_rows_conv_fused,
+    dia_scatter_emit,
+    dia_slots,
+    plane_bytes,
+    row_ids,
+    sdia_conv,
+    sdia_lut,
+    sdia_pad,
+    sdia_plane_bytes,
+    sdia_slots,
+)
+from .esc import direct_chunk, pack_csr_arrays
 from .stream import (
     N_QCLASS,
     N_WSEG_PACK,
@@ -86,13 +116,14 @@ def _unported(what: str):
 
 def check_supported(cfg: SpgemmConfig, A: DeviceCSR, B: DeviceCSR) -> None:
     """Raise NotImplementedError for inputs and knobs the port does not
-    run yet, instead of ignoring them."""
+    run yet, instead of ignoring them. float64 passes here: the DIA routes
+    take it, and plan_spgemm raises where it would reach the stream."""
     for X in (A, B):
-        if not packable(X.data):
-            raise _unported(f"{X.data.dtype} values (the unpacked B "
-                            "gathers)")
-        if X.data.dtype != torch.float32:
+        if X.data.dtype not in (torch.float32, torch.float64):
             raise _unported(f"{X.data.dtype} values")
+    if A.data.dtype != B.data.dtype:
+        raise _unported(f"mixed value dtypes ({A.data.dtype} and "
+                        f"{B.data.dtype})")
     if cfg.enable_accum:
         raise _unported("the dense-span accumulator route (EnableAccum)")
     if cfg.stream_expand_impl != "fill":
@@ -151,6 +182,25 @@ class StreamState:
 
 
 @dataclasses.dataclass
+class DiaRowGroup:
+    """Per-row DIA split state (cfg.dia_rows): the banded bulk of a matrix
+    whose whole-matrix DIA gate failed rides diagonal planes, the other
+    rows ride the stream and direct routes. Each C row is produced by one
+    route (a row qualifies only if every B row it touches is in band), so
+    the planes' entries scatter into the shared C."""
+
+    span_a: int
+    span_b: int
+    span_c: int
+    dmin_a: int
+    dmin_b: int
+    slot_a: torch.Tensor     # (nnz_a,) masked plane slots (DIA rows only)
+    slot_b: torch.Tensor     # (nnz_b,) masked plane slots (in-band B rows)
+    present: torch.Tensor    # (m, span_c) structural presence
+    cvT: Optional[torch.Tensor] = None   # staged (m, span_c) value plane
+
+
+@dataclasses.dataclass
 class SpgemmPlan:
     """Symbolic result of C = A @ B, reusable across numeric runs."""
 
@@ -162,6 +212,9 @@ class SpgemmPlan:
     sum_products: object        # () float
     stream: Optional[StreamState] = None
     groups: List[DirectGroup] = dataclasses.field(default_factory=list)
+    max_count: int = 0
+    dia: Optional[DiaState] = None
+    dia_rows: Optional[DiaRowGroup] = None
 
     @property
     def shape(self):
@@ -184,6 +237,8 @@ class SpgemmPlan:
         m, n = self.shape
         dev = self.row_offsets.device
         track = timings is not None and timings.measure_all
+        if self.dia is not None:
+            return self._execute_dia(A, B, use_staged, timings, track)
         total = max(self.nnz, 1)
         ss = self.stream
         gather_emit = (use_staged and ss is not None and ss.fused
@@ -250,9 +305,95 @@ class SpgemmPlan:
                         A.indices, A.data, B.indptr, B.indices, B.data,
                         self.row_offsets, c_cols, c_vals,
                         chunk_rows=g.rows, cap=g.cap)
+            if self.dia_rows is not None:
+                dg = self.dia_rows
+                if use_staged and dg.cvT is not None:
+                    cvT = dg.cvT
+                else:
+                    # new values: value planes from the stored (masked)
+                    # slots, convolved again
+                    c_val, _ = dia_rows_conv_fused(
+                        dg.slot_a, A.data, dg.slot_b, B.data, sa=dg.span_a,
+                        sb=dg.span_b, m=m, k=A.shape[1], dmin_a=dg.dmin_a,
+                        with_hit=False)
+                    cvT = c_val.t()
+                c_cols, c_vals = dia_scatter_emit(
+                    cvT, dg.present, self.row_offsets, c_cols, c_vals,
+                    base_c=dg.dmin_a + dg.dmin_b)
             st.stop(c_cols, c_vals)
         return DeviceCSR(indptr=self.row_offsets, indices=c_cols[:total],
                          data=c_vals[:total], shape=(m, n), nnz=self.nnz)
+
+    def _execute_dia(self, A, B, use_staged, timings, track) -> DeviceCSR:
+        """Numeric phase of a DIA-routed plan: the staged planes emit
+        directly; new values rebuild the value planes and stage again
+        against the stored structural presence."""
+        d = self.dia
+        m, n = self.shape
+        k = A.shape[1]
+        base_c = d.dmin_a + d.dmin_b
+        with StageTimer(timings, "spGEMMNumeric", track) as st:
+            if use_staged and d.staged is not None:
+                cols_s, vals_s = d.staged
+            else:
+                av, ah = dia_planes(d.slot_a, A.data, span=d.span_a, rows=m)
+                if (B.indices is A.indices and B.data is A.data
+                        and B.shape == A.shape):
+                    bv, bh = av, ah
+                else:
+                    bv, bh = dia_planes(d.slot_b, B.data, span=d.span_b,
+                                        rows=k)
+                if d.off_a is not None:
+                    off_c = tuple(sorted({a + b for a in d.off_a
+                                          for b in d.off_b}))
+                    c_val, _ = sdia_conv(av, ah, bv, bh, off_a=d.off_a,
+                                         off_b=d.off_b, off_c=off_c, m=m,
+                                         k=k, with_hit=False)
+                    cols_s, vals_s = dia_numeric_stage(
+                        c_val, d.present, d.doffs, sc=d.span_c, m=m,
+                        n_cols=n, base_c=0)
+                else:
+                    c_val, _ = dia_conv(av, ah, bv, bh, sa=d.span_a,
+                                        sb=d.span_b, m=m, k=k,
+                                        dmin_a=d.dmin_a, with_hit=False)
+                    cols_s, vals_s = dia_numeric_stage(
+                        c_val, d.present, sc=d.span_c, m=m, n_cols=n,
+                        base_c=base_c)
+            if self.nnz > 0 and d.uniform is not None:
+                # the all-full interior block is the final payload at a
+                # constant shift: one contiguous copy; only the
+                # band-clipped edge rows gather
+                up, uq, u_offs = d.uniform
+                sc = d.span_c
+                mid_n = (uq - up) * sc
+                parts_c, parts_v = [], []
+                if u_offs > 0:
+                    ec, ev = dia_emit_edge(cols_s, vals_s, self.row_offsets,
+                                           sc=sc, r0=0, r1=up, o0=0,
+                                           n_out=u_offs)
+                    parts_c.append(ec)
+                    parts_v.append(ev)
+                parts_c.append(cols_s.reshape(-1)[up * sc: uq * sc])
+                parts_v.append(vals_s.reshape(-1)[up * sc: uq * sc])
+                tail_n = self.nnz - u_offs - mid_n
+                if tail_n > 0:
+                    ec, ev = dia_emit_edge(cols_s, vals_s, self.row_offsets,
+                                           sc=sc, r0=uq, r1=m,
+                                           o0=u_offs + mid_n, n_out=tail_n)
+                    parts_c.append(ec)
+                    parts_v.append(ev)
+                c_cols = torch.cat(parts_c)
+                c_vals = torch.cat(parts_v)
+            elif self.nnz > 0:
+                c_cols, c_vals = dense_gather_emit(
+                    cols_s, vals_s, self.row_offsets, tile_rows=1,
+                    cw=d.span_c, m=m, nnz=self.nnz)
+            else:
+                c_cols = torch.zeros(1, dtype=I32, device=A.device)
+                c_vals = torch.zeros(1, dtype=A.data.dtype, device=A.device)
+            st.stop(c_cols, c_vals)
+        return DeviceCSR(indptr=self.row_offsets, indices=c_cols,
+                         data=c_vals, shape=(m, n), nnz=self.nnz)
 
 
 def _offsets_from_counts(nnz_row: torch.Tensor) -> torch.Tensor:
@@ -381,35 +522,16 @@ def _run_wide(ss: StreamState, wide_staged, nnz_row, n_cols: int,
 
 
 # ---------------------------------------------------------------------------
-# Host routing gates (numpy copies of the reference's), so the port raises
-# where the reference would take a route it does not have yet
+# Diagonal-plane routes: the gates and the plans (the reference's, with
+# the same host decisions)
 # ---------------------------------------------------------------------------
-
-
-def _plane_bytes(m: int, k: int, sa: int, sb: int, itemsize: int) -> int:
-    """Working set of the DIA pipeline (ops/dia.py plane_bytes)."""
-    sc = sa + sb - 1
-    return itemsize * (2 * sa * m + 2 * sb * k + 2 * sb * (m + sa)
-                       + 2 * sc * m + 3 * sc * m)
-
-
-def _sdia_plane_bytes(m, k, nd_a, nd_b, nd_c, pad_w, itemsize) -> int:
-    return itemsize * (2 * nd_a * m + 2 * nd_b * k + 2 * nd_b * pad_w
-                       + 2 * nd_c * m + 3 * nd_c * m)
-
-
-def _diag_offsets(h, dmin: int, span: int) -> np.ndarray:
-    """Distinct diagonal offsets (col - row) present in a host matrix."""
-    ip = np.asarray(h.row_offsets, np.int64)
-    rid = np.repeat(np.arange(h.rows, dtype=np.int64), ip[1:] - ip[:-1])
-    d = np.asarray(h.col_ids, np.int64) - rid
-    return np.flatnonzero(np.bincount(d - dmin, minlength=span)) + dmin
 
 
 def _dia_spans(cfg: SpgemmConfig, A: DeviceCSR, B: DeviceCSR, a_dmin: int,
                a_dmax: int, b_dmin: int, b_dmax: int, sp_sat: int):
-    """The whole-matrix DIA gate: (span_a, span_b) when the reference
-    would run the multiply over diagonal planes, else None."""
+    """The whole-matrix DIA gate: (span_a, span_b) when the multiply runs
+    over diagonal planes, else None. The int32 guard holds whatever the
+    memory budget: slots are span * rows + row in int32."""
     if not (a_dmin <= a_dmax and b_dmin <= b_dmax):
         return None
     m, n = A.shape[0], B.shape[1]
@@ -419,41 +541,170 @@ def _dia_spans(cfg: SpgemmConfig, A: DeviceCSR, B: DeviceCSR, a_dmin: int,
     if (sa <= cfg.dia_span_cap and sb <= cfg.dia_span_cap
             and max(sa * m, sb * A.shape[1], sc_g * m) < 2 ** 31
             and m * sa * sb <= cfg.dia_waste_cap * max(sp_sat, 1)
-            and _plane_bytes(m, A.shape[1], sa, sb, A.data.dtype.itemsize)
+            and plane_bytes(m, A.shape[1], n, sa, sb, A.data.dtype.itemsize)
             <= cfg.dia_mem_budget):
         return sa, sb
     return None
 
 
+def _plan_dia(A: DeviceCSR, B: DeviceCSR, cfg: SpgemmConfig,
+              timings: Optional[Timings], stats, dmin_a: int, dmin_b: int,
+              sa: int, sb: int, track: bool) -> SpgemmPlan:
+    """A contiguous-DIA plan: planes, convolution and staging in one
+    counting pass, then ONE readback of the offsets' meta scalars."""
+    m, n = A.shape[0], B.shape[1]
+    k = A.shape[1]
+    sc = sa + sb - 1
+    with StageTimer(timings, "spGEMMCounting", track) as st:
+        same = (B.indices is A.indices and B.data is A.data
+                and B.shape == A.shape)
+        slot_a = dia_slots(A.indptr, A.indices, dmin=dmin_a, span=sa, rows=m)
+        slot_b = slot_a if same else dia_slots(
+            B.indptr, B.indices, dmin=dmin_b, span=sb, rows=k)
+        counts, present, cols_s, vals_s = dia_count_pipeline(
+            slot_a, A.data, slot_b, B.data, sa=sa, sb=sb, m=m, k=k,
+            dmin_a=dmin_a, sc=sc, n_cols=n, base_c=dmin_a + dmin_b,
+            same=same)
+        st.stop(counts)
+    return _finish_dia(A, B, cfg, timings, stats, counts, present, cols_s,
+                       vals_s, track, DiaState(
+                           span_a=sa, span_b=sb, span_c=sc, dmin_a=dmin_a,
+                           dmin_b=dmin_b, slot_a=slot_a, slot_b=slot_b,
+                           present=present))
+
+
+def _finish_dia(A, B, cfg, timings, stats, counts, present, cols_s, vals_s,
+                track, state: DiaState) -> SpgemmPlan:
+    """The offsets and the meta readback of either DIA flavour, and the
+    emit decision: the uniform fast emit when the all-full interior run
+    covers at least half of C (else the two edge gathers approach one
+    full gather)."""
+    m, sc = A.shape[0], state.span_c
+    with StageTimer(timings, "allocC", track):
+        row_offsets, meta = dia_offsets_meta(counts, sc=sc)
+        nnz, max_count, up, uq, u_ok, u_offs = (
+            int(x) for x in meta.cpu().numpy())  # the ONE meta readback
+    if (cfg.dia_uniform_emit and u_ok and nnz > 0
+            and (uq - up) * sc >= nnz // 2):
+        state.uniform = (up, uq, u_offs)
+    # staged planes: 2 int32-sized planes per (row, diagonal) slot
+    if 2 * sc * m <= cfg.fused_staging_budget:
+        state.staged = (cols_s, vals_s)
+    return SpgemmPlan(A=A, B=B, cfg=cfg, row_offsets=row_offsets, nnz=nnz,
+                      sum_products=stats.sum_products, max_count=max_count,
+                      dia=state)
+
+
+def _diag_bitmap_dev(indptr, indices, dmin: int, *, span: int):
+    """Presence bitmap over diagonal offsets (col - row - dmin): one O(nnz)
+    device pass (row ids by binary search, one scatter of ones)."""
+    nnz = indices.shape[0]
+    dev = indices.device
+    bm = torch.zeros(span, dtype=I32, device=dev)
+    if nnz:
+        rid = row_ids(indptr, nnz)
+        # a device-side one: a Python scalar here would be a host copy
+        bm[torch.clamp(indices - rid - dmin, 0, span - 1)] = torch.ones(
+            (), dtype=I32, device=dev)
+    return bm
+
+
+# past this span the device bitmap's fetch outweighs the host bincount
+_DIAG_DEV_SPAN_MAX = 1 << 22
+
+
+def _diag_offsets(dev, h, dmin: int, span: int) -> np.ndarray:
+    """Distinct diagonal offsets (col - row) present in a matrix: the
+    device bitmap (one O(nnz) pass and one (span,) readback) by default,
+    since the host form's O(nnz) row-id decode took seconds at the
+    stencil's 28.6M nonzeros in the reference; the host bincount past
+    ``_DIAG_DEV_SPAN_MAX`` or without a device matrix."""
+    if dev is not None and span <= _DIAG_DEV_SPAN_MAX:
+        bm = _diag_bitmap_dev(dev.indptr, dev.indices, dmin, span=span)
+        return np.flatnonzero(bm.cpu().numpy()) + dmin
+    ip = np.asarray(h.row_offsets, np.int64)
+    rid = np.repeat(np.arange(h.rows, dtype=np.int64), ip[1:] - ip[:-1])
+    d = np.asarray(h.col_ids, np.int64) - rid
+    return np.flatnonzero(np.bincount(d - dmin, minlength=span)) + dmin
+
+
 def _sdia_gate(cfg: SpgemmConfig, A: DeviceCSR, B: DeviceCSR, ah, bh, hg):
-    """The sparse-DIA gate (host only): True when the reference would run
-    the multiply over present-offset diagonal planes."""
+    """Sparse-DIA eligibility (needs the attached HostCSR copies): the
+    present-offset lists within the pair cap, the band within
+    sdia_span_cap, the work m * nd_a * nd_b within dia_waste_cap of the
+    true product count, the planes within dia_mem_budget. Returns
+    (off_a, off_b, span_a, span_b) or None."""
     if not cfg.enable_sdia or ah is None or bh is None:
-        return False
+        return None
     if not (hg.a_dmin <= hg.a_dmax and hg.b_dmin <= hg.b_dmax):
-        return False
+        return None
     m = A.shape[0]
     k = A.shape[1]
     span_a = hg.a_dmax - hg.a_dmin + 1
     span_b = hg.b_dmax - hg.b_dmin + 1
     if span_a > cfg.sdia_span_cap or span_b > cfg.sdia_span_cap:
-        return False
+        return None
+    # nd_a >= nnz / m, so past this the pair cap cannot hold: skip the scans
     if ah.nnz * bh.nnz > cfg.sdia_pair_cap * m * bh.rows:
-        return False
-    off_a = _diag_offsets(ah, hg.a_dmin, span_a)
-    off_b = off_a if bh is ah else _diag_offsets(bh, hg.b_dmin, span_b)
+        return None
+    off_a = _diag_offsets(A, ah, hg.a_dmin, span_a)
+    off_b = off_a if bh is ah else _diag_offsets(B, bh, hg.b_dmin, span_b)
     nd_a, nd_b = len(off_a), len(off_b)
     if nd_a * nd_b > cfg.sdia_pair_cap:
-        return False
+        return None
     nd_c = len(np.unique(off_a[:, None] + off_b[None, :]))
     if max(nd_a * m, nd_b * k, nd_c * m) >= 2 ** 31:
-        return False
+        return None
     if m * nd_a * nd_b > cfg.dia_waste_cap * max(hg.sum_products, 1.0):
-        return False
-    pad_l = max(0, -int(off_a.min()))
-    pad_r = max(0, m + int(off_a.max()) - k)
-    return _sdia_plane_bytes(m, k, nd_a, nd_b, nd_c, k + pad_l + pad_r,
-                             A.data.dtype.itemsize) <= cfg.dia_mem_budget
+        return None
+    pad_l, pad_r = sdia_pad(tuple(int(x) for x in off_a), m, k)
+    if sdia_plane_bytes(m, k, nd_a, nd_b, nd_c, k + pad_l + pad_r,
+                        A.data.dtype.itemsize) > cfg.dia_mem_budget:
+        return None
+    return off_a, off_b, span_a, span_b
+
+
+def _plan_sdia(A: DeviceCSR, B: DeviceCSR, cfg: SpgemmConfig,
+               timings: Optional[Timings], stats, off_a, off_b, span_a: int,
+               span_b: int, *, track: bool) -> SpgemmPlan:
+    """A sparse-DIA plan: planes indexed by the present-offset lists,
+    counting and staging in one pass, ONE meta readback."""
+    m, n = A.shape[0], B.shape[1]
+    k = A.shape[1]
+    dev = A.device
+    ta = tuple(int(x) for x in off_a)
+    tb = tuple(int(x) for x in off_b)
+    off_c = np.unique(np.asarray(off_a)[:, None] + np.asarray(off_b)[None, :])
+    tc = tuple(int(x) for x in off_c)
+    nd_a, nd_b, nd_c = len(ta), len(tb), len(tc)
+    dmin_a, dmin_b = stats.a_dmin, stats.b_dmin
+    with StageTimer(timings, "spGEMMCounting", track) as st:
+        lut_a = torch.as_tensor(sdia_lut(off_a, dmin_a, span_a), device=dev)
+        slot_a = sdia_slots(A.indptr, A.indices, lut_a, dmin=dmin_a, rows=m)
+        av, ah_p = dia_planes(slot_a, A.data, span=nd_a, rows=m)
+        if (B.indices is A.indices and B.data is A.data
+                and B.shape == A.shape):
+            slot_b = slot_a
+            bv, bh_p = av, ah_p
+        else:
+            lut_b = torch.as_tensor(sdia_lut(off_b, dmin_b, span_b),
+                                    device=dev)
+            slot_b = sdia_slots(B.indptr, B.indices, lut_b, dmin=dmin_b,
+                                rows=k)
+            bv, bh_p = dia_planes(slot_b, B.data, span=nd_b, rows=k)
+        c_val, c_cnt = sdia_conv(av, ah_p, bv, bh_p, off_a=ta, off_b=tb,
+                                 off_c=tc, m=m, k=k, with_hit=True)
+        del av, ah_p, bv, bh_p
+        doffs = torch.as_tensor(off_c.astype(np.int32), device=dev)
+        counts, present, cols_s, vals_s = dia_count_stage(
+            c_val, c_cnt, doffs, sc=nd_c, m=m, n_cols=n, base_c=0)
+        st.stop(counts)
+    return _finish_dia(A, B, cfg, timings, stats, counts, present, cols_s,
+                       vals_s, track, DiaState(
+                           span_a=nd_a, span_b=nd_b, span_c=nd_c,
+                           dmin_a=dmin_a, dmin_b=dmin_b, slot_a=slot_a,
+                           slot_b=slot_b, present=present, off_a=ta,
+                           off_b=tb, doffs=doffs))
 
 
 def _host_dia_rows_plausible(ah, bh, cfg: SpgemmConfig) -> bool:
@@ -539,6 +790,23 @@ def _check_limits(cfg: SpgemmConfig, sp_sat: int, mxrow_sat: int):
             f"({cfg.block_products})")
 
 
+def _gate_readback(cfg: SpgemmConfig, A: DeviceCSR, B: DeviceCSR, stats,
+                   m: int):
+    """The early routing gate: the 7 gate scalars in one small readback
+    before the planning pass. Returns (dmin_a, dmin_b, span_a, span_b)
+    when the DIA gate passes, else runs the overflow guards and returns
+    None."""
+    gate = plan_gate(A.indptr, A.indices, B.indptr, B.indices,
+                     stats.row_ops, stats.row_ops_f, m=m)
+    (a_dmin, a_dmax, b_dmin, b_dmax, sp_sat, mxrow_sat,
+     _sp_exact) = (int(x) for x in gate.cpu().numpy())
+    spans = _dia_spans(cfg, A, B, a_dmin, a_dmax, b_dmin, b_dmax, sp_sat)
+    if spans is not None:
+        return (a_dmin, b_dmin) + spans
+    _check_limits(cfg, sp_sat, mxrow_sat)
+    return None
+
+
 # ---------------------------------------------------------------------------
 # Entry points
 # ---------------------------------------------------------------------------
@@ -595,12 +863,15 @@ def plan_spgemm(A: DeviceCSR, B: DeviceCSR,
                            <= cfg.sdia_pair_cap * m * bh_eff.rows)
             if contig_ok or sdia_ok:
                 lite = host_gate_lite(ah, bh_eff, ext)
-                if _dia_spans(cfg, A, B, lite.a_dmin, lite.a_dmax,
-                              lite.b_dmin, lite.b_dmax,
-                              lite.sp_sat) is not None:
-                    raise _unported("the DIA route (EnableDia)")
-                if _sdia_gate(cfg, A, B, ah, bh_eff, lite):
-                    raise _unported("the sparse-DIA route (EnableSdia)")
+                spans = _dia_spans(cfg, A, B, lite.a_dmin, lite.a_dmax,
+                                   lite.b_dmin, lite.b_dmax, lite.sp_sat)
+                if spans is not None:
+                    return _plan_dia(A, B, cfg, timings, lite, lite.a_dmin,
+                                     lite.b_dmin, *spans, track)
+                sd = _sdia_gate(cfg, A, B, ah, bh_eff, lite)
+                if sd is not None:
+                    return _plan_sdia(A, B, cfg, timings, lite, *sd,
+                                      track=track)
             dia_lite_rejected = True
     if hg is None:
         with StageTimer(timings, "countProducts", track) as st:
@@ -609,11 +880,15 @@ def plan_spgemm(A: DeviceCSR, B: DeviceCSR,
     if hg is not None:
         with StageTimer(timings, "loadBalanceCounting", track):
             if dia_possible:
-                if _dia_spans(cfg, A, B, hg.a_dmin, hg.a_dmax, hg.b_dmin,
-                              hg.b_dmax, hg.sp_sat) is not None:
-                    raise _unported("the DIA route (EnableDia)")
-                if _sdia_gate(cfg, A, B, ah, bh_eff, hg):
-                    raise _unported("the sparse-DIA route (EnableSdia)")
+                spans = _dia_spans(cfg, A, B, hg.a_dmin, hg.a_dmax,
+                                   hg.b_dmin, hg.b_dmax, hg.sp_sat)
+                if spans is not None:
+                    return _plan_dia(A, B, cfg, timings, hg, hg.a_dmin,
+                                     hg.b_dmin, *spans, track)
+                sd = _sdia_gate(cfg, A, B, ah, bh_eff, hg)
+                if sd is not None:
+                    return _plan_sdia(A, B, cfg, timings, hg, *sd,
+                                      track=track)
             _check_limits(cfg, hg.sp_sat, hg.mxrow_sat)
             gate_done = True
             stats = hg.to_device(dev)
@@ -621,17 +896,23 @@ def plan_spgemm(A: DeviceCSR, B: DeviceCSR,
           and not dia_lite_rejected):
         # early routing gate: one small readback before the planning pass
         with StageTimer(timings, "loadBalanceCounting", track):
-            gate = plan_gate(A.indptr, A.indices, B.indptr, B.indices,
-                             stats.row_ops, stats.row_ops_f, m=m)
-            (a_dmin, a_dmax, b_dmin, b_dmax, sp_sat, mxrow_sat,
-             _sp_exact) = (int(x) for x in gate.cpu().numpy())
-            if _dia_spans(cfg, A, B, a_dmin, a_dmax, b_dmin, b_dmax,
-                          sp_sat) is not None:
-                raise _unported("the DIA route (EnableDia)")
-            _check_limits(cfg, sp_sat, mxrow_sat)
             gate_done = True
+            spans = _gate_readback(cfg, A, B, stats, m)
+            if spans is not None:
+                return _plan_dia(A, B, cfg, timings, stats, *spans, track)
 
     with StageTimer(timings, "loadBalanceCounting", track):
+        if A.data.dtype == torch.float64:
+            # float64 runs the DIA routes only; where the reference takes
+            # its late gate from the planning pack, the gate scalars alone
+            # decide here (one readback either way)
+            if not gate_done and dia_possible:
+                spans = _gate_readback(cfg, A, B, stats, m)
+                if spans is not None:
+                    return _plan_dia(A, B, cfg, timings, stats, *spans,
+                                     track)
+            raise _unported("float64 values on the stream and per-row DIA "
+                            "routes (the unpacked B gathers)")
         direct_ok = bool(B.canonical) and cfg.enable_direct
         use_dense = bool(cfg.enable_dense and A.canonical and B.canonical
                          and B.nnz > 0)
@@ -642,31 +923,42 @@ def plan_spgemm(A: DeviceCSR, B: DeviceCSR,
                 ah, tr, cfg.dense_kw,
                 bh=bh_eff if A.nnz <= cfg.host_analysis_max_nnz else None,
                 cw_max=cfg.dense_cw)
+        use_dia_rows = bool(cfg.dia_rows and dia_possible)
+        if use_dia_rows and ah is not None:
+            use_dia_rows = _host_dia_rows_plausible(ah, bh_eff, cfg)
+            # a host-confirmed split claims the banded bulk and leaves no
+            # tile dense-eligible
+            use_dense = use_dense and not use_dia_rows
         if use_dense and max_tiles > 0:
             raise _unported("the dense-tile route (EnableDense)")
-        if cfg.dia_rows and dia_possible and (
-                ah is None or _host_dia_rows_plausible(ah, bh_eff, cfg)):
-            raise _unported("the per-row DIA split (DiaRows)")
-        a32 = A.data.float().contiguous().view(I32)
-        rows_sorted, e, q_sorted, el, ops_sorted, nnz_init, pack = \
-            plan_device_stream(
-                A.indptr, A.indices, a32, B.indptr, B.indices,
-                stats.row_ops, stats.row_ops_f, stats.a_len,
-                min_q=cfg.stream_min_q, direct_ok=direct_ok, m=m,
-                w0=cfg.stream_width, w_cap=cfg.stream_width_cap)
+        a32 = A.data.contiguous().view(I32)
+        (rows_sorted, e, q_sorted, el, ops_sorted, nnz_init, pack,
+         dia_mask) = plan_device_stream(
+            A.indptr, A.indices, a32, B.indptr, B.indices, stats.row_ops,
+            stats.row_ops_f, stats.a_len, min_q=cfg.stream_min_q,
+            direct_ok=direct_ok, m=m, w0=cfg.stream_width,
+            w_cap=cfg.stream_width_cap, use_dia_rows=use_dia_rows,
+            dia_span_cap=cfg.dia_span_cap, dia_waste_cap=cfg.dia_waste_cap,
+            dia_mem_budget=cfg.dia_mem_budget,
+            dia_itemsize=A.data.dtype.itemsize)
         pack_h = pack.cpu().numpy()  # the ONE planning host sync
         s_hist = pack_h[:N_QCLASS]
         d_hist = pack_h[N_QCLASS: 2 * N_QCLASS]
         (a_dmin, a_dmax, b_dmin, b_dmax, sp_sat, mxrow_sat, sp_exact) = (
             int(x) for x in pack_h[4 * N_QCLASS + 5: 4 * N_QCLASS + 12])
+        # per-row DIA split: the robust band and the routed row count
+        dr_dlo_a, dr_dhi_a, dr_dlo_b, dr_dhi_b, n_dia = (
+            int(x) for x in pack_h[4 * N_QCLASS + 12: 4 * N_QCLASS + 17])
         n_live = int(pack_h[4 * N_QCLASS + 17])
         tight_h = pack_h[4 * N_QCLASS + 19:]
         W, total_q, n_wide_t, r_wide_t = (int(x) for x in tight_h[:4])
         if not gate_done:
-            if dia_possible and _dia_spans(cfg, A, B, a_dmin, a_dmax,
-                                           b_dmin, b_dmax,
-                                           sp_sat) is not None:
-                raise _unported("the DIA route (EnableDia)")
+            if dia_possible:
+                spans = _dia_spans(cfg, A, B, a_dmin, a_dmax, b_dmin,
+                                   b_dmax, sp_sat)
+                if spans is not None:
+                    return _plan_dia(A, B, cfg, timings, stats, a_dmin,
+                                     b_dmin, *spans, track)
             _check_limits(cfg, sp_sat, mxrow_sat)
         if n_wide_t <= N_WSEG_PACK:
             wide_segs = tight_h[4: 4 + n_wide_t].astype(np.int64)
@@ -731,11 +1023,37 @@ def plan_spgemm(A: DeviceCSR, B: DeviceCSR,
             fused=fused, wide_rid_in=torch.as_tensor(wide_rid_h, device=dev),
             wide_rid_in_h=wide_rid_h)
 
+        # the per-row DIA split's group (its device gate passed: n_dia > 0)
+        dia_grp: Optional[DiaRowGroup] = None
+        if n_dia > 0:
+            dr_sa = dr_dhi_a - dr_dlo_a + 1
+            dr_sb = dr_dhi_b - dr_dlo_b + 1
+            slot_a = dia_slots(A.indptr, A.indices, dia_mask, dmin=dr_dlo_a,
+                               span=dr_sa, rows=m, masked=True)
+            b_in = dia_row_inband(B.indptr, B.indices, dmin=dr_dlo_b,
+                                  dmax=dr_dhi_b)
+            slot_b = dia_slots(B.indptr, B.indices, b_in, dmin=dr_dlo_b,
+                               span=dr_sb, rows=B.shape[0], masked=True)
+            dia_grp = DiaRowGroup(
+                span_a=dr_sa, span_b=dr_sb, span_c=dr_sa + dr_sb - 1,
+                dmin_a=dr_dlo_a, dmin_b=dr_dlo_b, slot_a=slot_a,
+                slot_b=slot_b,
+                present=torch.zeros((0, 0), dtype=torch.bool, device=dev))
+
     with StageTimer(timings, "spGEMMCounting", track) as st:
         # one trailing drop slot (see ops/stream.py)
         nnz_row = torch.cat([nnz_init.to(I32),
                              torch.zeros(1, dtype=I32, device=dev)])
         raw_chunks: List[int] = []
+        if dia_grp is not None:
+            dg = dia_grp
+            c_val, c_cnt = dia_rows_conv_fused(
+                dg.slot_a, A.data, dg.slot_b, B.data, sa=dg.span_a,
+                sb=dg.span_b, m=m, k=A.shape[1], dmin_a=dg.dmin_a,
+                with_hit=True)
+            dg.present = c_cnt.t() > 0.5   # exact: fp32 sums of 1.0
+            dg.cvT = c_val.t()
+            nnz_row[:m] += torch.sum(dg.present, dim=1, dtype=I32)
         if layout.n_chunks > 0 and layout.total_q > 0:
             b_packed = pack_csr_arrays(B.indices, B.data.float())
             staged = []
@@ -774,7 +1092,7 @@ def plan_spgemm(A: DeviceCSR, B: DeviceCSR,
 
     return SpgemmPlan(A=A, B=B, cfg=cfg, row_offsets=row_offsets, nnz=nnz,
                       sum_products=stats.sum_products, stream=ss,
-                      groups=groups)
+                      groups=groups, dia_rows=dia_grp)
 
 
 def spgemm(A: DeviceCSR, B: DeviceCSR, cfg: Optional[SpgemmConfig] = None,

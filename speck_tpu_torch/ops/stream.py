@@ -298,35 +298,120 @@ def build_srec(a_indptr, a_indices, a_data32, b_start, b_len, rows_sorted,
             compact_(src, 0), compact_(pend, 0))
 
 
+def _order_stat(x: torch.Tensor, k) -> torch.Tensor:
+    """The k-th smallest of x (k a device scalar, clamped into range)."""
+    s = torch.sort(x).values
+    return torch.take(s, torch.clamp(k, 0, x.shape[0] - 1).long())
+
+
+def _dia_rows_mask(a_indptr, a_indices, b_indptr, b_indices, row_ops,
+                   row_ops_f, a_len, *, m: int, dia_span_cap: int,
+                   dia_waste_cap: float, dia_mem_budget: int,
+                   dia_itemsize: int):
+    """The per-row DIA split's device gate: a band with a 5%-per-side
+    outlier allowance (order statistics of the per-row diagonal extents)
+    selects the banded bulk. A row qualifies iff its own extent fits the
+    robust band and every B row it touches is in band, so each C row is
+    produced by one route. The whole-matrix gates (span, int32, waste,
+    memory; dia.plane_bytes in f32 arithmetic) are evaluated here, and a
+    failed gate empties the mask. Returns (dia_mask, [dlo_a, dhi_a, dlo_b,
+    dhi_b, n_dia])."""
+    dev = a_indptr.device
+    nnz_a = a_indices.shape[0]
+    kb = b_indptr.shape[0] - 1
+    rowi = _arange(m, dev)
+    ne_a = a_len > 0
+    a_first = a_indices[torch.clamp(a_indptr[:-1], max=nnz_a - 1)] - rowi
+    a_last = a_indices[torch.clamp(a_indptr[1:] - 1, min=0)] - rowi
+    n_ne = torch.sum(ne_a, dtype=I32)
+    pad = n_ne // 20
+    dlo_a = _order_stat(torch.where(ne_a, a_first, INT_MAX), pad)
+    dhi_a = _order_stat(torch.where(ne_a, a_last, INT_MAX), n_ne - 1 - pad)
+    rowk = _arange(kb, dev)
+    ne_b = (b_indptr[1:] - b_indptr[:-1]) > 0
+    nnz_b = b_indices.shape[0]
+    b_first = b_indices[torch.clamp(b_indptr[:-1], max=nnz_b - 1)] - rowk
+    b_last = b_indices[torch.clamp(b_indptr[1:] - 1, min=0)] - rowk
+    n_ne_b = torch.sum(ne_b, dtype=I32)
+    padb = n_ne_b // 20
+    dlo_b = _order_stat(torch.where(ne_b, b_first, INT_MAX), padb)
+    dhi_b = _order_stat(torch.where(ne_b, b_last, INT_MAX),
+                        n_ne_b - 1 - padb)
+    # empty B rows are in band (they contribute nothing)
+    b_in = (~ne_b) | ((b_first >= dlo_b) & (b_last <= dhi_b))
+    a_in = ne_a & (a_first >= dlo_a) & (a_last <= dhi_a)
+    # out-of-band B rows touched per A row, by a cumsum difference at the
+    # row bounds (the reference's segment_min; empty rows fail a_in)
+    zero = torch.zeros(1, dtype=I32, device=dev)
+    bad = torch.cat([zero, cumsum1d((~b_in[a_indices]).to(I32))])
+    all_b_in = (bad[a_indptr[1:]] - bad[a_indptr[:-1]]) == 0
+    dia_mask = a_in & all_b_in & (row_ops > 0)
+    sa_d = dhi_a - dlo_a + 1
+    sb_d = dhi_b - dlo_b + 1
+    dia_ops = torch.sum(torch.where(dia_mask, row_ops_f, 0.0))
+    saf, sbf = sa_d.float(), sb_d.float()
+    scf = (sa_d + sb_d - 1).float()
+    mf, kf = float(m), float(kb)
+    planes_f = dia_itemsize * (2 * saf * mf + 2 * sbf * kf
+                               + 2 * sbf * (mf + saf) + 2 * scf * mf
+                               + 3 * scf * mf)
+    ok = ((dlo_a <= dhi_a) & (dlo_b <= dhi_b)
+          & (sa_d <= dia_span_cap) & (sb_d <= dia_span_cap)
+          & (torch.maximum(torch.maximum(saf * mf, sbf * kf), scf * mf)
+             < 2.0 ** 31)
+          & (mf * saf * sbf <= dia_waste_cap * torch.clamp(dia_ops, min=1.0))
+          & (planes_f <= float(dia_mem_budget)))
+    dia_mask = dia_mask & ok
+    n_dia = torch.sum(dia_mask, dtype=I32)
+    return dia_mask, torch.stack([dlo_a, dhi_a, dlo_b, dhi_b, n_dia]).to(I32)
+
+
 def plan_device_stream(a_indptr, a_indices, a_data32, b_indptr, b_indices,
                        row_ops, row_ops_f, a_len, *, min_q: int,
                        direct_ok: bool, m: int, w0: int = 8192,
-                       w_cap: int = 65536):
-    """Single-pass device planning of the stream and direct routes: masks,
-    the tight layout and ONE packed int32 array that carries every host
-    decision (read back once by the caller). The pack has the reference's
-    layout:
+                       w_cap: int = 65536, use_dia_rows: bool = False,
+                       dia_span_cap: int = 512, dia_waste_cap: float = 8.0,
+                       dia_mem_budget: int = 1 << 30, dia_itemsize: int = 4):
+    """Single-pass device planning of the stream, direct and per-row DIA
+    routes: masks, the tight layout and ONE packed int32 array that
+    carries every host decision (read back once by the caller). The pack
+    has the reference's layout:
 
       [stream q-class hist (32) | direct class hist (32) | accum hist (32)
        | accum product sums (32) | n_eligible_tiles, kw, cw, la, lb (5) |
-       gate scalars (7) | per-row DIA band (5) | n_live_slots,
-       n_live_slots_accum (2) | W, total_q, n_wide, r_wide,
-       wide_segs (N_WSEG_PACK)]
+       gate scalars (7) | per-row DIA band dlo_a, dhi_a, dlo_b, dhi_b,
+       n_dia (5) | n_live_slots, n_live_slots_accum (2) | W, total_q,
+       n_wide, r_wide, wide_segs (N_WSEG_PACK)]
 
-    with the dense, per-row DIA and accumulator entries at their
-    disabled values.
+    with the dense and accumulator entries at their disabled values, and
+    the per-row DIA band too ([1, 0, 1, 0, 0]) unless ``use_dia_rows``.
+    Rows in ``dia_mask`` (the per-row split) ride neither the direct nor
+    the stream route.
 
-    Returns (rows_sorted, e, q_sorted, el, ops_sorted, nnz_init, pack)."""
+    Returns (rows_sorted, e, q_sorted, el, ops_sorted, nnz_init, pack,
+    dia_mask)."""
     dev = a_indptr.device
     if a_len is None:
         a_len = a_indptr[1:] - a_indptr[:-1]
     if row_ops_f is None:
         row_ops_f = row_ops.float()
+    if (use_dia_rows and m > 0 and a_indices.shape[0] > 0
+            and b_indices.shape[0] > 0):
+        dia_mask, dia_pack = _dia_rows_mask(
+            a_indptr, a_indices, b_indptr, b_indices, row_ops, row_ops_f,
+            a_len, m=m, dia_span_cap=dia_span_cap,
+            dia_waste_cap=dia_waste_cap, dia_mem_budget=dia_mem_budget,
+            dia_itemsize=dia_itemsize)
+    else:
+        # an empty band, made on the device: no host-to-device copy
+        dia_mask = torch.zeros(m, dtype=torch.bool, device=dev)
+        dia_pack = torch.zeros(5, dtype=I32, device=dev)
+        dia_pack[0:4:2] = 1
     if direct_ok:
-        direct_mask = (a_len == 1) & (row_ops > 0)
+        direct_mask = (a_len == 1) & (row_ops > 0) & ~dia_mask
     else:
         direct_mask = torch.zeros(m, dtype=torch.bool, device=dev)
-    stream_mask = (row_ops > 0) & ~direct_mask
+    stream_mask = (row_ops > 0) & ~direct_mask & ~dia_mask
     (rows_sorted, e, q_sorted, el, ops_sorted, hist,
      tight_pack) = _plan_rows_impl(row_ops, stream_mask, direct_mask,
                                    min_q=min_q, m=m, w0=w0, w_cap=w_cap)
@@ -335,15 +420,11 @@ def plan_device_stream(a_indptr, a_indices, a_data32, b_indptr, b_indices,
     gate = _gate_scalars(a_indptr, a_indices, b_indptr, b_indices, row_ops,
                          row_ops_f, a_len, m=m)
     n_live = torch.sum(torch.where(stream_mask, a_len, 0), dtype=I32)
-    # dense-tile entries (all 0) and the per-row DIA band (an empty band,
-    # [1, 0, 1, 0, 0]), made on the device: no host-to-device copy
-    fixed = torch.zeros(5, dtype=I32, device=dev)
-    dia_pack = torch.zeros(5, dtype=I32, device=dev)
-    dia_pack[0:4:2] = 1
+    fixed = torch.zeros(5, dtype=I32, device=dev)   # dense-tile entries
     pack = torch.cat([hist, fixed, gate, dia_pack,
                       torch.stack([n_live, torch.zeros_like(n_live)]),
                       tight_pack])
-    return rows_sorted, e, q_sorted, el, ops_sorted, nnz_init, pack
+    return rows_sorted, e, q_sorted, el, ops_sorted, nnz_init, pack, dia_mask
 
 
 def _gate_scalars(a_indptr, a_indices, b_indptr, b_indices, row_ops,

@@ -40,6 +40,45 @@ def make_banded(n=65536, half_band=16, seed=3) -> HostCSR:
     return HostCSR.from_scipy(mat)
 
 
+def make_mixed(n=65536, half_band=16, n_out=1024, out_nnz=64,
+               seed=13) -> HostCSR:
+    """Banded matrix plus a clustered block of outlier rows (the first
+    n_out) holding out_nnz random columns each (bench config 1b:
+    ``make_mixed()``): the outliers break the whole-matrix DIA gate, so
+    the per-row DIA split takes the banded bulk and the stream the rest.
+    float64 values."""
+    import scipy.sparse as sp
+
+    rs = np.random.RandomState(seed)
+    offs = list(range(-half_band, half_band + 1))
+    band = sp.diags(
+        [rs.standard_normal(n - abs(o)) for o in offs], offs,
+        shape=(n, n), format="csr")
+    out_rows = np.repeat(np.arange(n_out), out_nnz)
+    extra = sp.csr_matrix(
+        (rs.standard_normal(out_rows.shape[0]),
+         (out_rows, rs.randint(0, n, out_rows.shape[0]))), shape=(n, n))
+    mat = (band + extra).tocsr()
+    mat.sum_duplicates()
+    return HostCSR.from_scipy(mat)
+
+
+def make_stencil27(g=102, seed=19) -> HostCSR:
+    """3-D 27-point stencil on a g^3 grid (the bench's ``stencil27``:
+    ``make_stencil27(102)``, 1,061,208 rows): 27 present diagonals spread
+    over a band about 2 g^2 wide, the sparse-DIA class. float64 values."""
+    import scipy.sparse as sp
+
+    rs = np.random.RandomState(seed)
+    n = g ** 3
+    offs = sorted(dz * g * g + dy * g + dx
+                  for dz in (-1, 0, 1) for dy in (-1, 0, 1)
+                  for dx in (-1, 0, 1))
+    mat = sp.diags([rs.standard_normal(n - abs(o)) for o in offs], offs,
+                   shape=(n, n), format="csr")
+    return HostCSR.from_scipy(mat)
+
+
 def make_giant_row(mg=40000, NH=5000, HN=10000, seed=17) -> HostCSR:
     """The bench's giant-row matrix (``bench.py`` ``giant_row_5e7_products
     _AxA``), whose defaults it gives exactly; the bench's offsets 10000,

@@ -350,3 +350,56 @@ def test_spgemm_on_card_matches_oracle(cuda_device, kw):
     r = pt.compare_csr(pt.oracle_spgemm(h, h), C, compare_data=True,
                        rel_tol=2e-3)
     assert r.ok, r.message
+
+
+def _dia_case(case):
+    """(matrix, dtype, config) of one diagonal-plane route."""
+    from speck_tpu_torch.utils.generators import make_mixed, make_stencil27
+
+    if case == "dia":
+        return make_banded(3000, half_band=4, seed=3), torch.float32, {}
+    if case == "sdia":
+        return (make_stencil27(12, seed=19), torch.float32,
+                dict(host_analysis_max_nnz=16))
+    if case == "fp64":
+        return make_banded(2000, half_band=3, seed=9), torch.float64, {}
+    return make_mixed(4096, 4, 48, 12, seed=13), torch.float32, {}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["dia", "sdia", "fp64", "dia_rows"])
+@pytest.mark.parametrize("new_values", [False, True])
+def test_dia_routes_on_card_match_the_cpu(cuda_device, case, new_values):
+    """Each diagonal-plane route on the card against the port on the CPU:
+    the same route, structure equal, values within rtol 1e-5 (float32) or
+    1e-12 (float64); with new values through plan reuse too."""
+    h, dtype, kw = _dia_case(case)
+    cfg = pt.SpgemmConfig(**kw)
+    out = []
+    for dev in (cuda_device, "cpu"):
+        A = pt.device_put_csr(h, dtype, dev)
+        plan = pt.plan_spgemm(A, A, cfg)
+        if new_values:
+            h2 = pt.HostCSR.from_parts(h.rows, h.cols, h.row_offsets,
+                                       h.col_ids, h.data * -1.5 + 0.125)
+            A2 = pt.device_put_csr(h2, dtype, dev)
+            C = plan.execute(A2, A2)
+        else:
+            C = plan.execute()
+        out.append((plan, pt.device_get_csr(C)))
+    (pc, cc), (pp, cp_) = out
+    if case == "dia_rows":
+        assert pc.dia is None and pc.dia_rows is not None
+        assert pp.dia_rows is not None
+        assert torch.equal(pc.dia_rows.present.cpu(), pp.dia_rows.present)
+    else:
+        assert pc.dia is not None and pp.dia is not None
+        assert (pc.dia.off_a is not None) == (case == "sdia")
+        assert pc.dia.uniform == pp.dia.uniform
+        assert torch.equal(pc.dia.present.cpu(), pp.dia.present)
+    np.testing.assert_array_equal(cc.row_offsets, cp_.row_offsets)
+    np.testing.assert_array_equal(cc.col_ids, cp_.col_ids)
+    assert cc.data.dtype == cp_.data.dtype
+    tol = (dict(rtol=1e-12, atol=1e-13) if dtype == torch.float64
+           else dict(rtol=1e-5, atol=1e-6))
+    np.testing.assert_allclose(cc.data, cp_.data, **tol)

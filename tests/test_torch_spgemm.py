@@ -157,17 +157,24 @@ def test_float64_raises():
 
 
 def test_banded_input_raises_where_dia_would_run():
-    """A banded matrix passes the reference's DIA gate: the port raises
-    instead of taking a route it does not have."""
+    """A banded matrix passes the reference's DIA gate: the port takes the
+    same route (it raised here before the DIA family was ported), with
+    equal plan fields and output, under the default configuration."""
     n = 400
     mat = sp.diags([np.ones(n - abs(o)) for o in range(-3, 4)],
                    list(range(-3, 4)), shape=(n, n), format="csr")
     h = st.HostCSR.from_scipy(mat)
     Aj = st.device_put_csr(h)
-    assert st.plan_spgemm(Aj, Aj).dia is not None   # the reference's route
+    pj = st.plan_spgemm(Aj, Aj)
+    assert pj.dia is not None   # the reference's route
     At = pt.device_put_csr(pt.HostCSR.from_host(h), device="cpu")
-    with pytest.raises(NotImplementedError, match="DIA"):
-        pt.spgemm(At, At)
+    ptp = pt.plan_spgemm(At, At)
+    assert ptp.dia is not None and ptp.dia.off_a is None
+    for f in ("span_a", "span_b", "span_c", "dmin_a", "dmin_b", "uniform"):
+        assert getattr(ptp.dia, f) == getattr(pj.dia, f), f
+    Cj = st.device_get_csr(pj.execute())
+    Ct = pt.device_get_csr(pt.spgemm(At, At))
+    _assert_matches(h, Cj, Ct)
 
 
 @pytest.mark.parametrize("knob", [dict(enable_accum=True),
@@ -193,6 +200,13 @@ def test_port_imports_no_jax():
         " enable_sdia=False, dia_rows=False)\n"
         "C = pt.device_get_csr(pt.spgemm(A, A, cfg))\n"
         "assert pt.compare_csr(pt.oracle_spgemm(h, h), C).ok\n"
+        "from speck_tpu_torch.utils.generators import make_banded\n"
+        "hb = make_banded(300, half_band=3, seed=1)\n"
+        "B = pt.device_put_csr(hb, device='cpu')\n"
+        "assert pt.plan_spgemm(B, B).dia is not None\n"
+        "C = pt.device_get_csr(pt.spgemm(B, B))\n"
+        "assert pt.compare_csr(pt.oracle_spgemm(hb, hb), C,"
+        " compare_data=True, rel_tol=2e-3).ok\n"
         "import speck_tpu_torch.probes.expand_microbench\n"
         "import speck_tpu_torch.probes.gather_microbench2\n"
         "from speck_tpu_torch.entry import _example_matrices, entry\n"
