@@ -4,8 +4,9 @@ hold each against its plain torch version, then drive the product-stream
 SpGEMM once at bench config 3's size and on the bench's giant row, the
 fixed-cap ESC (esc_fixed) at bench config 1's size, the diagonal-plane
 routes of spgemm on bench configs 1, 1b, the 27-point stencil and the fp64
-banded config, and the gather probes, and check each against its
-reference.
+banded config, the general stream (a 2^20-row graph with the two-key
+chunk sort, float64, row blocks, the dense-tile gate counted on the
+device) and the gather probes, and check each against its reference.
 
     python3 chip_smoke.py
 
@@ -13,12 +14,13 @@ Phases (any failure raises and exits non-zero; nothing falls back):
   1. a CUDA card must be present; print its name and power limit;
   2. build the kernels from csrc/ with nvcc (sm_90a), print the seconds;
   3. each kernel against its plain version at the main path's shapes
-     (K1 stream_contract at (512, 8192) with a rid plane and at
-     (4, 65536) with a per-row rid; K2 row_sort at (512, 8192) with 1 and
-     3 payloads and at (2, 2^20)): masks equal, K2's keys and payloads
-     equal to the stable plain sort's bit for bit, K1's sums within
-     atol 1e-6 + rtol 1e-5 of the run prefix's sum of magnitudes (fp32
-     sums in another order) and two K1 launches bit-identical; times from
+     (K1 stream_contract at (512, 8192) with a rid plane, in float32 and
+     in double, and at (4, 65536) with a per-row rid; K2 row_sort at
+     (512, 8192) with 1 and 3 payloads and at (2, 2^20)): masks equal,
+     K2's keys and payloads equal to the stable plain sort's bit for bit,
+     K1's sums within atol 1e-6 + rtol 1e-5 (float32) or rtol 1e-12
+     (double) of the run prefix's sum of magnitudes (sums in another
+     order) and two K1 launches bit-identical; times from
      CUDA events around one call, medians of 5 in turns (K1 and its plain
      version; K2, its plain version and torch.sort + gather);
   4. spgemm on make_powerlaw(262144, seed=7), A·A, f32, default
@@ -36,8 +38,9 @@ Phases (any failure raises and exits non-zero; nothing falls back):
      the oracle (structure exact, values rel_tol 2e-3); cold call, median
      of 3 warm calls, GFLOPS;
   6. K3 contract_runs against its plain version at (65536, 2048)
-     (esc_fixed's rectangle on config 1) and (64, 256) (the entry's), and
-     K2 at esc_fixed's sort shapes, checked and timed as in phase 3;
+     (esc_fixed's rectangle on config 1) in float32 and double and at
+     (64, 256) (the entry's), two launches bit-identical, and K2 at
+     esc_fixed's sort shapes, checked and timed as in phase 3;
   7. esc_fixed on make_banded(65536, 16, seed=3) (bench config 1), A·A,
      f32, cap = 2048 by the fixed-cap rule: launch counts of K3 and K2 in
      that call > 0, K2's launches by shape; result against the oracle
@@ -55,10 +58,24 @@ Phases (any failure raises and exits non-zero; nothing falls back):
      Each against the full oracle (structure exact, values rel_tol 2e-3,
      fp64 1e-9); the cold call, the median of 3 warm calls, GFLOPS,
      nnz(C)/s, peak memory, synchronizing calls in one warm call;
-  7b. K1 at every shape phases 4, 4b and 7c launched it at (and the
+  7d. (after 7c, before 7b) the general-stream cells (GENERAL_CELLS),
+     each through spgemm against the oracle (structure exact, values
+     rel_tol 2e-3 in float32, 1e-9 in float64 with float64 values out):
+     the 2^20-row graph (make_powerlaw(1 << 20, seed=11), f32:
+     pack_bits == 0 and wide rows), config 3 in float64 (the stream, K1
+     in double only), config 1b in float64 (the per-row split with stream
+     rows), config 3 under block_products = 2^24 (plan_spgemm raises
+     ProductOverflow; at least 4 row blocks, printed; C's structure equal
+     to the unblocked call's), config 3 under host_analysis=False (the
+     stream, n_elig == 0 counted on the device and printed, nnz(C) equal
+     to the default call's); then esc_fixed on config 1 in float64 (K3 in
+     double). Each cell: the cold call, the median of 3 warm calls,
+     GFLOPS, nnz(C)/s, peak memory, synchronizing calls, and K1's, K2's
+     and K3's launches by shape and dtype;
+  7b. K1 at every shape phases 4, 4b, 7c and 7d launched it at (and the
      shapes of probes/contract_profile.py's table), K2 at every other shape
-     phases 4, 4b, 7 and 7c launched it at, checked and timed as in phase
-     3, each beside its bound;
+     phases 4, 4b, 7, 7c and 7d launched it at, checked and timed as in
+     phase 3, each beside its bound;
   8. the gather probes' mains (python -m speck_tpu_torch.probes...) with
      their launch counts, then sublane_gather (N = 2^22, S = 2048) and
      run_copy (G = 512, K = 64, L = 128 over a 2^21 source) against their
@@ -68,9 +85,10 @@ Phases (any failure raises and exits non-zero; nothing falls back):
      and K3 at each shape timed before, their device time (the kernel and
      the clear of its scratch, medians of cp.REPS calls) beside the bound;
      one warm giant-row call: its device time, K1's and K2's share of it
-     and its longest kernels; one warm call of each phase 7c cell: its
-     device time, idle share (1 - device / host time) and five longest
-     kernels; then the probes of phase 8 in turns once
+     and its longest kernels; one warm call of each phase 7c cell and of
+     the 2^20 graph and config 3 in float64 (7d): its device time, idle
+     share (1 - device / host time) and five longest kernels; then the
+     probes of phase 8 in turns once
      more, to show what a profiler session before them changes, and each
      probe's and its library call's device time (medians of 5 profiled
      calls).
@@ -79,7 +97,9 @@ outputs written once) over 3.35 TB/s, the H100 SXM's device memory rate
 (NVIDIA's data sheet); every kernel here is bound by bytes. library_ms is
 one PyTorch call computing the same function, where there is one; the port
 never calls it. Launches in the kernels' line: K1's over phases 4, 4b and
-7c (config 1b), K2's over 4, 4b, 7 and 7c. The line's ms is the CUDA-event
+7c (config 1b), its double variant's over the float64 cells of 7d, K2's
+over 4, 4b, 7, 7c and 7d, K3's over 7 and its double variant's over 7d's
+esc_fixed. The line's ms is the CUDA-event
 time around one wrapper call, as plain_ms is; device_ms is the device time by
 torch.profiler from phase 9 (K1, K3 and the probes; null for K2): where a
 call is shorter on the card than its wrapper's host time, the event time
@@ -106,6 +126,14 @@ HBM_BYTES_PER_MS = 3.35e12 / 1e3
 PROBE_REPS = 61
 
 
+T0 = time.perf_counter()
+
+
+def phase(name):
+    """A line with the seconds since the script started, at each phase."""
+    print(f"[{time.perf_counter() - T0:.1f} s] phase {name}", flush=True)
+
+
 def bound_ms(nbytes):
     return nbytes / HBM_BYTES_PER_MS
 
@@ -122,28 +150,35 @@ def check(cond, what):
         raise RuntimeError(f"chip_smoke: {what}")
 
 
-def contract_case(gen, R, W, kind, reps=5):
+def bits(x):
+    """A float tensor's bits, for bit-for-bit comparisons."""
+    return x.view(torch.int64 if x.dtype == torch.float64 else torch.int32)
+
+
+def contract_case(gen, R, W, kind, dtype="float32", reps=5):
     """K1 against contract_plain at (R, W) with a rid plane or a per-row rid
-    (kind "plane" or "row"): masks equal, sums within atol 1e-6 + rtol 1e-5
-    of the run prefix's sum of magnitudes (fp32 sums in another order), a
-    second launch bit-identical to the first; then the kernel and the plain
+    (kind "plane" or "row") and float32 or float64 values: masks equal,
+    sums within atol 1e-6 + rtol 1e-5 (float32) or rtol 1e-12 (float64) of
+    the run prefix's sum of magnitudes (sums in another order), a second
+    launch bit-identical to the first; then the kernel and the plain
     version timed in turns with CUDA events around one call, medians of
     reps."""
     from speck_tpu_torch.ops import contract
 
-    rid, col, val = cp.contract_inputs(gen, R, W, kind)
+    rid, col, val = cp.contract_inputs(gen, R, W, kind, dtype)
     last_k, sum_k = contract.stream_contract(rid, col, val, cp.N_COLS)
     last_2, sum_2 = contract.stream_contract(rid, col, val, cp.N_COLS)
     last_p, sum_p = contract.contract_plain(rid, col, val, cp.N_COLS)
     torch.cuda.synchronize()
-    check(torch.equal(last_k, last_p), f"K1 mask differs at {(R, W, kind)}")
+    shape = (R, W, kind, dtype)
+    check(torch.equal(last_k, last_p), f"K1 mask differs at {shape}")
     mag = contract.contract_plain(rid, col, val.abs(), cp.N_COLS)[1]
     err = float((sum_k - sum_p).abs().max())
     check(cp.sums_close(sum_k, sum_p, mag),
-          f"K1 sums differ at {(R, W, kind)}: max abs {err}")
-    check(torch.equal(last_k, last_2) and torch.equal(
-        sum_k.view(torch.int32), sum_2.view(torch.int32)),
-        f"two K1 launches differ at {(R, W, kind)}")
+          f"K1 sums differ at {shape}: max abs {err}")
+    check(torch.equal(last_k, last_2) and torch.equal(bits(sum_k),
+                                                      bits(sum_2)),
+          f"two K1 launches differ at {shape}")
     del last_k, sum_k, last_2, sum_2, last_p, sum_p, mag
 
     t = cuda_ms_turns(
@@ -154,11 +189,12 @@ def contract_case(gen, R, W, kind, reps=5):
             statistics.median(t["plain"]))
 
 
-def contract_line(R, W, kind, res, smi, where=""):
+def contract_line(R, W, kind, dtype, res, smi, where=""):
     err, ms, pms = res
-    print(f"K1 stream_contract ({R}, {W}) rid={kind}{where}: max_abs_err "
-          f"{err:.3g}, kernel {ms:.4f} ms, plain {pms:.4f} ms, bound "
-          f"{bound_ms(cp.k1_bytes(R, W, kind)):.4f} ms [{smi}]", flush=True)
+    print(f"K1 stream_contract ({R}, {W}) rid={kind} {dtype}{where}: "
+          f"max_abs_err {err:.3g}, kernel {ms:.4f} ms, plain {pms:.4f} ms, "
+          f"bound {bound_ms(cp.k1_bytes(R, W, kind, dtype)):.4f} ms [{smi}]",
+          flush=True)
 
 
 def device_line(what, d, nbytes, ev_ms, smi):
@@ -172,18 +208,26 @@ def device_line(what, d, nbytes, ev_ms, smi):
           f"{ev_ms:.4f} ms [{smi}]", flush=True)
 
 
-def contract_runs_case(gen, R, W):
+def contract_runs_case(gen, R, W, dtype="float32"):
+    """K3 against contract_runs_plain, checked as K1 in contract_case, two
+    launches bit-identical; the kernel and the plain version timed."""
     from speck_tpu_torch.ops import contract
 
-    col, val = cp.runs_inputs(gen, R, W)
+    col, val = cp.runs_inputs(gen, R, W, dtype)
     last_k, sum_k = contract.contract_runs(col, val, cp.N_COLS)
+    last_2, sum_2 = contract.contract_runs(col, val, cp.N_COLS)
     last_p, sum_p = contract.contract_runs_plain(col, val, cp.N_COLS)
     torch.cuda.synchronize()
-    check(torch.equal(last_k, last_p), f"K3 mask differs at {(R, W)}")
+    shape = (R, W, dtype)
+    check(torch.equal(last_k, last_p), f"K3 mask differs at {shape}")
     mag = contract.contract_runs_plain(col, val.abs(), cp.N_COLS)[1]
     err = float((sum_k - sum_p).abs().max())
     check(cp.sums_close(sum_k, sum_p, mag),
-          f"K3 sums differ at {(R, W)}: max abs {err}")
+          f"K3 sums differ at {shape}: max abs {err}")
+    check(torch.equal(last_k, last_2) and torch.equal(bits(sum_k),
+                                                      bits(sum_2)),
+          f"two K3 launches differ at {shape}")
+    del last_k, sum_k, last_2, sum_2, last_p, sum_p, mag
 
     ms = cuda_ms(lambda: contract.contract_runs(col, val, cp.N_COLS))
     plain_ms = cuda_ms(lambda: contract.contract_runs_plain(col, val,
@@ -246,8 +290,28 @@ def reset_counts():
     contract.LAUNCHES = 0
     contract.LAUNCH_SHAPES.clear()
     contract.RUNS_LAUNCHES = 0
+    contract.RUNS_LAUNCH_SHAPES.clear()
     bitonic.LAUNCHES = 0
     bitonic.LAUNCH_SHAPES.clear()
+
+
+# host matrices and their oracles, made once for the cells that share them
+_HOST = {}
+
+
+def host_and_oracle(pt, gen_call):
+    """(h, its A·A oracle, generation s, oracle s) of a generator call,
+    made the first time it is asked for."""
+    from speck_tpu_torch.utils import generators
+
+    if gen_call not in _HOST:
+        fn_name, args = gen_call
+        t0 = time.perf_counter()
+        h = getattr(generators, fn_name)(*args)
+        t1 = time.perf_counter()
+        ref = pt.oracle_spgemm(h, h)
+        _HOST[gen_call] = (h, ref, t1 - t0, time.perf_counter() - t1)
+    return _HOST[gen_call]
 
 
 def sync_count(fn):
@@ -275,13 +339,30 @@ def timed_ms(fn):
     return (time.perf_counter() - t0) * 1e3, out
 
 
+CONFIG1 = ("make_banded", (65536, 16, 3))
+CONFIG1B = ("make_mixed", ())
+CONFIG3 = ("make_powerlaw", (262144, 12, 2.2, 7))
+
 # the diagonal-plane cells (phase 7c): name, generator call, value dtype,
 # rel_tol against the oracle
 DIA_CELLS = [
-    ("config 1", ("make_banded", (65536, 16, 3)), torch.float32, 2e-3),
+    ("config 1", CONFIG1, torch.float32, 2e-3),
     ("stencil27", ("make_stencil27", (102, 19)), torch.float32, 2e-3),
     ("fp64", ("make_banded", (16384, 8, 9)), torch.float64, 1e-9),
-    ("config 1b", ("make_mixed", ()), torch.float32, 2e-3),
+    ("config 1b", CONFIG1B, torch.float32, 2e-3),
+]
+
+# the general-stream cells (phase 7d): name, generator call, value dtype,
+# rel_tol against the oracle, SpgemmConfig keywords
+GENERAL_CELLS = [
+    ("graph 2^20", ("make_powerlaw", (1 << 20, 12, 2.2, 11)), torch.float32,
+     2e-3, {}),
+    ("config 3 fp64", CONFIG3, torch.float64, 1e-9, {}),
+    ("config 1b fp64", CONFIG1B, torch.float64, 1e-9, {}),
+    ("config 3 blocked", CONFIG3, torch.float32, 2e-3,
+     {"block_products": 1 << 24}),
+    ("config 3 host_analysis off", CONFIG3, torch.float32, 2e-3,
+     {"host_analysis": False}),
 ]
 
 
@@ -291,12 +372,8 @@ def dia_cell(pt, smi, name, gen_call, dtype, rel_tol):
     against the oracle, the cold call, the median of 3 warm calls, GFLOPS,
     nnz(C)/s, peak memory, synchronizing calls; returns the numbers."""
     from speck_tpu_torch.ops import bitonic, contract
-    from speck_tpu_torch.utils import generators
 
-    fn_name, args = gen_call
-    t0 = time.perf_counter()
-    h = getattr(generators, fn_name)(*args)
-    t_gen = time.perf_counter() - t0
+    h, ref, t_gen, t_ref = host_and_oracle(pt, gen_call)
     cfg = pt.SpgemmConfig()
     A = pt.device_put_csr(h, dtype, "cuda")
     torch.cuda.synchronize()
@@ -343,13 +420,11 @@ def dia_cell(pt, smi, name, gen_call, dtype, rel_tol):
     Ch = pt.device_get_csr(C)
     check(bool(np.isfinite(Ch.data).all()), f"non-finite values in {name}")
     t0 = time.perf_counter()
-    ref = pt.oracle_spgemm(h, h)
     r = pt.compare_csr(ref, Ch)
     check(r.ok, f"{name} structure differs from the oracle: {r.message}")
     r = pt.compare_csr(ref, Ch, compare_data=True, rel_tol=rel_tol)
     check(r.ok, f"{name} values differ from the oracle: {r.message}")
-    del ref
-    t_ref = time.perf_counter() - t0
+    t_ref += time.perf_counter() - t0
     del C, Ch
     warm = []
     for _ in range(3):
@@ -393,10 +468,10 @@ def dia_cell(pt, smi, name, gen_call, dtype, rel_tol):
 
 
 def dia_profile(pt, cell, smi):
-    """Phase 9, one DIA cell: the matrix on the card again, one call, then
-    one warm call under torch.profiler: its device time, idle share and
-    five longest kernels; returns the line."""
-    cfg = pt.SpgemmConfig()
+    """Phase 9, one DIA or general cell: the matrix on the card again, one
+    call, then one warm call under torch.profiler: its device time, idle
+    share and five longest kernels; returns the line."""
+    cfg = cell.get("cfg") or pt.SpgemmConfig()
     A = pt.device_put_csr(cell.pop("h"), cell["dtype"], "cuda")
     pt.spgemm(A, A, cfg)
     host_ms, dev_ms, kernels = profile_call(lambda: pt.spgemm(A, A, cfg))
@@ -412,21 +487,155 @@ def dia_profile(pt, cell, smi):
     return line
 
 
-def esc_phase(pt, smi):
-    """Phase 7: esc_fixed on bench config 1 against the oracle; returns the
-    launch counts of that call, the summary line and the warm time."""
+def general_cell(pt, smi, name, gen_call, dtype, rel_tol, kw):
+    """Phase 7d, one cell: spgemm of the matrix with itself through the
+    entry points under SpgemmConfig(**kw): the route asserted (the table
+    in the module's docstring), the result against the oracle (structure
+    exact, values within rel_tol, C in the input's dtype), the cold call,
+    the median of 3 warm calls, GFLOPS, nnz(C)/s, peak memory,
+    synchronizing calls, and K1's, K2's and K3's launches in the cold call
+    by shape and dtype; returns the numbers."""
+    import importlib
+
+    from speck_tpu_torch.ops import bitonic, contract
+
+    sp_mod = importlib.import_module("speck_tpu_torch.ops.spgemm")
+    h, ref, t_gen, t_ref = host_and_oracle(pt, gen_call)
+    cfg = pt.SpgemmConfig(**kw)
+    A = pt.device_put_csr(h, dtype, "cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base_mem = torch.cuda.memory_allocated()
+    blocked = "block_products" in kw
+    plan, blocks = None, []
+    if blocked:
+        try:
+            pt.plan_spgemm(A, A, cfg)
+            raised = False
+        except pt.ProductOverflow:
+            raised = True
+        check(raised, f"{name}: plan_spgemm did not raise ProductOverflow")
+        real = sp_mod.plan_spgemm
+
+        def counting(Ab, Bb, c=None, t=None):  # the block plans, by rows
+            blocks.append(Ab.shape[0])
+            return real(Ab, Bb, c, t)
+
+    reset_counts()
+
+    def cold():
+        nonlocal plan
+        if blocked:
+            sp_mod.plan_spgemm = counting
+            try:
+                return pt.spgemm(A, A, cfg)
+            finally:
+                sp_mod.plan_spgemm = real
+        plan = pt.plan_spgemm(A, A, cfg)
+        return plan.execute()
+
+    cold_ms, C = timed_ms(cold)
+    peak = torch.cuda.max_memory_allocated()
+    shapes = (dict(contract.LAUNCH_SHAPES), dict(bitonic.LAUNCH_SHAPES),
+              dict(contract.RUNS_LAUNCH_SHAPES))
+    launches = {"stream_contract": contract.LAUNCHES,
+                "row_sort": bitonic.LAUNCHES}
+    check(all(v > 0 for v in launches.values()),
+          f"a kernel was not launched on {name}: {launches}")
+    dname = str(dtype).replace("torch.", "")
+    check(set(k[3] for k in shapes[0]) == {dname},
+          f"{name}: K1 did not run in {dname} alone: {shapes[0]}")
+    check(contract.RUNS_LAUNCHES == 0, f"{name} launched K3")
+    if blocked:
+        n_blocks = len(blocks) - 1   # the first plan is the whole call's
+        C0 = pt.spgemm(A, A, pt.SpgemmConfig())
+        check(n_blocks >= 4 and sum(blocks[1:]) == h.rows,
+              f"{name}: {n_blocks} row blocks {blocks[1:]}")
+        check(C.nnz == C0.nnz and torch.equal(C.indptr, C0.indptr)
+              and torch.equal(C.indices[:C.nnz], C0.indices[:C0.nnz]),
+              f"{name}: C's structure differs from the unblocked call's")
+        del C0
+        route = (f"{n_blocks} row blocks of {blocks[1:]} rows under "
+                 f"block_products {cfg.block_products}; plan_spgemm raised "
+                 "ProductOverflow; C's structure equals the unblocked "
+                 "call's")
+        nnz = C.nnz
+    else:
+        ss = plan.stream
+        check(plan.dia is None and ss is not None,
+              f"{name} did not take the stream")
+        lo = ss.layout
+        nnz = plan.nnz
+        route = (f"stream: W={lo.W} G={lo.G} chunks={lo.n_chunks} "
+                 f"n_wide={lo.n_wide} r_wide={lo.r_wide} fused={ss.fused} "
+                 f"pack_bits={ss.pack_bits} stream rows {lo.n_stream_rows}")
+        if name == "graph 2^20":
+            check(ss.pack_bits == 0 and lo.n_wide > 0,
+                  f"{name}: pack_bits {ss.pack_bits}, {lo.n_wide} wide rows")
+        if name == "config 1b fp64":
+            check(plan.dia_rows is not None and lo.n_stream_rows > 0,
+                  f"{name} did not take the per-row split beside the stream")
+            route += (f"; per-row DIA split: spans {plan.dia_rows.span_a}, "
+                      f"{plan.dia_rows.span_b}, {plan.dia_rows.span_c}")
+        if name == "config 3 host_analysis off":
+            n0 = pt.plan_spgemm(A, A, pt.SpgemmConfig()).nnz
+            check(ss.dense_elig == 0 and nnz == n0,
+                  f"{name}: n_elig {ss.dense_elig}, nnz {nnz} against {n0}")
+            route += (f"; dense tiles counted on the device: n_elig == "
+                      f"{ss.dense_elig}; nnz(C) equals the default call's")
+    check(C.data.dtype == dtype, f"{name}: C holds {C.data.dtype} values")
+    Ch = pt.device_get_csr(C)
+    check(bool(np.isfinite(Ch.data).all()), f"non-finite values in {name}")
+    t0 = time.perf_counter()
+    r = pt.compare_csr(ref, Ch)
+    check(r.ok, f"{name} structure differs from the oracle: {r.message}")
+    r = pt.compare_csr(ref, Ch, compare_data=True, rel_tol=rel_tol)
+    check(r.ok, f"{name} values differ from the oracle: {r.message}")
+    t_ref += time.perf_counter() - t0
+    del C, Ch, plan
+    warm = []
+    for _ in range(3):
+        ms, Cw = timed_ms(lambda: pt.spgemm(A, A, cfg))
+        check(Cw.nnz == nnz, f"{name}: warm call nnz differs")
+        warm.append(ms)
+        del Cw
+    warm_ms = statistics.median(warm)
+    syncs = sync_count(lambda: pt.spgemm(A, A, cfg))
+    products = products_of(h)
+    line = (f"{name} A*A {dname} [{smi}]: m={h.rows} nnz(A)={h.nnz} "
+            f"nnz(C)={nnz} products={products}; {route}; cold "
+            f"{cold_ms:.1f} ms, warm median of 3 {warm_ms:.2f} ms (all "
+            f"{[round(w, 2) for w in warm]}), GFLOPS "
+            f"{2 * products / (warm_ms * 1e6):.3f}, nnz(C)/s "
+            f"{nnz / (warm_ms * 1e-3):.4g}, peak memory "
+            f"{peak / 2**30:.2f} GiB ({(peak - base_mem) / 2**30:.2f} GiB "
+            f"above the inputs), synchronizing calls {syncs}; launches in "
+            f"the cold call {launches}; K1 by (R, W, rid, dtype) "
+            f"{dict(sorted(shapes[0].items()))}; K2 by (R, W, payloads) "
+            f"{dict(sorted(shapes[1].items()))}; generated in {t_gen:.2f} "
+            f"s, oracle and its checks {t_ref:.2f} s")
+    print(line, flush=True)
+    del A
+    torch.cuda.empty_cache()
+    return {"name": name, "warm_ms": warm_ms, "cold_ms": cold_ms,
+            "launches": launches, "shapes": shapes, "h": h, "dtype": dtype,
+            "cfg": cfg, "line": line}
+
+
+def esc_phase(pt, smi, dtype="float32"):
+    """Phase 7 (float32, then entry()) and 7d (float64): esc_fixed on bench
+    config 1 against the oracle; returns the launch counts of that call,
+    K2's launches by shape, the summary line and the warm time."""
     from speck_tpu_torch import entry as tentry
     from speck_tpu_torch.ops import bitonic, contract
     from speck_tpu_torch.ops.esc import esc_fixed
     from speck_tpu_torch.parallel import padded_to_host_csr
-    from speck_tpu_torch.utils.generators import make_banded
 
-    h = make_banded(65536, half_band=16, seed=3)
-    ref = pt.oracle_spgemm(h, h)
+    h, ref, _, _ = host_and_oracle(pt, CONFIG1)
     cap = tentry.fixed_cap(h, h)
     check(cap == 2048, f"config 1 fixed cap is {cap}, not 2048")
     products = products_of(h)
-    args = tentry.esc_args(h, h, "cuda")
+    args = tentry.esc_args(h, h, "cuda", np.dtype(dtype))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     base_mem = torch.cuda.memory_allocated()
@@ -438,14 +647,20 @@ def esc_phase(pt, smi):
     launches = {"contract_runs": contract.RUNS_LAUNCHES,
                 "row_sort": bitonic.LAUNCHES}
     shapes = dict(bitonic.LAUNCH_SHAPES)
+    k3_shapes = dict(contract.RUNS_LAUNCH_SHAPES)
     peak = torch.cuda.max_memory_allocated()
     check(all(v > 0 for v in launches.values()),
           f"a kernel was not launched on the esc_fixed path: {launches}")
     check(contract.LAUNCHES == 0, "the esc_fixed path launched K1")
+    check(set(k[2] for k in k3_shapes) == {dtype},
+          f"K3 did not run in {dtype} on esc_fixed: {k3_shapes}")
+    check(out[2].dtype == getattr(torch, dtype),
+          f"esc_fixed returned {out[2].dtype} values")
     got = padded_to_host_csr(*out, h.rows, h.cols)
     r = pt.compare_csr(ref, got)
     check(r.ok, f"esc_fixed structure differs from the oracle: {r.message}")
-    r = pt.compare_csr(ref, got, compare_data=True, rel_tol=2e-3)
+    r = pt.compare_csr(ref, got, compare_data=True,
+                       rel_tol=1e-9 if dtype == "float64" else 2e-3)
     check(r.ok, f"esc_fixed values differ from the oracle: {r.message}")
     check(bool(np.isfinite(got.data).all()), "non-finite values in C")
     del out
@@ -457,15 +672,20 @@ def esc_phase(pt, smi):
         torch.cuda.synchronize()
         warm.append((time.perf_counter() - t0) * 1e3)
     warm_ms = statistics.median(warm)
-    line = (f"esc_fixed config 1 A*A f32 cap {cap} [{smi}]: nnz(C)="
+    syncs = sync_count(lambda: esc_fixed(*args, cap=cap, n_cols=h.cols))
+    line = (f"esc_fixed config 1 A*A {dtype} cap {cap} [{smi}]: nnz(C)="
             f"{got.nnz} products={products} cold {cold_ms:.1f} ms, warm "
             f"median of 3 {warm_ms:.2f} ms (all "
             f"{[round(w, 2) for w in warm]}), GFLOPS "
-            f"{2 * products / (warm_ms * 1e6):.3f}, peak memory "
+            f"{2 * products / (warm_ms * 1e6):.3f}, nnz(C)/s "
+            f"{got.nnz / (warm_ms * 1e-3):.4g}, peak memory "
             f"{peak / 2**30:.2f} GiB ({(peak - base_mem) / 2**30:.2f} GiB "
-            f"above the inputs); launches {launches}")
+            f"above the inputs), synchronizing calls {syncs}; launches "
+            f"{launches}, K3 by (R, W, dtype) {k3_shapes}")
     print(line, flush=True)
-    shape_histogram("one esc_fixed call on config 1", shapes)
+    shape_histogram(f"one esc_fixed call on config 1 ({dtype})", shapes)
+    if dtype == "float64":
+        return launches, shapes, line, warm_ms
 
     a, b = tentry._example_matrices()
     fn, eargs = tentry.entry()
@@ -518,7 +738,7 @@ def giant_phase(pt, smi):
           flush=True)
     shape_histogram("the giant-row plan_spgemm + execute", k2_shapes)
     shape_histogram("the giant-row plan_spgemm + execute", k1_shapes, "K1",
-                    "rid")
+                    "rid, dtype")
     check(lo.n_wide > 0 and classes,
           "the giant row planned no wide rows or no finish class")
     Ch = pt.device_get_csr(C)
@@ -665,7 +885,6 @@ def main():
                          "this check needs a CUDA card")
     import speck_tpu_torch as pt
     from speck_tpu_torch.ops import bitonic, build, contract
-    from speck_tpu_torch.utils.generators import make_powerlaw
 
     smi = card()
     kind = torch.cuda.get_device_name(0)
@@ -673,6 +892,7 @@ def main():
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"python {sys.version.split()[0]}", flush=True)
 
+    phase("2")
     # 2. build
     t0 = time.perf_counter()
     lib_path = build.build()
@@ -680,11 +900,14 @@ def main():
     print(f"build: {time.perf_counter() - t0:.2f} s -> {lib_path}",
           flush=True)
 
+    phase("3")
     # 3. kernels against their plain versions
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     k1 = {}
-    for shape in [(512, 8192, "plane"), (4, 65536, "row")]:
+    for shape in [(512, 8192, "plane", "float32"),
+                  (4, 65536, "row", "float32"),
+                  (512, 8192, "plane", "float64")]:
         k1[shape] = contract_case(gen, *shape)
         contract_line(*shape, k1[shape], smi)
     k2 = {}
@@ -692,13 +915,9 @@ def main():
         k2[shape] = sort_case(gen, *shape)
         sort_line(*shape, k2[shape], smi)
 
+    phase("4")
     # 4. the main path at bench config 3's size
-    t0 = time.perf_counter()
-    h = make_powerlaw(262144, seed=7)
-    t_gen = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    ref = pt.oracle_spgemm(h, h)
-    t_ref = time.perf_counter() - t0
+    h, ref, t_gen, t_ref = host_and_oracle(pt, CONFIG3)
     cfg = pt.SpgemmConfig()
     A = pt.device_put_csr(h, torch.float32, "cuda")
     torch.cuda.synchronize()
@@ -723,7 +942,7 @@ def main():
           f"launches {launches}", flush=True)
     shape_histogram("the config 3 plan_spgemm + execute", stream_shapes)
     shape_histogram("the config 3 plan_spgemm + execute", k1_shapes, "K1",
-                    "rid")
+                    "rid, dtype")
     check(all(v > 0 for v in launches.values()),
           f"a kernel was not launched on the main path: {launches}")
     check(lo.n_wide > 0, "config 3 planned no wide rows")
@@ -754,6 +973,7 @@ def main():
     print(f"synchronizing calls in one spgemm: "
           f"{sync_count(lambda: pt.spgemm(A, A, cfg))}", flush=True)
 
+    phase("5")
     # 5. plan reuse with new values (two-phase numeric path)
     h2 = pt.HostCSR.from_parts(h.rows, h.cols, h.row_offsets, h.col_ids,
                                h.data * 2.0 + 0.25)
@@ -772,27 +992,32 @@ def main():
     del A, A2, C, C2, Cw, plan
     torch.cuda.empty_cache()
 
+    phase("4b")
     # 4b. the bench's giant row through spgemm
     giant = giant_phase(pt, smi)
     torch.cuda.empty_cache()
 
+    phase("6")
     # 6. K3, and K2 at esc_fixed's sort shapes
     k3 = {}
-    for R, W in [(65536, 2048), (64, 256)]:
-        k3[(R, W)] = contract_runs_case(gen, R, W)
-        err, ms, pms = k3[(R, W)]
-        print(f"K3 contract_runs ({R}, {W}): max_abs_err {err:.3g}, kernel "
+    for shape in cp.RUNS_SHAPES:
+        k3[shape] = contract_runs_case(gen, *shape)
+        err, ms, pms = k3[shape]
+        print(f"K3 contract_runs {shape}: max_abs_err {err:.3g}, kernel "
               f"{ms:.4f} ms, plain {pms:.4f} ms, bound "
-              f"{bound_ms(13 * R * W):.4f} ms [{smi}]", flush=True)
+              f"{bound_ms(cp.k3_bytes(*shape)):.4f} ms [{smi}]", flush=True)
+        torch.cuda.empty_cache()
     for shape in [(65536, 4096, 2), (65536, 2048, 1)]:
         k2[shape] = sort_case(gen, *shape)
         sort_line(*shape, k2[shape], smi, " (esc_fixed)")
         torch.cuda.empty_cache()
 
+    phase("7")
     # 7. esc_fixed at bench config 1's size
     esc_launches, esc_shapes, esc_line, esc_warm = esc_phase(pt, smi)
     torch.cuda.empty_cache()
 
+    phase("7c")
     # 7c. the diagonal-plane cells through spgemm
     dia_cells = [dia_cell(pt, smi, *c) for c in DIA_CELLS]
     print(f"config 1 warm call: spgemm (DIA) {dia_cells[0]['warm_ms']:.2f} "
@@ -801,28 +1026,42 @@ def main():
     onebee_k1, onebee_k2 = dia_cells[3]["shapes"]
     shape_histogram("the config 1b plan_spgemm + execute", onebee_k2)
     shape_histogram("the config 1b plan_spgemm + execute", onebee_k1, "K1",
-                    "rid")
+                    "rid, dtype")
 
-    # 7b. K1 at every shape phases 4, 4b and 7c launched it at (and the
+    phase("7d")
+    # 7d. the general-stream cells through spgemm, then esc_fixed in float64
+    gen_cells = [general_cell(pt, smi, *c) for c in GENERAL_CELLS]
+    esc64_launches, esc64_shapes, esc64_line, _ = esc_phase(pt, smi,
+                                                            "float64")
+    torch.cuda.empty_cache()
+
+    phase("7b")
+    # 7b. K1 at every shape phases 4, 4b, 7c and 7d launched it at (and the
     # shapes of the probe's table), K2 at every other shape of 4, 4b, 7, 7c
+    # and 7d
     k1_all = (set(k1_shapes) | set(giant["k1_shapes"]) | set(cp.SHAPES)
               | set(onebee_k1))
+    k2_all = (set(stream_shapes) | set(giant["k2_shapes"]) | set(esc_shapes)
+              | set(onebee_k2) | set(esc64_shapes))
+    for cell in gen_cells:
+        k1_all |= set(cell["shapes"][0])
+        k2_all |= set(cell["shapes"][1])
     for shape in sorted(k1_all):
         if shape not in k1:
             k1[shape] = contract_case(gen, *shape)
             contract_line(*shape, k1[shape], smi, " (main-path shape)")
             torch.cuda.empty_cache()
-    k2_all = (set(stream_shapes) | set(giant["k2_shapes"]) | set(esc_shapes)
-              | set(onebee_k2))
     for shape in sorted(k2_all):
         if shape not in k2:
             k2[shape] = sort_case(gen, *shape)
             sort_line(*shape, k2[shape], smi, " (main-path shape)")
             torch.cuda.empty_cache()
 
+    phase("8")
     # 8. the gather probes
     probe_launches, probe_cases, probes = probe_phase(gen, smi)
 
+    phase("9")
     # 9. the profiled phase, after every CUDA-event time of the phases
     # above: K1's and K3's device times, the giant row's profiled call, then
     # the probes in turns once more, to show what a profiler session before
@@ -833,20 +1072,23 @@ def main():
         k1_dev[shape] = cp.kernel_device_ms(
             lambda: contract.stream_contract(rid, col, val, cp.N_COLS))
         device_line(f"K1 stream_contract ({shape[0]}, {shape[1]}) "
-                    f"rid={shape[2]}", k1_dev[shape], cp.k1_bytes(*shape),
-                    k1[shape][1], smi)
+                    f"rid={shape[2]} {shape[3]}", k1_dev[shape],
+                    cp.k1_bytes(*shape), k1[shape][1], smi)
         del rid, col, val
-    for R, W in sorted(k3):
-        col, val = cp.runs_inputs(gen, R, W)
-        k3_dev[(R, W)] = cp.kernel_device_ms(
+    for shape in sorted(k3):
+        col, val = cp.runs_inputs(gen, *shape)
+        k3_dev[shape] = cp.kernel_device_ms(
             lambda: contract.contract_runs(col, val, cp.N_COLS))
-        device_line(f"K3 contract_runs ({R}, {W})", k3_dev[(R, W)],
-                    13 * R * W, k3[(R, W)][1], smi)
+        device_line(f"K3 contract_runs {shape}", k3_dev[shape],
+                    cp.k3_bytes(*shape), k3[shape][1], smi)
         del col, val
         torch.cuda.empty_cache()
     giant_line = giant_profile(pt, giant, smi)
     torch.cuda.empty_cache()
     dia_lines = [dia_profile(pt, cell, smi) for cell in dia_cells]
+    # one profiled warm call of the 2^20 graph and of config 3 in float64
+    gen_lines = [dia_profile(pt, cell, smi) for cell in gen_cells[:2]]
+    torch.cuda.empty_cache()
     probe_turns(probe_cases, probe_launches, smi,
                 " (after the profiled phase)")
     # each probe's device time and its library call's, without the host
@@ -860,7 +1102,13 @@ def main():
               f"torch.profiler, {lib_name} {lib_dev:.4f} ms [{smi}]",
               flush=True)
 
-    k1_main = (512, 8192, "plane")
+    k1_main = (512, 8192, "plane", "float32")
+    k1_main64 = (512, 8192, "plane", "float64")
+    k3_main, k3_main64 = (65536, 2048, "float32"), (65536, 2048, "float64")
+    # the float64 K1 launches of the main path: phase 7d's float64 cells
+    k1_f64_launches = sum(n for cell in gen_cells
+                          for k, n in cell["shapes"][0].items()
+                          if k[3] == "float64")
     kernels = [
         {"name": "stream_contract", "route": "cuda",
          "source": "speck_tpu_torch/csrc/stream_contract.cu",
@@ -873,11 +1121,23 @@ def main():
          "plain_ms": k1[k1_main][2],
          "bound_ms": bound_ms(cp.k1_bytes(*k1_main)), "bound_by": "bytes",
          "library_ms": None},
+        {"name": "stream_contract (double)", "route": "cuda",
+         "source": "speck_tpu_torch/csrc/stream_contract.cu",
+         "replaces": "speck_tpu/ops/pallas_kernels.py:122",
+         "launches": k1_f64_launches,
+         "max_abs_err": max(v[0] for k, v in k1.items()
+                            if k[3] == "float64"),
+         "ms": k1[k1_main64][1], "device_ms": sum(k1_dev[k1_main64].values()),
+         "plain_ms": k1[k1_main64][2],
+         "bound_ms": bound_ms(cp.k1_bytes(*k1_main64)), "bound_by": "bytes",
+         "library_ms": None},
         {"name": "row_sort", "route": "cuda",
          "source": "speck_tpu_torch/csrc/row_sort.cu",
          "replaces": "speck_tpu/ops/bitonic.py:172",
          "launches": (launches["row_sort"] + giant["launches"]["row_sort"]
-                      + esc_launches["row_sort"] + onebee["row_sort"]),
+                      + esc_launches["row_sort"] + onebee["row_sort"]
+                      + sum(c["launches"]["row_sort"] for c in gen_cells)
+                      + esc64_launches["row_sort"]),
          "max_abs_err": max(v[0] for v in k2.values()),
          "ms": k2[(512, 8192, 1)][1], "device_ms": None,
          "plain_ms": k2[(512, 8192, 1)][2],
@@ -887,11 +1147,20 @@ def main():
          "source": "speck_tpu_torch/csrc/stream_contract.cu",
          "replaces": "speck_tpu/ops/pallas_kernels.py:153",
          "launches": esc_launches["contract_runs"],
-         "max_abs_err": max(v[0] for v in k3.values()),
-         "ms": k3[(65536, 2048)][1],
-         "device_ms": sum(k3_dev[(65536, 2048)].values()),
-         "plain_ms": k3[(65536, 2048)][2],
-         "bound_ms": bound_ms(13 * 65536 * 2048), "bound_by": "bytes",
+         "max_abs_err": max(v[0] for k, v in k3.items()
+                            if k[2] == "float32"),
+         "ms": k3[k3_main][1], "device_ms": sum(k3_dev[k3_main].values()),
+         "plain_ms": k3[k3_main][2],
+         "bound_ms": bound_ms(cp.k3_bytes(*k3_main)), "bound_by": "bytes",
+         "library_ms": None},
+        {"name": "contract_runs (double)", "route": "cuda",
+         "source": "speck_tpu_torch/csrc/stream_contract.cu",
+         "replaces": "speck_tpu/ops/pallas_kernels.py:153",
+         "launches": esc64_launches["contract_runs"],
+         "max_abs_err": k3[k3_main64][0], "ms": k3[k3_main64][1],
+         "device_ms": sum(k3_dev[k3_main64].values()),
+         "plain_ms": k3[k3_main64][2],
+         "bound_ms": bound_ms(cp.k3_bytes(*k3_main64)), "bound_by": "bytes",
          "library_ms": None},
     ]
     for name, replaces in [
@@ -908,6 +1177,12 @@ def main():
     for cell, line in zip(dia_cells, dia_lines):
         print(cell["line"], flush=True)
         print(line, flush=True)
+    for cell in gen_cells:
+        print(cell["line"], flush=True)
+    for line in gen_lines:
+        print(line, flush=True)
+    print(esc64_line, flush=True)
+    phase("end")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

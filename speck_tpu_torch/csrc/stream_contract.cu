@@ -70,7 +70,8 @@
 //   tile's carry is the same float sequence whichever predecessor had
 //   published: two launches give bit-identical sums.
 // - Scratch: word 0 the tile counter, then one 8-byte status word a tile
-//   (low half the float value, high half the flags: aggregate or prefix).
+//   (low half the float value, high half the flags: aggregate or prefix;
+//   a double takes a record of three words, below).
 //   The wrapper allocates it (torch.empty) and the launcher clears it on
 //   the caller's stream before the kernel, by a kernel of its own
 //   (contract_scratch_clear), so that a profile counts the clear with K1 by
@@ -79,6 +80,18 @@
 //   nothing. The wrapper checks that every input is 16-byte aligned.
 // Sums are taken in another order than the Hillis-Steele doubling of the
 // Pallas and plain forms: equal at tolerance, the mask exactly.
+//
+// float64 (the reference's double instantiation; its JAX form contracts f64
+// in plain jnp): the same kernel with T = double, 16-byte loads and stores
+// of two values. A double and its flags do not fit one 8-byte word, so a
+// tile's status is a record of three words: flags, aggregate, prefix. Each
+// value slot is written once: the writer stores the value, then
+// __threadfence(), then the flags (a release store); a reader loads the
+// flags (an acquire load) and then the slot they name. Overwriting one value
+// slot from aggregate to prefix would let a reader pair an old flag with a
+// new value. The fold stays in tile order, so two launches give the same
+// bits as in float32. The scratch is 1 + 3 * tiles words. It moves 25 bytes
+// a slot with a rid plane, 21 with a per-row rid, and K3 21.
 //
 // nvcc -Xptxas -v (sm_90a): contract_kernel<true, false> (K1, rid plane)
 // 64 registers, <false, false> (K1, per-row rid) 60, <false, true> (K3)
@@ -100,32 +113,35 @@ constexpr int kTile = kThreads * kItems;
 constexpr int kWarps = kThreads / 32;
 constexpr unsigned kFull = 0xffffffffu;
 
-// flags in a tile's status word (0: nothing published yet)
+// flags in a tile's status (0: nothing published yet)
 constexpr unsigned kAggregate = 1u;  // value: the tile's own sum (no start)
 constexpr unsigned kPrefix = 2u;     // value: the sum since the last start
 
 // Segmented-sum element: the sum since the last run start inside the span,
 // and whether a run starts inside it. seg_op(a, b) covers a then b.
+template <typename T>
 struct Seg {
-  float v;
+  T v;
   int f;
 };
 
-__device__ __forceinline__ Seg seg_op(const Seg& a, const Seg& b) {
-  Seg r;
+template <typename T>
+__device__ __forceinline__ Seg<T> seg_op(const Seg<T>& a, const Seg<T>& b) {
+  Seg<T> r;
   r.v = b.f ? b.v : a.v + b.v;
   r.f = a.f | b.f;
   return r;
 }
 
-__device__ __forceinline__ Seg shfl_up(const Seg& s, int o) {
-  Seg r;
+template <typename T>
+__device__ __forceinline__ Seg<T> shfl_up(const Seg<T>& s, int o) {
+  Seg<T> r;
   r.v = __shfl_up_sync(kFull, s.v, o);
   r.f = __shfl_up_sync(kFull, s.f, o);
   return r;
 }
 
-__device__ __forceinline__ unsigned long long load_status(
+__device__ __forceinline__ unsigned long long ld_relaxed(
     const unsigned long long* p) {
   unsigned long long w;
   asm volatile("ld.relaxed.gpu.global.u64 %0, [%1];"
@@ -133,61 +149,141 @@ __device__ __forceinline__ unsigned long long load_status(
   return w;
 }
 
-__device__ __forceinline__ void store_status(unsigned long long* p, float v,
-                                             unsigned flags) {
-  const unsigned long long w =
-      ((unsigned long long)flags << 32) | __float_as_uint(v);
+__device__ __forceinline__ unsigned long long ld_acquire(
+    const unsigned long long* p) {
+  unsigned long long w;
+  asm volatile("ld.acquire.gpu.global.u64 %0, [%1];"
+               : "=l"(w) : "l"(p) : "memory");
+  return w;
+}
+
+__device__ __forceinline__ void st_relaxed(unsigned long long* p,
+                                           unsigned long long w) {
   asm volatile("st.relaxed.gpu.global.u64 [%0], %1;"
                :: "l"(p), "l"(w) : "memory");
 }
 
+__device__ __forceinline__ void st_release(unsigned long long* p,
+                                           unsigned long long w) {
+  asm volatile("st.release.gpu.global.u64 [%0], %1;"
+               :: "l"(p), "l"(w) : "memory");
+}
+
+// A tile's published status in the scratch after the tile counter.
+template <typename T>
+struct TileStatus;
+
+// float: one 8-byte word a tile, the flags in the high half and the value's
+// bits in the low half, written and read whole.
+template <>
+struct TileStatus<float> {
+  static constexpr long long kWords = 1;
+  __device__ static void publish(unsigned long long* status, long long t,
+                                 float v, unsigned flags) {
+    st_relaxed(status + t,
+               ((unsigned long long)flags << 32) | __float_as_uint(v));
+  }
+  __device__ static unsigned read(const unsigned long long* status,
+                                  long long j, float* v) {
+    const unsigned long long w = ld_relaxed(status + j);
+    *v = __uint_as_float((unsigned)w);
+    return (unsigned)(w >> 32);
+  }
+};
+
+// double: a record of three words a tile (flags, aggregate, prefix); each
+// value slot is written once, before the flags that name it.
+template <>
+struct TileStatus<double> {
+  static constexpr long long kWords = 3;
+  __device__ static void publish(unsigned long long* status, long long t,
+                                 double v, unsigned flags) {
+    unsigned long long* rec = status + kWords * t;
+    st_relaxed(rec + (flags == kPrefix ? 2 : 1),
+               (unsigned long long)__double_as_longlong(v));
+    __threadfence();
+    st_release(rec, flags);
+  }
+  __device__ static unsigned read(const unsigned long long* status,
+                                  long long j, double* v) {
+    const unsigned long long* rec = status + kWords * j;
+    const unsigned flags = (unsigned)ld_acquire(rec);
+    *v = flags == 0u ? 0.0
+                     : __longlong_as_double((long long)ld_relaxed(
+                           rec + ((flags & kPrefix) ? 2 : 1)));
+    return flags;
+  }
+};
+
 // The inclusive prefix through tile t - 1, for tile t >= 1 (tile 0 always
 // publishes a prefix: slot 0 starts a run). Called by one whole warp.
-__device__ float look_back(const unsigned long long* status, long long t,
-                           int lane) {
+template <typename T>
+__device__ T look_back(const unsigned long long* status, long long t,
+                       int lane) {
   // backward, 32 tiles a step: lane i reads tile end - i; wait until the
   // whole window has published, stop at the window with a prefix
   long long end = t - 1;
-  unsigned long long w;
+  unsigned f;
+  T v;
   unsigned pmask;
   while (true) {
     const long long j = end - lane;
     do {
-      w = j >= 0 ? load_status(status + j)
-                 : (unsigned long long)kPrefix << 32;
-    } while (__any_sync(kFull, (unsigned)(w >> 32) == 0u));
-    pmask = __ballot_sync(kFull, ((unsigned)(w >> 32) & kPrefix) != 0u);
+      if (j >= 0) {
+        f = TileStatus<T>::read(status, j, &v);
+      } else {
+        f = kPrefix;
+        v = T(0);
+      }
+    } while (__any_sync(kFull, f == 0u));
+    pmask = __ballot_sync(kFull, (f & kPrefix) != 0u);
     if (pmask) break;
     end -= 32;
   }
   // forward, a left fold in tile order from the nearest prefix
   int k = __ffs(pmask) - 1;
-  float c = __shfl_sync(kFull, __uint_as_float((unsigned)w), k);
+  T c = __shfl_sync(kFull, v, k);
   while (true) {
     for (int i = k - 1; i >= 0; --i) {
-      const float v = __shfl_sync(kFull, __uint_as_float((unsigned)w), i);
-      const unsigned f = __shfl_sync(kFull, (unsigned)(w >> 32), i);
-      c = (f & kPrefix) ? v : c + v;
+      const T vi = __shfl_sync(kFull, v, i);
+      const unsigned fi = __shfl_sync(kFull, f, i);
+      c = (fi & kPrefix) ? vi : c + vi;
     }
     if (end == t - 1) return c;
     end += 32;
-    w = load_status(status + end - lane);  // published: seen on the way back
+    // published: seen on the way back
+    f = TileStatus<T>::read(status, end - lane, &v);
     k = 32;
   }
 }
 
+// 16 bytes of values from p: four floats or two doubles.
+__device__ __forceinline__ void load16(const float* p, float* v) {
+  const float4 b = *reinterpret_cast<const float4*>(p);
+  v[0] = b.x; v[1] = b.y; v[2] = b.z; v[3] = b.w;
+}
+__device__ __forceinline__ void load16(const double* p, double* v) {
+  const double2 b = *reinterpret_cast<const double2*>(p);
+  v[0] = b.x; v[1] = b.y;
+}
+__device__ __forceinline__ void store16(float* p, const float* v) {
+  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+}
+__device__ __forceinline__ void store16(double* p, const double* v) {
+  *reinterpret_cast<double2*>(p) = make_double2(v[0], v[1]);
+}
+
 // A thread's kItems slots from g0 on: 16-byte loads in a full tile,
 // masked scalar loads in the ragged last one.
-template <bool kRidPlane>
+template <typename T, bool kRidPlane>
 __device__ __forceinline__ void load_items(const int* __restrict__ rid,
                                            const int* __restrict__ col,
-                                           const float* __restrict__ val,
+                                           const T* __restrict__ val,
                                            long long N, long long g0,
-                                           bool full, int* c, int* r,
-                                           float* v) {
+                                           bool full, int* c, int* r, T* v) {
+  constexpr int kPer16 = 16 / sizeof(T);
   if (full) {
     const int4* c4 = reinterpret_cast<const int4*>(col + g0);
-    const float4* v4 = reinterpret_cast<const float4*>(val + g0);
     const int4* r4 =
         kRidPlane ? reinterpret_cast<const int4*>(rid + g0) : nullptr;
 #pragma unroll
@@ -195,9 +291,6 @@ __device__ __forceinline__ void load_items(const int* __restrict__ rid,
       const int4 a = c4[q];
       c[4 * q] = a.x; c[4 * q + 1] = a.y; c[4 * q + 2] = a.z;
       c[4 * q + 3] = a.w;
-      const float4 b = v4[q];
-      v[4 * q] = b.x; v[4 * q + 1] = b.y; v[4 * q + 2] = b.z;
-      v[4 * q + 3] = b.w;
       if constexpr (kRidPlane) {
         const int4 e = r4[q];
         r[4 * q] = e.x; r[4 * q + 1] = e.y; r[4 * q + 2] = e.z;
@@ -206,26 +299,30 @@ __device__ __forceinline__ void load_items(const int* __restrict__ rid,
         r[4 * q] = r[4 * q + 1] = r[4 * q + 2] = r[4 * q + 3] = 0;
       }
     }
+#pragma unroll
+    for (int q = 0; q < kItems / kPer16; ++q) {
+      load16(val + g0 + kPer16 * q, v + kPer16 * q);
+    }
   } else {
 #pragma unroll
     for (int k = 0; k < kItems; ++k) {
       const long long g = g0 + k;
       c[k] = g < N ? col[g] : 0;
-      v[k] = g < N ? val[g] : 0.f;
+      v[k] = g < N ? val[g] : T(0);
       r[k] = (kRidPlane && g < N) ? rid[g] : 0;
     }
   }
 }
 
-template <bool kRidPlane, bool kColSentinel>
+template <typename T, bool kRidPlane, bool kColSentinel>
 __global__ void __launch_bounds__(kThreads)
 contract_kernel(const int* __restrict__ rid, const int* __restrict__ col,
-                const float* __restrict__ val, uint8_t* __restrict__ last,
-                float* __restrict__ sums, long long N, long long W,
-                int n_cols, unsigned long long* __restrict__ scratch) {
+                const T* __restrict__ val, uint8_t* __restrict__ last,
+                T* __restrict__ sums, long long N, long long W, int n_cols,
+                unsigned long long* __restrict__ scratch) {
   __shared__ unsigned s_tile;
-  __shared__ Seg s_warp[kWarps];
-  __shared__ float s_carry;
+  __shared__ Seg<T> s_warp[kWarps];
+  __shared__ T s_carry;
   __shared__ int s_start;  // the tile's first slot starts a run
 
   const int tid = threadIdx.x;
@@ -245,8 +342,8 @@ contract_kernel(const int* __restrict__ rid, const int* __restrict__ col,
   const long long g0 = t * kTile + (long long)tid * kItems;
   const bool full = (t + 1) * kTile <= N;
   int c[kItems], r[kItems];
-  float v[kItems];
-  load_items<kRidPlane>(rid, col, val, N, g0, full, c, r, v);
+  T v[kItems];
+  load_items<T, kRidPlane>(rid, col, val, N, g0, full, c, r, v);
 
   // slot g0 - 1: the previous lane's last slot; lane 0 reads it
   int c_prev = __shfl_up_sync(kFull, c[kItems - 1], 1);
@@ -296,44 +393,45 @@ contract_kernel(const int* __restrict__ rid, const int* __restrict__ col,
   lastm &= live;
 
   // this thread's aggregate, then an inclusive scan within the warp
-  Seg agg = {v[0], (int)(head & 1u)};
+  Seg<T> agg = {v[0], (int)(head & 1u)};
 #pragma unroll
   for (int k = 1; k < kItems; ++k) {
-    agg = seg_op(agg, Seg{v[k], (int)((head >> k) & 1u)});
+    agg = seg_op(agg, Seg<T>{v[k], (int)((head >> k) & 1u)});
   }
-  Seg inc = agg;
+  Seg<T> inc = agg;
 #pragma unroll
   for (int o = 1; o < 32; o <<= 1) {
-    const Seg up = shfl_up(inc, o);
+    const Seg<T> up = shfl_up(inc, o);
     if (lane >= o) inc = seg_op(up, inc);
   }
-  Seg ex = shfl_up(inc, 1);
-  if (lane == 0) ex = Seg{0.f, 0};
+  Seg<T> ex = shfl_up(inc, 1);
+  if (lane == 0) ex = Seg<T>{T(0), 0};
   if (lane == 31) s_warp[warp] = inc;
   if (tid == 0) s_start = head & 1u;
   __syncthreads();
 
   // warp 0: scan the warp totals, publish, look back for the carry
   if (warp == 0) {
-    Seg w = lane < kWarps ? s_warp[lane] : Seg{0.f, 0};
+    Seg<T> w = lane < kWarps ? s_warp[lane] : Seg<T>{T(0), 0};
 #pragma unroll
     for (int o = 1; o < kWarps; o <<= 1) {
-      const Seg up = shfl_up(w, o);
+      const Seg<T> up = shfl_up(w, o);
       if (lane >= o) w = seg_op(up, w);
     }
     if (lane < kWarps) s_warp[lane] = w;
-    float carry = 0.f;
+    T carry = T(0);
     if (scratch != nullptr) {
       unsigned long long* status = scratch + 1;
-      const float total_v = __shfl_sync(kFull, w.v, kWarps - 1);
+      const T total_v = __shfl_sync(kFull, w.v, kWarps - 1);
       const int total_f = __shfl_sync(kFull, w.f, kWarps - 1);
       if (lane == 0) {
-        store_status(status + t, total_v, total_f ? kPrefix : kAggregate);
+        TileStatus<T>::publish(status, t, total_v,
+                               total_f ? kPrefix : kAggregate);
       }
       if (!s_start) {
-        carry = look_back(status, t, lane);
+        carry = look_back<T>(status, t, lane);
         if (lane == 0 && !total_f) {
-          store_status(status + t, carry + total_v, kPrefix);
+          TileStatus<T>::publish(status, t, carry + total_v, kPrefix);
         }
       }
     }
@@ -341,22 +439,21 @@ contract_kernel(const int* __restrict__ rid, const int* __restrict__ col,
   }
   __syncthreads();
 
-  Seg run = {s_carry, 0};
+  Seg<T> run = {s_carry, 0};
   if (warp > 0) run = seg_op(run, s_warp[warp - 1]);
   run = seg_op(run, ex);
-  float out[kItems];
+  T out[kItems];
 #pragma unroll
   for (int k = 0; k < kItems; ++k) {
-    run = seg_op(run, Seg{v[k], (int)((head >> k) & 1u)});
+    run = seg_op(run, Seg<T>{v[k], (int)((head >> k) & 1u)});
     out[k] = run.v;
   }
 
   if (full) {
-    float4* s4 = reinterpret_cast<float4*>(sums + g0);
+    constexpr int kPer16 = 16 / sizeof(T);
 #pragma unroll
-    for (int q = 0; q < kItems / 4; ++q) {
-      s4[q] = make_float4(out[4 * q], out[4 * q + 1], out[4 * q + 2],
-                          out[4 * q + 3]);
+    for (int q = 0; q < kItems / kPer16; ++q) {
+      store16(sums + g0 + kPer16 * q, out + kPer16 * q);
     }
     // one byte a flag: spread bit k of lastm to byte k
     unsigned b[4];
@@ -390,7 +487,7 @@ contract_scratch_clear(unsigned long long* __restrict__ scratch,
   }
 }
 
-template <bool kRidPlane, bool kColSentinel>
+template <typename T, bool kRidPlane, bool kColSentinel>
 int launch(const void* rid, const void* col, const void* val, void* last,
            void* sums, long long R, long long W, int n_cols, void* scratch,
            void* stream) {
@@ -402,7 +499,7 @@ int launch(const void* rid, const void* col, const void* val, void* last,
     return (int)cudaErrorInvalidValue;
   }
   if (scratch != nullptr) {
-    const long long n = tiles + 1;
+    const long long n = 1 + TileStatus<T>::kWords * tiles;
     const long long blocks = (n + kThreads - 1) / kThreads;
     contract_scratch_clear<<<(unsigned)(blocks < 1024 ? blocks : 1024),
                              kThreads, 0, (cudaStream_t)stream>>>(
@@ -410,38 +507,62 @@ int launch(const void* rid, const void* col, const void* val, void* last,
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
-  contract_kernel<kRidPlane, kColSentinel>
+  contract_kernel<T, kRidPlane, kColSentinel>
       <<<(unsigned)tiles, kThreads, 0, (cudaStream_t)stream>>>(
-          (const int*)rid, (const int*)col, (const float*)val,
-          (uint8_t*)last, (float*)sums, N, W, n_cols,
-          (unsigned long long*)scratch);
+          (const int*)rid, (const int*)col, (const T*)val, (uint8_t*)last,
+          (T*)sums, N, W, n_cols, (unsigned long long*)scratch);
   return (int)cudaGetLastError();
+}
+
+template <typename T>
+int stream_contract(const void* rid, const void* col, const void* val,
+                    void* last, void* sums, long long R, long long W,
+                    int n_cols, void* scratch, void* stream) {
+  if (rid != nullptr) {
+    return launch<T, true, false>(rid, col, val, last, sums, R, W, n_cols,
+                                  scratch, stream);
+  }
+  return launch<T, false, false>(nullptr, col, val, last, sums, R, W, n_cols,
+                                 scratch, stream);
 }
 
 }  // namespace
 
 // rid: a contiguous (R, W) plane, or null for a per-row rid (never read).
-// scratch: 1 + ceil(R * W / 4096) 8-byte words (the tile counter and the
-// status words; cleared here), or null where W divides 4096 (no tile needs
-// a carry).
+// scratch: 1 + ceil(R * W / 4096) 8-byte words for float values, 1 + 3 *
+// ceil(R * W / 4096) for double (the tile counter and the status; cleared
+// here), or null where W divides 4096 (no tile needs a carry).
 extern "C" int speck_stream_contract(const void* rid, const void* col,
                                      const void* val, void* last, void* sums,
                                      long long R, long long W, int n_cols,
                                      void* scratch, void* stream) {
-  if (rid != nullptr) {
-    return launch<true, false>(rid, col, val, last, sums, R, W, n_cols,
-                               scratch, stream);
-  }
-  return launch<false, false>(nullptr, col, val, last, sums, R, W, n_cols,
-                              scratch, stream);
+  return stream_contract<float>(rid, col, val, last, sums, R, W, n_cols,
+                                scratch, stream);
+}
+
+extern "C" int speck_stream_contract_f64(const void* rid, const void* col,
+                                         const void* val, void* last,
+                                         void* sums, long long R, long long W,
+                                         int n_cols, void* scratch,
+                                         void* stream) {
+  return stream_contract<double>(rid, col, val, last, sums, R, W, n_cols,
+                                 scratch, stream);
 }
 
 extern "C" int speck_contract_runs(const void* col, const void* val,
                                    void* last, void* sums, long long R,
                                    long long W, int n_cols, void* scratch,
                                    void* stream) {
-  return launch<false, true>(nullptr, col, val, last, sums, R, W, n_cols,
-                             scratch, stream);
+  return launch<float, false, true>(nullptr, col, val, last, sums, R, W,
+                                    n_cols, scratch, stream);
+}
+
+extern "C" int speck_contract_runs_f64(const void* col, const void* val,
+                                       void* last, void* sums, long long R,
+                                       long long W, int n_cols, void* scratch,
+                                       void* stream) {
+  return launch<double, false, true>(nullptr, col, val, last, sums, R, W,
+                                     n_cols, scratch, stream);
 }
 
 extern "C" const char* speck_error_string(int err) {

@@ -39,9 +39,10 @@ def fixed_cap(a: HostCSR, b: HostCSR) -> int:
     return 1 << (work - 1).bit_length() if work > 1 else 1
 
 
-def esc_args(a: HostCSR, b: HostCSR, device):
+def esc_args(a: HostCSR, b: HostCSR, device, dtype=np.float32):
     """``esc_fixed``'s seven arguments for A and B on ``device``: A's CSR,
-    then B as per-row (start, length) and its columns and values."""
+    then B as per-row (start, length) and its columns and values, the
+    values in ``dtype`` (float32 or float64)."""
     device = resolve_device(device)
 
     def put(x, dt):
@@ -50,9 +51,9 @@ def esc_args(a: HostCSR, b: HostCSR, device):
 
     bp = np.asarray(b.row_offsets, np.int32)
     return (put(a.row_offsets, np.int32), put(a.col_ids, np.int32),
-            put(a.data, np.float32), put(bp[:-1], np.int32),
+            put(a.data, dtype), put(bp[:-1], np.int32),
             put(bp[1:] - bp[:-1], np.int32), put(b.col_ids, np.int32),
-            put(b.data, np.float32))
+            put(b.data, dtype))
 
 
 def entry(device=None):

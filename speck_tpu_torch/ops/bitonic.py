@@ -1,5 +1,7 @@
 """The row sort: each row of an int32 key sorted ascending, stably, with up
-to three 32-bit payloads permuted the same way.
+to three 32-bit payloads permuted the same way. A 64-bit plane moves by
+its sorted slot: the slot index rides as the payload and the plane is
+gathered after the sort (``slot_payload``, ``by_slot``).
 
 ``row_sort`` replaces ``speck_tpu``'s Pallas kernel
 ``bitonic.bitonic_sort_pairs_pallas`` and, for rows of 2^20 and wider,
@@ -52,6 +54,24 @@ def sort_plan(R: int, W: int, n_payloads: int = 0) -> SortPlan:
     passes = (W // tile).bit_length() - 1
     scratch = (min(passes, 2), 2, R, W) if passes else ()
     return SortPlan(tile, passes, scratch)
+
+
+def slot_payload(val):
+    """The payload that moves ``val`` through ``row_sort``: the plane
+    itself when it is 32-bit, else each slot's index in its row (a float64
+    plane is then gathered after the sort, ``by_slot``)."""
+    if val.dtype.itemsize == 4:
+        return val.contiguous()
+    R, W = val.shape
+    return torch.arange(W, dtype=torch.int32, device=val.device).expand(
+        R, W).contiguous()
+
+
+def by_slot(val, moved):
+    """``val`` in sorted order from its moved ``slot_payload``."""
+    if val.dtype.itemsize == 4:
+        return moved
+    return torch.gather(val, 1, moved.long())
 
 
 def sort_plain(key, payloads):

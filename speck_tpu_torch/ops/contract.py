@@ -22,6 +22,11 @@ kernel never reads a per-row rid: a row head starts a run anyway.
 CUDA tensor it launches K3, the no-rid variant of the same CUDA kernel; on a
 CPU tensor it runs ``contract_runs_plain``, bit-identical to the JAX forms.
 Unlike the Pallas kernel it takes any width and any row count.
+
+Both take float32 or float64 values (the reference's ``double``
+instantiation): a float64 plane launches the kernels' ``double`` variant,
+whose look-back publishes each tile's aggregate and prefix in separate
+slots of a three-word record (``_scratch`` sizes it).
 """
 
 from __future__ import annotations
@@ -33,11 +38,14 @@ import torch
 from . import build
 
 # launches of the CUDA kernels in this process (the plain versions do not
-# count): K1 (stream_contract), in all and by (R, W, "plane" or "row"), and
-# K3 (contract_runs)
+# count): K1 (stream_contract), in all and by (R, W, "plane" or "row",
+# value dtype), and K3 (contract_runs), in all and by (R, W, value dtype)
 LAUNCHES = 0
-LAUNCH_SHAPES: Dict[Tuple[int, int, str], int] = {}
+LAUNCH_SHAPES: Dict[Tuple[int, int, str, str], int] = {}
 RUNS_LAUNCHES = 0
+RUNS_LAUNCH_SHAPES: Dict[Tuple[int, int, str], int] = {}
+
+VALUE_DTYPES = (torch.float32, torch.float64)
 
 # slots one CTA takes (kTile in csrc/stream_contract.cu)
 TILE = 4096
@@ -97,10 +105,10 @@ def _check_col_val(col, val, what):
                          "tensor")
     if col.shape[1] < 1:
         raise ValueError(f"{what}: rows must be at least 1 wide")
-    if (val.shape != col.shape or val.dtype != torch.float32
+    if (val.shape != col.shape or val.dtype not in VALUE_DTYPES
             or not val.is_contiguous()):
         raise ValueError(f"{what}: val must be a contiguous (R, W) float32 "
-                         "tensor")
+                         "or float64 tensor")
     if val.device != col.device:
         raise ValueError(f"{what}: tensors on different devices")
 
@@ -126,19 +134,25 @@ def _check_kernel_inputs(what, *planes):
                              "be contiguous and 16-byte aligned")
 
 
-def _scratch(col):
+def _scratch(col, dtype=torch.float32):
     """The kernel's scratch for col's (R, W), which the launcher clears:
-    the tile counter and a status word a tile; None where W divides the
-    tile, since every tile then starts at a row head and needs no carry."""
+    the tile counter and a tile's status (one word for float32 values, a
+    record of three for float64); None where W divides the tile, since
+    every tile then starts at a row head and needs no carry."""
     R, W = col.shape
     if TILE % W == 0:
         return None
-    return torch.empty(1 + -(-R * W // TILE), dtype=torch.int64,
+    words = 1 if dtype == torch.float32 else 3
+    return torch.empty(1 + words * -(-R * W // TILE), dtype=torch.int64,
                        device=col.device)
 
 
+def _dtype_name(val) -> str:
+    return str(val.dtype).replace("torch.", "")
+
+
 def stream_contract(rid, col, val, n_cols: int):
-    """(last bool (R, W), run_sum float32 (R, W)) of sorted rows."""
+    """(last bool (R, W), run_sum (R, W) in val's dtype) of sorted rows."""
     _check(rid, col, val)
     if col.device.type == "cpu":
         return contract_plain(rid, col, val, n_cols)
@@ -152,8 +166,11 @@ def stream_contract(rid, col, val, n_cols: int):
     per_row = rid.stride(1) == 0
     _check_kernel_inputs("stream_contract", col, val,
                          *(() if per_row else (rid,)))
-    scratch = _scratch(col)
-    err = build.library().speck_stream_contract(
+    scratch = _scratch(col, val.dtype)
+    lib = build.library()
+    fn = (lib.speck_stream_contract if val.dtype == torch.float32
+          else lib.speck_stream_contract_f64)
+    err = fn(
         None if per_row else rid.data_ptr(), col.data_ptr(), val.data_ptr(),
         last.data_ptr(), sums.data_ptr(), R, W, int(n_cols),
         None if scratch is None else scratch.data_ptr(),
@@ -161,13 +178,14 @@ def stream_contract(rid, col, val, n_cols: int):
     build.check(err, "stream_contract launch")
     global LAUNCHES
     LAUNCHES += 1
-    shape = (R, W, "row" if per_row else "plane")
+    shape = (R, W, "row" if per_row else "plane", _dtype_name(val))
     LAUNCH_SHAPES[shape] = LAUNCH_SHAPES.get(shape, 0) + 1
     return last, sums
 
 
 def contract_runs(col, val, n_cols: int):
-    """(last bool (R, W), run_sum float32 (R, W)) of column-sorted rows."""
+    """(last bool (R, W), run_sum (R, W) in val's dtype) of column-sorted
+    rows."""
     _check_col_val(col, val, "contract_runs")
     if col.device.type == "cpu":
         return contract_runs_plain(col, val, n_cols)
@@ -179,12 +197,17 @@ def contract_runs(col, val, n_cols: int):
     if R == 0:
         return last, sums
     _check_kernel_inputs("contract_runs", col, val)
-    scratch = _scratch(col)
-    err = build.library().speck_contract_runs(
+    scratch = _scratch(col, val.dtype)
+    lib = build.library()
+    fn = (lib.speck_contract_runs if val.dtype == torch.float32
+          else lib.speck_contract_runs_f64)
+    err = fn(
         col.data_ptr(), val.data_ptr(), last.data_ptr(), sums.data_ptr(), R,
         W, int(n_cols), None if scratch is None else scratch.data_ptr(),
         torch.cuda.current_stream(col.device).cuda_stream)
     build.check(err, "contract_runs launch")
     global RUNS_LAUNCHES
     RUNS_LAUNCHES += 1
+    shape = (R, W, _dtype_name(val))
+    RUNS_LAUNCH_SHAPES[shape] = RUNS_LAUNCH_SHAPES.get(shape, 0) + 1
     return last, sums

@@ -15,8 +15,11 @@ sorted, a gather plus a masked scatter with no expansion or sort.
 ``pack_csr_arrays`` interleaves (col id, value bits) into one (nnz, 2)
 int32 record, so each product's B read is one 8-byte gather.
 
-K2 carries 32-bit payloads only, so ``esc_fixed`` takes float32 values;
-float64 raises ``NotImplementedError``.
+``esc_fixed`` takes float32 or float64 values, as the reference's
+dtype-generic form does. K2 carries 32-bit payloads, so a float64 plane
+moves by its sorted slot (``bitonic.slot_payload``), the owner fill
+carries each product's A index instead of its value bits, and K3 runs its
+``double`` variant.
 """
 
 from __future__ import annotations
@@ -169,11 +172,15 @@ def _expand(rows, valid_rows, a_indptr, a_indices, a_data, b_start, b_len,
     e = cum - blen                                     # slot start positions
     live = va & (blen > 0)
     u = bstart_a - e                                   # src base - start
-    if with_values:
+    if with_values and a_data.dtype.itemsize == 4:
         araw = torch.where(va, _take(a_data, aidx), 0).contiguous().view(
             torch.int32)
         uc, ar = _owner_fill(live, e, (u, araw), cap)
         ac = ar.contiguous().view(torch.float32)
+    elif with_values:
+        # a 64-bit value does not fit a channel: carry its A index
+        uc, ai = _owner_fill(live, e, (u, aidx.to(torch.int32)), cap)
+        ac = _take(a_data, torch.clamp(ai, 0, max(a_data.shape[0] - 1, 0)))
     else:
         (uc,) = _owner_fill(live, e, (u,), cap)
     valid_t = j < ops[:, None]
@@ -197,8 +204,9 @@ def _compact_by_rank(last, col_s, run_sum):
     t = torch.arange(W, dtype=torch.int32, device=col_s.device)[None, :]
     rank = torch.cumsum(last.to(torch.int32), dim=1).to(torch.int32) - 1
     key = torch.where(last, rank, W + t).to(torch.int32)
-    _, (cols_c, vals_c) = _sort_rows(key, [col_s, run_sum])
-    return cols_c, vals_c
+    _, (cols_c, moved) = _sort_rows(key, [col_s,
+                                          bitonic.slot_payload(run_sum)])
+    return cols_c, bitonic.by_slot(run_sum, moved)
 
 
 def esc_fixed(a_indptr, a_indices, a_data, b_start, b_len, b_indices, b_data,
@@ -206,18 +214,18 @@ def esc_fixed(a_indptr, a_indices, a_data, b_start, b_len, b_indices, b_data,
     """One-shot count and numeric SpGEMM over all rows at one capacity.
 
     Returns (counts (m,), cols (m, cap), vals (m, cap)), int32, int32 and
-    float32: each row's first counts[r] slots hold its column-sorted
-    result. Products past ``cap`` in a row are dropped, as in the JAX form:
-    ``cap`` must be at least every row's product count and A length.
+    the values' dtype: each row's first counts[r] slots hold its
+    column-sorted result. Products past ``cap`` in a row are dropped, as in
+    the JAX form: ``cap`` must be at least every row's product count and A
+    length.
     """
     for x in (a_data, b_data):
-        if x.dtype == torch.float64:
-            raise NotImplementedError(
-                "esc_fixed: float64 values are not ported (the row sort "
-                "carries 32-bit payloads); use float32")
-        if x.dtype != torch.float32:
-            raise ValueError(f"esc_fixed: values must be float32, not "
-                             f"{x.dtype}")
+        if x.dtype not in (torch.float32, torch.float64):
+            raise ValueError(f"esc_fixed: values must be float32 or "
+                             f"float64, not {x.dtype}")
+    if a_data.dtype != b_data.dtype:
+        raise ValueError(f"esc_fixed: mixed value dtypes ({a_data.dtype} "
+                         f"and {b_data.dtype})")
     m = a_indptr.shape[0] - 1
     dev = a_indptr.device
     rows = torch.arange(m, dtype=torch.int32, device=dev)
@@ -225,8 +233,8 @@ def esc_fixed(a_indptr, a_indices, a_data, b_start, b_len, b_indices, b_data,
     col, val, _ = _expand(rows, valid_rows, a_indptr, a_indices, a_data,
                           b_start, b_len, b_indices, b_data, cap, n_cols,
                           with_values=True)
-    col_s, (val_s,) = _sort_rows(col, [val])
-    last, run_sum = _contract(col_s, val_s, n_cols)
+    col_s, (moved,) = _sort_rows(col, [bitonic.slot_payload(val)])
+    last, run_sum = _contract(col_s, bitonic.by_slot(val, moved), n_cols)
     counts = last.sum(dim=1, dtype=torch.int32)
     cols_c, vals_c = _compact_by_rank(last, col_s, run_sum)
     return counts, cols_c[:, :cap], vals_c[:, :cap]

@@ -26,13 +26,18 @@ early gate, the wide-row totals, the nnz; on the DIA routes the diagonal
 bitmap and the meta) and adds none: no boolean-mask indexing,
 ``.nonzero()`` or ``.item()`` on the device path.
 
+float32 and float64 values run every route; float64 takes the
+reference's unpacked B gathers on the stream (``stream.Unpacked``). A
+call past ``block_products`` runs as row blocks (``_spgemm_blocked``).
+
 Routes that are not ported yet fail loudly: ``plan_spgemm`` raises
-``NotImplementedError`` naming the route where the reference would take
-the dense tiles (``_host_dense_plausible``) or would run float64 values on
-the stream, and ``check_supported`` does the same for the accumulator,
-row blocking past ``ProductOverflow`` and the TPU A/B knobs. The contract
-and the row sorts always run the hand-written kernels on a CUDA device
-(ops/contract.py, ops/bitonic.py).
+``NotImplementedError`` naming the dense-tile route where the planning
+pass counts tiles that the reference would take (the device eligibility
+of ``stream.plan_device_stream``, after the host pre-reject
+``_host_dense_plausible``), and ``check_supported`` does the same for the
+accumulator and the TPU A/B knobs. The contract and the row sorts always
+run the hand-written kernels on a CUDA device (ops/contract.py,
+ops/bitonic.py).
 """
 
 from __future__ import annotations
@@ -72,12 +77,13 @@ from .dia import (
     sdia_plane_bytes,
     sdia_slots,
 )
-from .esc import direct_chunk, pack_csr_arrays
+from .esc import direct_chunk, pack_csr_arrays, packable
 from .stream import (
     N_QCLASS,
     N_WSEG_PACK,
     LevelPlan,
     StreamLayout,
+    Unpacked,
     build_srec,
     compact_staged,
     plan_device_stream,
@@ -116,8 +122,8 @@ def _unported(what: str):
 
 def check_supported(cfg: SpgemmConfig, A: DeviceCSR, B: DeviceCSR) -> None:
     """Raise NotImplementedError for inputs and knobs the port does not
-    run yet, instead of ignoring them. float64 passes here: the DIA routes
-    take it, and plan_spgemm raises where it would reach the stream."""
+    run yet, instead of ignoring them: value dtypes other than float32
+    and float64, mixed dtypes, the accumulator and the TPU A/B knobs."""
     for X in (A, B):
         if X.data.dtype not in (torch.float32, torch.float64):
             raise _unported(f"{X.data.dtype} values")
@@ -179,6 +185,9 @@ class StreamState:
     finish: Optional[dict] = None
     # concatenated staged (cols, vals), cached for repeated execute()
     staged_flat: Optional[tuple] = None
+    # dense-eligible tiles the planning pass counted (0 on a streamed
+    # plan), None where the host pre-reject left the count off
+    dense_elig: Optional[int] = None
 
 
 @dataclasses.dataclass
@@ -222,8 +231,7 @@ class SpgemmPlan:
 
     def _chunk_args(self, A, B, ss: StreamState):
         """Operand records for numeric re-expansion (possibly new values)."""
-        sa = A.data.float().contiguous().view(I32)[ss.src]
-        return sa, pack_csr_arrays(B.indices, B.data.float())
+        return _stream_operands(A, B, ss.src)
 
     def execute(self, A: Optional[DeviceCSR] = None,
                 B: Optional[DeviceCSR] = None,
@@ -394,6 +402,19 @@ class SpgemmPlan:
             st.stop(c_cols, c_vals)
         return DeviceCSR(indptr=self.row_offsets, indices=c_cols,
                          data=c_vals, shape=(m, n), nnz=self.nnz)
+
+
+def _stream_operands(A: DeviceCSR, B: DeviceCSR, src, sa=None):
+    """The expand stage's record channel and B operand: for float32, A's
+    value bits (``sa``, else gathered by the A-source map ``src``) and the
+    packed (col, value bits) B record; for float64, the A-source map
+    itself and the unpacked operands (the reference's branch on
+    ``packable``)."""
+    if packable(A.data):
+        if sa is None:
+            sa = A.data.contiguous().view(I32)[src]
+        return sa, pack_csr_arrays(B.indices, B.data)
+    return src, Unpacked(A.data, B.indices, B.data)
 
 
 def _offsets_from_counts(nnz_row: torch.Tensor) -> torch.Tensor:
@@ -902,17 +923,6 @@ def plan_spgemm(A: DeviceCSR, B: DeviceCSR,
                 return _plan_dia(A, B, cfg, timings, stats, *spans, track)
 
     with StageTimer(timings, "loadBalanceCounting", track):
-        if A.data.dtype == torch.float64:
-            # float64 runs the DIA routes only; where the reference takes
-            # its late gate from the planning pack, the gate scalars alone
-            # decide here (one readback either way)
-            if not gate_done and dia_possible:
-                spans = _gate_readback(cfg, A, B, stats, m)
-                if spans is not None:
-                    return _plan_dia(A, B, cfg, timings, stats, *spans,
-                                     track)
-            raise _unported("float64 values on the stream and per-row DIA "
-                            "routes (the unpacked B gathers)")
         direct_ok = bool(B.canonical) and cfg.enable_direct
         use_dense = bool(cfg.enable_dense and A.canonical and B.canonical
                          and B.nnz > 0)
@@ -929,21 +939,28 @@ def plan_spgemm(A: DeviceCSR, B: DeviceCSR,
             # a host-confirmed split claims the banded bulk and leaves no
             # tile dense-eligible
             use_dense = use_dense and not use_dia_rows
-        if use_dense and max_tiles > 0:
-            raise _unported("the dense-tile route (EnableDense)")
-        a32 = A.data.contiguous().view(I32)
+        # float64: no value bits on the record channel (the A-source map
+        # rides it instead, from build_srec's src)
+        a32 = (A.data.contiguous().view(I32) if packable(A.data)
+               else torch.zeros_like(A.indices))
+        # the sorted tile arrays (last) feed the dense-tile route, which
+        # raises below wherever the pass counts an eligible tile
         (rows_sorted, e, q_sorted, el, ops_sorted, nnz_init, pack,
-         dia_mask) = plan_device_stream(
+         dia_mask, *_tiles) = plan_device_stream(
             A.indptr, A.indices, a32, B.indptr, B.indices, stats.row_ops,
             stats.row_ops_f, stats.a_len, min_q=cfg.stream_min_q,
             direct_ok=direct_ok, m=m, w0=cfg.stream_width,
             w_cap=cfg.stream_width_cap, use_dia_rows=use_dia_rows,
             dia_span_cap=cfg.dia_span_cap, dia_waste_cap=cfg.dia_waste_cap,
             dia_mem_budget=cfg.dia_mem_budget,
-            dia_itemsize=A.data.dtype.itemsize)
+            dia_itemsize=A.data.dtype.itemsize,
+            use_dense=use_dense and max_tiles > 0, tile_rows=tr,
+            kw_max=cfg.dense_kw, cw_max=cfg.dense_cw, la_max=cfg.dense_la,
+            lb_max=cfg.dense_lb, max_tiles=max_tiles)
         pack_h = pack.cpu().numpy()  # the ONE planning host sync
         s_hist = pack_h[:N_QCLASS]
         d_hist = pack_h[N_QCLASS: 2 * N_QCLASS]
+        n_elig = int(pack_h[4 * N_QCLASS])
         (a_dmin, a_dmax, b_dmin, b_dmax, sp_sat, mxrow_sat, sp_exact) = (
             int(x) for x in pack_h[4 * N_QCLASS + 5: 4 * N_QCLASS + 12])
         # per-row DIA split: the robust band and the routed row count
@@ -960,6 +977,10 @@ def plan_spgemm(A: DeviceCSR, B: DeviceCSR,
                     return _plan_dia(A, B, cfg, timings, stats, a_dmin,
                                      b_dmin, *spans, track)
             _check_limits(cfg, sp_sat, mxrow_sat)
+        if n_elig > 0:
+            # the planning pass counted tiles the reference takes dense
+            raise _unported(f"the dense-tile route (EnableDense: {n_elig} "
+                            "eligible tiles)")
         if n_wide_t <= N_WSEG_PACK:
             wide_segs = tight_h[4: 4 + n_wide_t].astype(np.int64)
         else:
@@ -993,8 +1014,8 @@ def plan_spgemm(A: DeviceCSR, B: DeviceCSR,
 
         pack_bits = int(n + 1).bit_length()
         if (W // cfg.stream_min_q) * (1 << pack_bits) >= 2**31:
-            raise _unported("the unpacked two-key chunk sort (pack_bits == "
-                            "0: too many columns for the rectangle width)")
+            # the packed key would overflow int32: the two-key chunk sort
+            pack_bits = 0
         G = layout.G
         CP = G * W
         if layout.total_q > 0:
@@ -1021,7 +1042,8 @@ def plan_spgemm(A: DeviceCSR, B: DeviceCSR,
             ops_sorted=ops_sorted, p0=p0, su=su, sa=sa, pend=pend, src=src,
             sid_bases=sid_bases, pack_bits=pack_bits,
             fused=fused, wide_rid_in=torch.as_tensor(wide_rid_h, device=dev),
-            wide_rid_in_h=wide_rid_h)
+            wide_rid_in_h=wide_rid_h,
+            dense_elig=n_elig if use_dense and max_tiles > 0 else None)
 
         # the per-row DIA split's group (its device gate passed: n_dia > 0)
         dia_grp: Optional[DiaRowGroup] = None
@@ -1055,7 +1077,7 @@ def plan_spgemm(A: DeviceCSR, B: DeviceCSR,
             dg.cvT = c_val.t()
             nnz_row[:m] += torch.sum(dg.present, dim=1, dtype=I32)
         if layout.n_chunks > 0 and layout.total_q > 0:
-            b_packed = pack_csr_arrays(B.indices, B.data.float())
+            sa_ch, b_rec = _stream_operands(A, B, src, sa)
             staged = []
             for c in range(layout.n_chunks):
                 has_wide = c * G < layout.r_wide
@@ -1066,8 +1088,8 @@ def plan_spgemm(A: DeviceCSR, B: DeviceCSR,
                 if stage_raw:
                     raw_chunks.append(c)
                 nnz_row, stg = stream_chunk(
-                    rows_sorted, e, q_sorted, el, ops_sorted, p0, su, sa,
-                    pend, b_packed, nnz_row, c * CP, sid_bases[c], G=Gc,
+                    rows_sorted, e, q_sorted, el, ops_sorted, p0, su, sa_ch,
+                    pend, b_rec, nnz_row, c * CP, sid_bases[c], G=Gc,
                     W=W, n_cols=n, pack_bits=pack_bits,
                     stage=fused or has_wide, stage_raw=stage_raw)
                 staged.append(stg)
@@ -1102,11 +1124,76 @@ def spgemm(A: DeviceCSR, B: DeviceCSR, cfg: Optional[SpgemmConfig] = None,
     t0 = time.perf_counter()
     try:
         plan = plan_spgemm(A, B, cfg, timings)
-    except ProductOverflow as exc:
-        raise _unported("row blocking past the int32 product budget") \
-            from exc
-    C = plan.execute(timings=timings)
+        C = plan.execute(timings=timings)
+    except ProductOverflow:
+        C = _spgemm_blocked(A, B, cfg or SpgemmConfig(), timings)
     if track_complete:
         sync_tensors(C.data)
         timings.add("complete", (time.perf_counter() - t0) * 1e3)
     return C
+
+
+def _spgemm_blocked(A: DeviceCSR, B: DeviceCSR, cfg: SpgemmConfig,
+                    timings: Optional[Timings] = None) -> DeviceCSR:
+    """C = A @ B as a sequence of row-block multiplies when the product
+    total exceeds one plan's budget (``block_products``).
+
+    Rows split greedily so that each block carries at most
+    ``block_products // 2`` products (half the trigger, so a block never
+    triggers again); each block plans and executes as usual, and the
+    blocks' results concatenate into one CSR. The split costs two host
+    fetches: the per-row products (exact from the host analysis when the
+    HostCSR copies are attached, else the device analysis's float twin)
+    and A's row offsets. A single row above the per-block budget raises
+    ProductOverflow."""
+    m, n = A.shape[0], B.shape[1]
+    dev = A.device
+    budget = max(1, cfg.block_products // 2)
+    ah, bh = host_of(A), host_of(B)
+    if (cfg.host_analysis and A.nnz <= cfg.host_analysis_max_nnz
+            and ah is not None and (bh is not None or B is A)):
+        row_ops = np.asarray(host_analyze(
+            ah, ah if (B is A or bh is ah) else bh).row_ops, np.int64)
+    else:
+        row_ops = np.maximum(
+            analyze(A, B).row_ops_f.cpu().numpy().astype(np.float64), 0.0
+        ).astype(np.int64)
+    widest = int(row_ops.max(initial=0))
+    if widest > budget:
+        raise ProductOverflow(
+            f"a single row has {widest} products, above the per-block "
+            f"budget ({budget}); raise BlockProducts")
+    indptr_h = A.indptr.cpu().numpy().astype(np.int64)
+    cum = np.cumsum(row_ops)
+    blocks = []
+    r0 = 0
+    while r0 < m:
+        base = int(cum[r0 - 1]) if r0 else 0
+        r1 = int(np.searchsorted(cum, base + budget, side="right"))
+        r1 = min(m, max(r1, r0 + 1))
+        blocks.append((r0, r1))
+        r0 = r1
+    ip_parts, c_parts, v_parts = [], [], []
+    off = 0
+    for r0, r1 in blocks:
+        s, t = int(indptr_h[r0]), int(indptr_h[r1])
+        A_blk = DeviceCSR(indptr=A.indptr[r0: r1 + 1] - s,
+                          indices=A.indices[s:t], data=A.data[s:t],
+                          shape=(r1 - r0, A.shape[1]), nnz=t - s,
+                          canonical=A.canonical)
+        Cb = plan_spgemm(A_blk, B, cfg, timings).execute(timings=timings)
+        if off + Cb.nnz >= 2 ** 31:
+            raise ProductOverflow(
+                f"nnz(C) exceeds the int32 output ceiling at row {r1}")
+        ip_parts.append(Cb.indptr[:-1] + off)
+        c_parts.append(Cb.indices[: Cb.nnz])
+        v_parts.append(Cb.data[: Cb.nnz])
+        off += Cb.nnz
+    ip_parts.append(torch.full((1,), off, dtype=I32, device=dev))
+    return DeviceCSR(
+        indptr=torch.cat(ip_parts),
+        indices=(torch.cat(c_parts) if c_parts
+                 else torch.zeros(0, dtype=I32, device=dev)),
+        data=(torch.cat(v_parts) if v_parts
+              else torch.zeros(0, dtype=A.data.dtype, device=dev)),
+        shape=(m, n), nnz=off, canonical=True)

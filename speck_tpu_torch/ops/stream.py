@@ -30,20 +30,28 @@ decodes (boundary scatter-adds + cumsum) and forward fills are binary
 searches over the sorted boundary arrays here (``torch.searchsorted``):
 the same values, without the scatter-adds that torch serializes on
 repeated indices. Only the default variants are here: the "fill" expand
-semantics, sort-based compaction and f32 values.
+semantics and sort-based compaction.
+
+float64 values take the reference's unpacked form: the expand gathers B's
+columns and values apart and A's value through the A-source map that rides
+the record channel (``Unpacked``). K2 carries 32-bit payloads, so every
+sort moves a float64 plane by its sorted slot: the slot index rides as the
+payload and the values are gathered after the sort (``bitonic.by_slot``).
+When the packed key would overflow int32 (``pack_bits == 0``), the chunk
+sort is two stable K2 passes, by column and then by row.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional, Tuple
+from typing import List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
 from ..utils.config import ProductOverflow
 from .analysis import cumsum1d
-from .bitonic import row_sort
+from .bitonic import by_slot, row_sort, slot_payload
 from .contract import stream_contract
 
 INT_MAX = 2 ** 31 - 1
@@ -366,16 +374,66 @@ def _dia_rows_mask(a_indptr, a_indices, b_indptr, b_indices, row_ops,
     return dia_mask, torch.stack([dlo_a, dhi_a, dlo_b, dhi_b, n_dia]).to(I32)
 
 
+def _dense_tiles(a_indptr, a_indices, b_indptr, b_indices, row_ops, a_len,
+                 dia_mask, *, m: int, tile_rows: int, kw_max: int,
+                 cw_max: int, la_max: int, lb_max: int, max_tiles: int):
+    """The dense-tile eligibility of the reference's planning pass: a tile
+    qualifies when its A-column and output-column spans, longest A row and
+    longest referenced B row fit the windows, it holds no per-row-DIA row,
+    and it is among the first ``max_tiles`` such tiles. Returns (dense_mask
+    (m,), [n_elig, kw_eff, cw_eff, la_eff, lb_eff], (r0, kb_s, cb_s,
+    valid)): the eligible tiles first, in tile order, their row start,
+    A-column base, output-column base and live rows; the rest pad with
+    (m, 0, 0, 0)."""
+    from .dense import tile_stats
+
+    dev = a_indptr.device
+    kmin, kspan, cmin, cspan, amax, bmax = tile_stats(
+        a_indptr, a_indices, b_indptr, b_indices, row_ops, a_len,
+        tile_rows=tile_rows, m=m)
+    T = kmin.shape[0]
+    elig = ((kspan <= kw_max) & (cspan <= cw_max) & (amax <= la_max)
+            & (bmax <= lb_max) & (cspan > 0))
+    padm = T * tile_rows - m
+    dia_t = torch.cat([dia_mask, torch.zeros(padm, dtype=torch.bool,
+                                             device=dev)]
+                      ).reshape(T, tile_rows).any(dim=1)
+    elig = elig & ~dia_t
+    elig = elig & (torch.cumsum(elig.to(I32), 0) <= max_tiles)
+    n_elig = torch.sum(elig, dtype=I32)
+    tid = _arange(T, dev)
+    # unique keys: the eligible tiles first, each group in tile order
+    key_s, order = torch.sort(torch.where(elig, tid, T + tid))
+    is_real = key_s < T
+    r0 = torch.where(is_real, key_s * tile_rows, m)
+    valid = torch.where(is_real, torch.clamp(m - key_s * tile_rows,
+                                             max=tile_rows), 0)
+    kb_s = torch.where(is_real, kmin[order], 0)
+    cb_s = torch.where(is_real, cmin[order], 0)
+
+    def eff(x):
+        return torch.max(torch.where(elig, x, 0))
+
+    pack = torch.stack([n_elig, eff(kspan), eff(cspan), eff(amax),
+                        eff(bmax)]).to(I32)
+    dense_mask = elig.repeat_interleave(tile_rows)[:m]
+    return dense_mask, pack, tuple(x.to(I32) for x in (r0, kb_s, cb_s,
+                                                        valid))
+
+
 def plan_device_stream(a_indptr, a_indices, a_data32, b_indptr, b_indices,
                        row_ops, row_ops_f, a_len, *, min_q: int,
                        direct_ok: bool, m: int, w0: int = 8192,
                        w_cap: int = 65536, use_dia_rows: bool = False,
                        dia_span_cap: int = 512, dia_waste_cap: float = 8.0,
-                       dia_mem_budget: int = 1 << 30, dia_itemsize: int = 4):
-    """Single-pass device planning of the stream, direct and per-row DIA
-    routes: masks, the tight layout and ONE packed int32 array that
-    carries every host decision (read back once by the caller). The pack
-    has the reference's layout:
+                       dia_mem_budget: int = 1 << 30, dia_itemsize: int = 4,
+                       use_dense: bool = False, tile_rows: int = 256,
+                       kw_max: int = 512, cw_max: int = 512, la_max: int = 64,
+                       lb_max: int = 64, max_tiles: int = 0):
+    """Single-pass device planning of the stream, direct, per-row DIA and
+    dense-tile routes: masks, the tight layout and ONE packed int32 array
+    that carries every host decision (read back once by the caller). The
+    pack has the reference's layout:
 
       [stream q-class hist (32) | direct class hist (32) | accum hist (32)
        | accum product sums (32) | n_eligible_tiles, kw, cw, la, lb (5) |
@@ -383,13 +441,15 @@ def plan_device_stream(a_indptr, a_indices, a_data32, b_indptr, b_indices,
        n_dia (5) | n_live_slots, n_live_slots_accum (2) | W, total_q,
        n_wide, r_wide, wide_segs (N_WSEG_PACK)]
 
-    with the dense and accumulator entries at their disabled values, and
-    the per-row DIA band too ([1, 0, 1, 0, 0]) unless ``use_dia_rows``.
-    Rows in ``dia_mask`` (the per-row split) ride neither the direct nor
-    the stream route.
+    with the accumulator entries at their disabled values, the dense-tile
+    entries zero unless ``use_dense`` (the eligibility count of
+    ``_dense_tiles``), and the per-row DIA band [1, 0, 1, 0, 0] unless
+    ``use_dia_rows``. Rows in ``dia_mask`` (the per-row split) or in an
+    eligible dense tile ride neither the direct nor the stream route.
 
     Returns (rows_sorted, e, q_sorted, el, ops_sorted, nnz_init, pack,
-    dia_mask)."""
+    dia_mask, r0, kb_s, cb_s, valid), the last four the sorted tile arrays
+    (empty unless ``use_dense``)."""
     dev = a_indptr.device
     if a_len is None:
         a_len = a_indptr[1:] - a_indptr[:-1]
@@ -407,11 +467,23 @@ def plan_device_stream(a_indptr, a_indices, a_data32, b_indptr, b_indices,
         dia_mask = torch.zeros(m, dtype=torch.bool, device=dev)
         dia_pack = torch.zeros(5, dtype=I32, device=dev)
         dia_pack[0:4:2] = 1
+    if use_dense and m > 0:
+        dense_mask, dense_pack, tiles = _dense_tiles(
+            a_indptr, a_indices, b_indptr, b_indices, row_ops, a_len,
+            dia_mask, m=m, tile_rows=tile_rows, kw_max=kw_max,
+            cw_max=cw_max, la_max=la_max, lb_max=lb_max,
+            max_tiles=max_tiles)
+    else:
+        dense_mask = torch.zeros(m, dtype=torch.bool, device=dev)
+        dense_pack = torch.zeros(5, dtype=I32, device=dev)
+        tiles = tuple(torch.zeros(0, dtype=I32, device=dev)
+                      for _ in range(4))
     if direct_ok:
-        direct_mask = (a_len == 1) & (row_ops > 0) & ~dia_mask
+        direct_mask = ((a_len == 1) & (row_ops > 0) & ~dense_mask
+                       & ~dia_mask)
     else:
         direct_mask = torch.zeros(m, dtype=torch.bool, device=dev)
-    stream_mask = (row_ops > 0) & ~direct_mask & ~dia_mask
+    stream_mask = (row_ops > 0) & ~direct_mask & ~dense_mask & ~dia_mask
     (rows_sorted, e, q_sorted, el, ops_sorted, hist,
      tight_pack) = _plan_rows_impl(row_ops, stream_mask, direct_mask,
                                    min_q=min_q, m=m, w0=w0, w_cap=w_cap)
@@ -420,11 +492,11 @@ def plan_device_stream(a_indptr, a_indices, a_data32, b_indptr, b_indices,
     gate = _gate_scalars(a_indptr, a_indices, b_indptr, b_indices, row_ops,
                          row_ops_f, a_len, m=m)
     n_live = torch.sum(torch.where(stream_mask, a_len, 0), dtype=I32)
-    fixed = torch.zeros(5, dtype=I32, device=dev)   # dense-tile entries
-    pack = torch.cat([hist, fixed, gate, dia_pack,
+    pack = torch.cat([hist, dense_pack, gate, dia_pack,
                       torch.stack([n_live, torch.zeros_like(n_live)]),
                       tight_pack])
-    return rows_sorted, e, q_sorted, el, ops_sorted, nnz_init, pack, dia_mask
+    return (rows_sorted, e, q_sorted, el, ops_sorted, nnz_init, pack,
+            dia_mask) + tiles
 
 
 def _gate_scalars(a_indptr, a_indices, b_indptr, b_indices, row_ops,
@@ -485,6 +557,16 @@ def _decode(boundary_pos, t):
     return _count_le(boundary_pos, t.reshape(-1)).reshape(t.shape) - 1
 
 
+class Unpacked(NamedTuple):
+    """float64 operands of the expand stage: A's values (read through the
+    A-source map on the record channel) and B's columns and values,
+    gathered apart (a float64 value does not fit the packed record)."""
+
+    a_data: torch.Tensor
+    b_indices: torch.Tensor
+    b_data: torch.Tensor
+
+
 def _expand_chunk(e, p0, su, sa, pend, b_packed, chunk_start: int,
                   sid_base, G: int, W: int, n_cols: int):
     """The expand stage for chunk [chunk_start, chunk_start + G*W): each
@@ -492,8 +574,10 @@ def _expand_chunk(e, p0, su, sa, pend, b_packed, chunk_start: int,
     (the last record start p0 <= t, which is the reference's forward fill
     from the record starts, the winner among equal starts included), live
     while t < that record's pend; then one packed B-record gather per
-    live product. Returns (rid, col, val); dead slots carry col = n_cols
-    and val = 0."""
+    live product. ``b_packed`` is the (nnz, 2) int32 record of float32
+    values with ``sa`` the A value bits, or ``Unpacked`` float64 operands
+    with ``sa`` the A-source map. Returns (rid, col, val); dead slots carry
+    col = n_cols and val = 0."""
     dev = e.device
     CP = G * W
     t = chunk_start + _arange(CP, dev).reshape(G, W)
@@ -513,6 +597,12 @@ def _expand_chunk(e, p0, su, sa, pend, b_packed, chunk_start: int,
     live = has & (t < pw[rec])
     dead = ~live | (rid < 0)
     bsrc = torch.where(dead, 0, uw[rec] + t)
+    if isinstance(b_packed, Unpacked):
+        a_data, b_indices, b_data = b_packed
+        aval = a_data[torch.clamp(aw[rec], 0, a_data.shape[0] - 1)]
+        col = torch.where(dead, n_cols, b_indices[bsrc])
+        val = torch.where(dead, 0.0, aval * b_data[bsrc])
+        return rid, col.to(I32), val
     bp = b_packed[bsrc.reshape(-1)].reshape(G, W, 2)
     col = torch.where(dead, n_cols, bp[..., 0])
     bval = bp[..., 1].contiguous().view(torch.float32)
@@ -523,23 +613,36 @@ def _expand_chunk(e, p0, su, sa, pend, b_packed, chunk_start: int,
 
 def _sort_rect(rid, col, val, n_cols: int, pack_bits: int):
     """Sort each rectangle row by (rid, col) with every dead slot
-    (col >= n_cols) last, on the single packed key
-    (rid - rid0) << pack_bits | col (kernel K2)."""
+    (col >= n_cols) last (kernel K2). pack_bits > 0: one sort on the packed
+    key (rid - rid0) << pack_bits | col; dead slots keep rid0. pack_bits ==
+    0 (the packed key would overflow int32): two stable passes, by column
+    and then by rid - rid0 with dead slots at W, each key within its own
+    small range, which is the reference's two-key sort with dead rids at
+    INT_MAX; dead slots carry rid INT_MAX, as there."""
     rid0 = rid[:, :1]
-    keyk = ((rid - rid0) << pack_bits) | col
-    keyk = torch.where(col >= n_cols, INT_MAX, keyk).to(I32).contiguous()
-    keyk, (val_s,) = row_sort(keyk, [val.contiguous()])
-    dead = keyk == INT_MAX
-    col_s = torch.where(dead, n_cols, keyk & ((1 << pack_bits) - 1))
-    rid_s = torch.where(dead, rid0, rid0 + (keyk >> pack_bits))
-    return rid_s.to(I32), col_s.to(I32), val_s
+    if pack_bits > 0:
+        keyk = ((rid - rid0) << pack_bits) | col
+        keyk = torch.where(col >= n_cols, INT_MAX, keyk).to(I32).contiguous()
+        keyk, (moved,) = row_sort(keyk, [slot_payload(val)])
+        dead = keyk == INT_MAX
+        col_s = torch.where(dead, n_cols, keyk & ((1 << pack_bits) - 1))
+        rid_s = torch.where(dead, rid0, rid0 + (keyk >> pack_bits))
+        return rid_s.to(I32), col_s.to(I32), by_slot(val, moved)
+    W = col.shape[1]
+    dead = col >= n_cols
+    rel = torch.where(dead, W, rid - rid0).to(I32).contiguous()
+    col1, (rel1, moved1) = row_sort(col.to(I32).contiguous(),
+                                    [rel, slot_payload(val)])
+    key2, (col_s, moved) = row_sort(rel1, [col1, moved1])
+    rid_s = torch.where(key2 >= W, INT_MAX, rid0 + key2)
+    return rid_s.to(I32), col_s, by_slot(val, moved)
 
 
 def _sort_cols(col, val):
     """Single-key (col, val) row sort (kernel K2); level and finish widths
     are powers of two."""
-    col_s, (val_s,) = row_sort(col.contiguous(), [val.contiguous()])
-    return col_s, val_s
+    col_s, (moved,) = row_sort(col.contiguous(), [slot_payload(val)])
+    return col_s, by_slot(val, moved)
 
 
 def _row_last(rid_s, col_s, n_cols: int):
@@ -564,13 +667,14 @@ def _compact_rect(last, rid_s, col_s, run_sum):
     counts = torch.sum(last, 1, dtype=I32)
     t = _arange(W, col_s.device)[None, :]
     key = torch.where(last, rank, W + t).to(I32).contiguous()
-    pay = [col_s.contiguous(), run_sum.contiguous()]
+    pay = [col_s.contiguous(), slot_payload(run_sum)]
     if rid_s is not None:
         pay.insert(0, rid_s.contiguous())
     _, out = row_sort(key, pay)
+    val_c = by_slot(run_sum, out[-1])
     if rid_s is None:
-        return None, out[0], out[1], counts
-    return out[0], out[1], out[2], counts
+        return None, out[0], val_c, counts
+    return out[0], out[1], val_c, counts
 
 
 def compact_staged(rid_s, col_s, val_s, counts, *, n_cols: int):

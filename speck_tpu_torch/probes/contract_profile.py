@@ -3,8 +3,9 @@
     python -m speck_tpu_torch.probes.contract_profile
 
 K1 (``stream_contract``) at every shape the two spgemm paths launch it at
-(bench config 3 and the giant row; ``SHAPES``) and K3 (``contract_runs``)
-at esc_fixed's, on sorted random inputs (``contract_inputs``,
+(bench config 3 and the giant row; ``SHAPES``, float32, and the shapes of
+config 3 in float64) and K3 (``contract_runs``) at esc_fixed's in both
+dtypes, on sorted random inputs (``contract_inputs``,
 ``runs_inputs``), each checked against its plain version, then timed three
 ways, each over every shape before the next: one wrapper call between CUDA
 events (median and extremes of REPS calls); the host time a wrapper call
@@ -15,7 +16,7 @@ event time follows a profiler session. Beside them the bound: the bytes
 each input is read and each output written once, at 3.35 TB/s. The
 module uses only the wrappers' names and ``timing.card``/``cuda_ms_turns``,
 so the same file run inside an older tree of the package times that tree's
-kernels.
+kernels (its float64 shapes need a tree whose contracts take float64).
 """
 
 from __future__ import annotations
@@ -29,26 +30,41 @@ HBM_BYTES_PER_MS = 3.35e12 / 1e3
 N_COLS = 4096
 REPS = 21
 
-# K1: (R, W, rid kind) with the launches on the main paths (default
-# SpgemmConfig): bench config 3 and the bench's giant row; (4, 65536, row)
-# is the per-row case of the first design's measurement
-SHAPES = [(512, 8192, "plane"), (136, 8192, "plane"), (8, 16384, "row"),
-          (1, 32768, "row"), (64, 65536, "plane"), (16, 65536, "plane"),
-          (1, 1 << 23, "row"), (4, 65536, "row")]
-RUNS_SHAPES = [(65536, 2048), (64, 256)]
+# K1: (R, W, rid kind, value dtype) with the launches on the main paths
+# (default SpgemmConfig): bench config 3 and the bench's giant row;
+# (4, 65536, row) is the per-row case of the first design's measurement;
+# config 3's chunks and a giant finish in float64
+SHAPES = [(512, 8192, "plane", "float32"), (136, 8192, "plane", "float32"),
+          (8, 16384, "row", "float32"), (1, 32768, "row", "float32"),
+          (64, 65536, "plane", "float32"), (16, 65536, "plane", "float32"),
+          (1, 1 << 23, "row", "float32"), (4, 65536, "row", "float32"),
+          (512, 8192, "plane", "float64"), (136, 8192, "plane", "float64"),
+          (1, 1 << 23, "row", "float64")]
+RUNS_SHAPES = [(65536, 2048, "float32"), (64, 256, "float32"),
+               (65536, 2048, "float64")]
 
 
-def k1_bytes(R: int, W: int, kind: str) -> int:
+def k1_bytes(R: int, W: int, kind: str, dtype: str = "float32") -> int:
     """Device bytes of one K1 call: rid (a plane only), col and val read,
-    last and sums written."""
-    return (17 if kind == "plane" else 13) * R * W
+    last and sums written: 17 and 13 bytes a slot in float32, 25 and 21
+    in float64."""
+    vb = 8 if dtype == "float64" else 4
+    return ((4 if kind == "plane" else 0) + 4 + 2 * vb + 1) * R * W
 
 
-def contract_inputs(gen, R: int, W: int, kind: str, n_cols: int = N_COLS):
+def k3_bytes(R: int, W: int, dtype: str = "float32") -> int:
+    """Device bytes of one K3 call: col and val read, last and sums
+    written (13 bytes a slot in float32, 21 in float64)."""
+    return (5 + 2 * (8 if dtype == "float64" else 4)) * R * W
+
+
+def contract_inputs(gen, R: int, W: int, kind: str, dtype: str = "float32",
+                    n_cols: int = N_COLS):
     """(rid, col, val) on the card, rows sorted by (rid, col), the last
-    eighth of each row dead (col = n_cols). "plane": rid and col from one
-    sorted random key (short runs); "row": a per-row rid broadcast along W
-    and sorted columns below n_cols (runs of about W / n_cols)."""
+    eighth of each row dead (col = n_cols), values in ``dtype``. "plane":
+    rid and col from one sorted random key (short runs); "row": a per-row
+    rid broadcast along W and sorted columns below n_cols (runs of about
+    W / n_cols)."""
     dev = torch.device("cuda")
     if kind == "row":
         col = torch.sort(torch.randint(0, n_cols, (R, W), generator=gen,
@@ -65,23 +81,28 @@ def contract_inputs(gen, R: int, W: int, kind: str, n_cols: int = N_COLS):
     col = torch.where(dead, n_cols, col).to(torch.int32).contiguous()
     if kind != "row":
         rid = torch.where(dead, rid[:, :1], rid).to(torch.int32).contiguous()
-    return rid, col, torch.randn((R, W), generator=gen, device=dev)
+    return rid, col, torch.randn((R, W), generator=gen, device=dev,
+                                 dtype=getattr(torch, dtype))
 
 
-def runs_inputs(gen, R: int, W: int, n_cols: int = N_COLS):
+def runs_inputs(gen, R: int, W: int, dtype: str = "float32",
+                n_cols: int = N_COLS):
     """(col, val) on the card for K3: sorted columns, the last eighth
-    dead."""
+    dead, values in ``dtype``."""
     dev = torch.device("cuda")
     col = torch.sort(torch.randint(0, n_cols, (R, W), generator=gen,
                                    device=dev, dtype=torch.int32), 1).values
     dead = torch.arange(W, device=dev)[None, :] >= W - W // 8
     col = torch.where(dead, n_cols, col).to(torch.int32).contiguous()
-    return col, torch.randn((R, W), generator=gen, device=dev)
+    return col, torch.randn((R, W), generator=gen, device=dev,
+                            dtype=getattr(torch, dtype))
 
 
 def sums_close(got, want, mag) -> bool:
-    """fp32 sums taken in another order: within 1e-6 + 1e-5 of the run
-    prefix's sum of magnitudes."""
+    """Sums taken in another order: within 1e-6 + 1e-5 of the run prefix's
+    sum of magnitudes in float32, 1e-12 of it in float64."""
+    if got.dtype == torch.float64:
+        return bool(((got - want).abs() <= 1e-300 + 1e-12 * mag).all())
     return bool(((got - want).abs() <= 1e-6 + 1e-5 * mag).all())
 
 
@@ -139,30 +160,30 @@ def main():
     gen = torch.Generator(device="cuda")
     gen.manual_seed(2)
     cases = []  # (what, fn, bytes), each checked against its plain version
-    for R, W, kind in SHAPES:
-        rid, col, val = contract_inputs(gen, R, W, kind)
+    for R, W, kind, dtype in SHAPES:
+        rid, col, val = contract_inputs(gen, R, W, kind, dtype)
         last_k, sum_k = contract.stream_contract(rid, col, val, N_COLS)
         last_p, sum_p = contract.contract_plain(rid, col, val, N_COLS)
         mag = contract.contract_plain(rid, col, val.abs(), N_COLS)[1]
         if not (torch.equal(last_k, last_p)
                 and sums_close(sum_k, sum_p, mag)):
             raise RuntimeError(f"K1 differs from contract_plain at "
-                               f"{(R, W, kind)}")
-        cases.append((f"K1 stream_contract ({R}, {W}) rid={kind}",
+                               f"{(R, W, kind, dtype)}")
+        cases.append((f"K1 stream_contract ({R}, {W}) rid={kind} {dtype}",
                       lambda a=(rid, col, val): contract.stream_contract(
-                          *a, N_COLS), k1_bytes(R, W, kind)))
-    for R, W in RUNS_SHAPES:
-        col, val = runs_inputs(gen, R, W)
+                          *a, N_COLS), k1_bytes(R, W, kind, dtype)))
+    for R, W, dtype in RUNS_SHAPES:
+        col, val = runs_inputs(gen, R, W, dtype)
         last_k, sum_k = contract.contract_runs(col, val, N_COLS)
         last_p, sum_p = contract.contract_runs_plain(col, val, N_COLS)
         mag = contract.contract_runs_plain(col, val.abs(), N_COLS)[1]
         if not (torch.equal(last_k, last_p)
                 and sums_close(sum_k, sum_p, mag)):
             raise RuntimeError(f"K3 differs from contract_runs_plain at "
-                               f"{(R, W)}")
-        cases.append((f"K3 contract_runs ({R}, {W})",
+                               f"{(R, W, dtype)}")
+        cases.append((f"K3 contract_runs ({R}, {W}) {dtype}",
                       lambda a=(col, val): contract.contract_runs(*a, N_COLS),
-                      13 * R * W))
+                      k3_bytes(R, W, dtype)))
     del last_k, sum_k, last_p, sum_p, mag
     torch.cuda.empty_cache()
     # events and host times first, then every profiler session: a CUDA-event

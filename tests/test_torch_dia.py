@@ -554,17 +554,17 @@ def test_float64_whole_matrix_routes(route, x64):
     assert (ptp.dia.off_a is not None) == (route == "sdia")
 
 
-def test_float64_still_raises_off_the_dia_routes():
+def test_float64_still_raises_off_the_dia_routes(x64):
+    """float64 off the whole-matrix DIA routes no longer raises: a band
+    with outlier rows takes the same route as in JAX, and an unstructured
+    input streams, both equal to JAX's within rtol 1e-12."""
     rs = np.random.RandomState(9)
-    h = pt.HostCSR.from_scipy(_mixed(n=512, seed=9))
-    A = pt.device_put_csr(h, np.float64, device="cpu")
-    with pytest.raises(NotImplementedError, match="float64"):
-        pt.plan_spgemm(A, A)
+    pj, ptp = _run_both(_mixed(n=512, seed=9), dtype=np.float64)
+    assert ptp.dia is None
     r = sp.random(100, 100, 0.05, format="csr", random_state=rs)
-    B = pt.device_put_csr(pt.HostCSR.from_scipy(r), np.float64,
-                          device="cpu")
-    with pytest.raises(NotImplementedError, match="float64"):
-        pt.plan_spgemm(B, B, pt.SpgemmConfig(enable_dense=False))
+    pj, ptp = _run_both(r, kw=dict(enable_dense=False), dtype=np.float64)
+    assert ptp.dia is None and ptp.dia_rows is None
+    assert ptp.stream.layout.n_stream_rows > 0
 
 
 # ---------------------------------------------------------------------------

@@ -205,11 +205,19 @@ def test_entry_on_cpu_matches_graft_entry():
 
 
 def test_esc_fixed_float64_raises():
-    a, b = _entry_ab()
-    args = list(tentry.esc_args(pt.HostCSR.from_host(a),
-                                pt.HostCSR.from_host(b), "cpu"))
-    args[2] = args[2].double()
-    with pytest.raises(NotImplementedError, match="float64"):
+    """float64 no longer raises: the entry's matrices in float64 give
+    float64 values within 1e-9 of the oracle; mixed value dtypes raise
+    ValueError."""
+    a, b = (pt.HostCSR.from_host(x) for x in _entry_ab())
+    args = list(tentry.esc_args(a, b, "cpu", np.float64))
+    out = tesc.esc_fixed(*args, cap=256, n_cols=b.cols)
+    assert out[2].dtype == torch.float64
+    r = pt.compare_csr(pt.oracle_spgemm(a, b),
+                       padded_to_host_csr(*out, a.rows, b.cols),
+                       compare_data=True, rel_tol=1e-9)
+    assert r.ok, r.message
+    args[6] = args[6].float()
+    with pytest.raises(ValueError, match="mixed"):
         tesc.esc_fixed(*args, cap=256, n_cols=b.cols)
 
 
@@ -221,7 +229,7 @@ def test_contract_runs_cpu_does_not_count_and_rejects(rng):
     assert contract.RUNS_LAUNCHES == n
     with pytest.raises(ValueError):
         contract.contract_runs(torch.from_numpy(col),
-                               torch.from_numpy(val).double(), N_COLS)
+                               torch.from_numpy(val).half(), N_COLS)
     with pytest.raises(ValueError):
         contract.contract_runs(torch.from_numpy(col)[:, :32],
                                torch.from_numpy(val), N_COLS)

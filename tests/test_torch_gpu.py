@@ -403,3 +403,123 @@ def test_dia_routes_on_card_match_the_cpu(cuda_device, case, new_values):
     tol = (dict(rtol=1e-12, atol=1e-13) if dtype == torch.float64
            else dict(rtol=1e-5, atol=1e-6))
     np.testing.assert_allclose(cc.data, cp_.data, **tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("R,W,kind", [
+    (16, 8192, False), (2, 65536, True), (5, 3000, False), (3, 4097, True),
+    (2, 5 * 4096 + 7, "rid_edge"), (1, 1 << 18, "one_col"),
+    (3, 70001, "one_col"), (1, 1 << 20, True), (9001, 1, False)])
+def test_contract_kernel_double_matches_plain(rs, cuda_device, R, W, kind):
+    """K1's double variant: the mask exact, the sums within 1e-12 of the
+    run prefix's sum of magnitudes (float64 sums in another order), two
+    launches bit-identical; rows over many tiles run the look-back over
+    the three-word status records."""
+    rid, col, val, per_row = contract_rect(rs, R, W, kind)
+    val = rs.standard_normal((R, W))
+    args, dev_args, last_k, sum_k = contract_on_card(cuda_device, rid, col,
+                                                     val, per_row)
+    assert sum_k.dtype == torch.float64
+    last_p, sum_p = contract.contract_plain(*args, N_COLS)
+    assert torch.equal(last_k.cpu(), last_p)
+    mag = contract.contract_plain(args[0], args[1], args[2].abs(), N_COLS)[1]
+    err = (sum_k.cpu() - sum_p).abs()
+    assert bool((err <= 1e-300 + 1e-12 * mag).all()), float(err.max())
+    last_2, sum_2 = contract.stream_contract(*dev_args, N_COLS)
+    torch.cuda.synchronize()
+    assert torch.equal(last_k, last_2)
+    assert torch.equal(sum_k.view(torch.int64), sum_2.view(torch.int64))
+    assert contract.LAUNCH_SHAPES[(R, W, "row" if per_row else "plane",
+                                   "float64")] > 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("R,W", [(64, 256), (5, 3000), (2, 70000), (4097, 1),
+                                 (1, 1 << 20)])
+def test_contract_runs_kernel_double_matches_plain(rs, cuda_device, R, W):
+    _, col, _ = sorted_rect(rs, R, W, const_rid=True)
+    col[0, 0] = -1
+    col[-1, -1] = -2
+    col, val = torch.from_numpy(col), torch.from_numpy(
+        rs.standard_normal((R, W)))
+    last_p, sum_p = contract.contract_runs_plain(col, val, N_COLS)
+    dcol, dval = col.to(cuda_device), val.to(cuda_device)
+    last_k, sum_k = contract.contract_runs(dcol, dval, N_COLS)
+    last_2, sum_2 = contract.contract_runs(dcol, dval, N_COLS)
+    torch.cuda.synchronize()
+    assert contract.RUNS_LAUNCH_SHAPES[(R, W, "float64")] >= 2
+    assert torch.equal(last_k.cpu(), last_p)
+    mag = contract.contract_runs_plain(col, val.abs(), N_COLS)[1]
+    err = (sum_k.cpu() - sum_p).abs()
+    assert bool((err <= 1e-300 + 1e-12 * mag).all()), float(err.max())
+    assert torch.equal(sum_k.view(torch.int64), sum_2.view(torch.int64))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_sort_rect_two_keys_on_card_equals_plain(rs, cuda_device, dtype):
+    """The unpacked two-key chunk sort (pack_bits == 0) through K2 on the
+    card: rid, col and values equal to the plain sorts' on the CPU (both
+    stable)."""
+    from speck_tpu_torch.ops.stream import _sort_rect
+
+    G, W, n_cols = 8, 8192, 1 << 21
+    rid = (np.sort(rs.integers(0, 900, (G, W)), 1)
+           + 5000 * np.arange(G)[:, None]).astype(np.int32)
+    col = rs.integers(0, n_cols, (G, W)).astype(np.int32)
+    col[rs.random((G, W)) < 0.1] = n_cols
+    val = torch.from_numpy(rs.standard_normal((G, W))).to(dtype)
+    args = (torch.from_numpy(rid), torch.from_numpy(col), val)
+    n0 = bitonic.LAUNCHES
+    got = _sort_rect(*(x.to(cuda_device) for x in args), n_cols, 0)
+    torch.cuda.synchronize()
+    assert bitonic.LAUNCHES == n0 + 2
+    want = _sort_rect(*args, n_cols, 0)
+    for a, b in zip(got, want):
+        assert torch.equal(a.cpu(), b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["fp64", "fp64_two_phase", "pack_bits0",
+                                  "host_analysis_off", "blocked"])
+def test_general_stream_on_card_matches_oracle(cuda_device, case):
+    """The general stream on the card: float64 (K1 in double), the two-key
+    chunk sort, the dense gate counted on the device, row blocks."""
+    import scipy.sparse as sp
+
+    dtype, tol = torch.float32, 2e-3
+    kw = dict(stream_width=64, product_budget=1 << 12)
+    a = b = make_powerlaw(3000, avg=6, seed=3)
+    if case.startswith("fp64"):
+        dtype, tol = torch.float64, 1e-9
+        if case == "fp64_two_phase":
+            kw["fused_staging_budget"] = 0
+    elif case == "pack_bits0":
+        r = np.random.RandomState(41)
+        a = pt.HostCSR.from_scipy(sp.random(150, 400, 0.05, format="csr",
+                                            random_state=r))
+        b = pt.HostCSR.from_scipy(sp.random(400, 131072, 0.002, format="csr",
+                                            random_state=r))
+        kw = dict(enable_dense=False, stream_width=65536,
+                  product_budget=1 << 17)
+    elif case == "host_analysis_off":
+        kw = dict(host_analysis=False)
+    else:
+        kw["block_products"] = 1 << 14
+    cfg = pt.SpgemmConfig(**kw)
+    A = pt.device_put_csr(a, dtype, cuda_device)
+    B = A if b is a else pt.device_put_csr(b, dtype, cuda_device)
+    n0 = dict(contract.LAUNCH_SHAPES)
+    C = pt.spgemm(A, B, cfg)
+    Ch = pt.device_get_csr(C)
+    assert C.data.dtype == dtype
+    new = {k for k, v in contract.LAUNCH_SHAPES.items() if v > n0.get(k, 0)}
+    assert new and all(k[3] == str(dtype)[6:] for k in new)
+    if case == "pack_bits0":
+        assert pt.plan_spgemm(A, B, cfg).stream.pack_bits == 0
+    if case == "blocked":
+        with pytest.raises(pt.ProductOverflow):
+            pt.plan_spgemm(A, B, cfg)
+    r = pt.compare_csr(pt.oracle_spgemm(a, b), Ch, compare_data=True,
+                       rel_tol=tol)
+    assert r.ok, r.message

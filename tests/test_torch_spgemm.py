@@ -150,10 +150,34 @@ def test_spgemm_entry_point_and_cli(tmp_path):
 
 
 def test_float64_raises():
+    """float64 no longer raises: the direct-copy input streams in float64
+    (the unpacked B gathers) with float64 values out, equal to JAX's under
+    jax_enable_x64 within rtol 1e-12 and to the oracle within 1e-9. Value
+    dtypes other than float32 and float64 still raise."""
+    import jax
+
     h = pt.HostCSR.from_host(_direct())
     A = pt.device_put_csr(h, np.float64, device="cpu")
-    with pytest.raises(NotImplementedError, match="float64"):
-        pt.spgemm(A, A, pt.SpgemmConfig(**_BASE))
+    kw = dict(_BASE, stream_width=64, product_budget=1 << 10)
+    Ct = pt.device_get_csr(pt.spgemm(A, A, pt.SpgemmConfig(**kw)))
+    old = jax.config.read("jax_enable_x64")
+    jax.config.update("jax_enable_x64", True)
+    try:
+        Aj = st.device_put_csr(_direct(), np.float64)
+        Cj = st.device_get_csr(st.spgemm(Aj, Aj, st.SpgemmConfig(**kw)))
+    finally:
+        jax.config.update("jax_enable_x64", old)
+    assert Ct.data.dtype == np.float64
+    np.testing.assert_array_equal(np.asarray(Ct.col_ids, np.int64),
+                                  np.asarray(Cj.col_ids, np.int64))
+    np.testing.assert_allclose(Ct.data, Cj.data, rtol=1e-12, atol=1e-13)
+    r = pt.compare_csr(pt.oracle_spgemm(h, h), Ct, compare_data=True,
+                       rel_tol=1e-9)
+    assert r.ok, r.message
+    A16 = pt.DeviceCSR(indptr=A.indptr, indices=A.indices,
+                       data=A.data.half(), shape=A.shape, nnz=A.nnz)
+    with pytest.raises(NotImplementedError, match="float16"):
+        pt.spgemm(A16, A16, pt.SpgemmConfig(**_BASE))
 
 
 def test_banded_input_raises_where_dia_would_run():
