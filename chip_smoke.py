@@ -6,7 +6,9 @@ fixed-cap ESC (esc_fixed) at bench config 1's size, the diagonal-plane
 routes of spgemm on bench configs 1, 1b, the 27-point stencil and the fp64
 banded config, the general stream (a 2^20-row graph with the two-key
 chunk sort, float64, row blocks, the dense-tile gate counted on the
-device) and the gather probes, and check each against its reference.
+device), the dense tiles, the accumulator, config 4 with the device
+transpose and the Galerkin product, and the gather probes, and check each
+against its reference.
 
     python3 chip_smoke.py
 
@@ -72,10 +74,23 @@ Phases (any failure raises and exits non-zero; nothing falls back):
      double). Each cell: the cold call, the median of 3 warm calls,
      GFLOPS, nnz(C)/s, peak memory, synchronizing calls, and K1's, K2's
      and K3's launches by shape and dtype;
-  7b. K1 at every shape phases 4, 4b, 7c and 7d launched it at (and the
-     shapes of probes/contract_profile.py's table), K2 at every other shape
-     phases 4, 4b, 7, 7c and 7d launched it at, checked and timed as in
-     phase 3, each beside its bound;
+  7e. (after 7d, before 7b) the routes of the dense tiles, the accumulator
+     and the transpose (SLICE_CELLS, then galerkin_cell), each against the
+     oracle (structure exact, values rel_tol 2e-3): config 1 under
+     enable_dia=False (pure dense tiles: full_cover, no stream rows, the
+     gather emit, K2 and no K1), config 1b under enable_dia=False (dense
+     tiles beside stream rows: the scatter emit, K1 and K2), the bench's
+     giant row under enable_accum=True (the accumulator; its warm time
+     beside phase 4b's default call), config 4 (A = config 1, P =
+     make_prolongation(65536, 16384): A·P streams every row, transpose(P)
+     equal to scipy's P.T exactly, one K2 launch at (1, 65536, 2), then
+     Pᵀ·(A·P)). Each: the cold call, the median of 3 warm calls, GFLOPS,
+     nnz(C)/s, peak memory, synchronizing calls, K1's and K2's launches by
+     shape;
+  7b. K1 at every shape phases 4, 4b, 7c, 7d and 7e launched it at (and
+     the shapes of probes/contract_profile.py's table), K2 at every other
+     shape phases 4, 4b, 7, 7c, 7d and 7e launched it at, checked and timed
+     as in phase 3, each beside its bound;
   8. the gather probes' mains (python -m speck_tpu_torch.probes...) with
      their launch counts, then sublane_gather (N = 2^22, S = 2048) and
      run_copy (G = 512, K = 64, L = 128 over a 2^21 source) against their
@@ -85,9 +100,10 @@ Phases (any failure raises and exits non-zero; nothing falls back):
      and K3 at each shape timed before, their device time (the kernel and
      the clear of its scratch, medians of cp.REPS calls) beside the bound;
      one warm giant-row call: its device time, K1's and K2's share of it
-     and its longest kernels; one warm call of each phase 7c cell and of
-     the 2^20 graph and config 3 in float64 (7d): its device time, idle
-     share (1 - device / host time) and five longest kernels; then the
+     and its longest kernels; one warm call of each phase 7c cell, of
+     the 2^20 graph and config 3 in float64 (7d) and of the dense-banded
+     and accumulator cells (7e): its device time, idle share (1 - device /
+     host time) and five longest kernels; then the
      probes of phase 8 in turns once
      more, to show what a profiler session before them changes, and each
      probe's and its library call's device time (medians of 5 profiled
@@ -96,10 +112,10 @@ Bounds (bound_ms): the bytes each function must move (inputs read once,
 outputs written once) over 3.35 TB/s, the H100 SXM's device memory rate
 (NVIDIA's data sheet); every kernel here is bound by bytes. library_ms is
 one PyTorch call computing the same function, where there is one; the port
-never calls it. Launches in the kernels' line: K1's over phases 4, 4b and
-7c (config 1b), its double variant's over the float64 cells of 7d, K2's
-over 4, 4b, 7, 7c and 7d, K3's over 7 and its double variant's over 7d's
-esc_fixed. The line's ms is the CUDA-event
+never calls it. Launches in the kernels' line: K1's over phases 4, 4b, 7c
+(config 1b) and 7e, its double variant's over the float64 cells of 7d,
+K2's over 4, 4b, 7, 7c, 7d and 7e, K3's over 7 and its double variant's
+over 7d's esc_fixed. The line's ms is the CUDA-event
 time around one wrapper call, as plain_ms is; device_ms is the device time by
 torch.profiler from phase 9 (K1, K3 and the probes; null for K2): where a
 call is shorter on the card than its wrapper's host time, the event time
@@ -342,6 +358,7 @@ def timed_ms(fn):
 CONFIG1 = ("make_banded", (65536, 16, 3))
 CONFIG1B = ("make_mixed", ())
 CONFIG3 = ("make_powerlaw", (262144, 12, 2.2, 7))
+GIANT = ("make_giant_row", ())
 
 # the diagonal-plane cells (phase 7c): name, generator call, value dtype,
 # rel_tol against the oracle
@@ -364,6 +381,263 @@ GENERAL_CELLS = [
     ("config 3 host_analysis off", CONFIG3, torch.float32, 2e-3,
      {"host_analysis": False}),
 ]
+
+
+# the cells of phase 7e, the routes the dense tiles, the accumulator and
+# the transpose opened: name, generator call, value dtype, rel_tol against
+# the oracle, SpgemmConfig keywords (config 4 and the Galerkin product are
+# their own cell, galerkin_cell)
+SLICE_CELLS = [
+    ("dense banded", CONFIG1, torch.float32, 2e-3, {"enable_dia": False}),
+    ("dense mixed", CONFIG1B, torch.float32, 2e-3, {"enable_dia": False}),
+    ("giant row accumulator", GIANT, torch.float32, 2e-3,
+     {"enable_accum": True}),
+]
+
+
+def launch_counts():
+    """The launch counts and shapes of K1 and K2 since reset_counts."""
+    from speck_tpu_torch.ops import bitonic, contract
+
+    return ({"stream_contract": contract.LAUNCHES,
+             "row_sort": bitonic.LAUNCHES},
+            (dict(contract.LAUNCH_SHAPES), dict(bitonic.LAUNCH_SHAPES)))
+
+
+def products_ab(a, b):
+    """Products of A·B, exactly: B's row length summed over A's nonzeros."""
+    b_len = np.diff(np.asarray(b.row_offsets, np.int64))
+    return int(b_len[np.asarray(a.col_ids, np.int64)].sum())
+
+
+def check_oracle(pt, name, ref, C, dtype, rel_tol):
+    """C (on the card) against the oracle: finite, C's dtype the input's,
+    structure exact, values within rel_tol; returns the host C."""
+    check(C.data.dtype == dtype, f"{name}: C holds {C.data.dtype} values")
+    Ch = pt.device_get_csr(C)
+    check(bool(np.isfinite(Ch.data).all()), f"non-finite values in {name}")
+    r = pt.compare_csr(ref, Ch)
+    check(r.ok, f"{name} structure differs from the oracle: {r.message}")
+    r = pt.compare_csr(ref, Ch, compare_data=True, rel_tol=rel_tol)
+    check(r.ok, f"{name} values differ from the oracle: {r.message}")
+    return Ch
+
+
+def warm_calls(fn, nnz, name):
+    """Three warm calls of fn (each ending in a synchronize): their times
+    and median; each call's nnz(C) must equal the cold call's."""
+    warm = []
+    for _ in range(3):
+        ms, Cw = timed_ms(fn)
+        check(Cw.nnz == nnz, f"{name}: warm call nnz differs")
+        warm.append(ms)
+        del Cw
+    return warm, statistics.median(warm)
+
+
+def slice_cell(pt, smi, name, gen_call, dtype, rel_tol, kw):
+    """Phase 7e, one cell: spgemm of the matrix with itself under
+    SpgemmConfig(**kw) through the entry points, the route asserted (pure
+    dense tiles with the gather emit; dense tiles beside stream rows with
+    the scatter emit, K1 and K2; the accumulator), the result against the
+    oracle, the cold call, the median of 3 warm calls, GFLOPS, nnz(C)/s,
+    peak memory, synchronizing calls, K1's and K2's launches by shape."""
+    import importlib
+
+    sp_mod = importlib.import_module("speck_tpu_torch.ops.spgemm")
+    h, ref, t_gen, t_ref = host_and_oracle(pt, gen_call)
+    cfg = pt.SpgemmConfig(**kw)
+    A = pt.device_put_csr(h, dtype, "cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base_mem = torch.cuda.memory_allocated()
+    emits = {"dense_gather_emit": 0, "dense_emit": 0}
+    real = {k: getattr(sp_mod, k) for k in emits}
+
+    def counted(k):
+        def f(*a, **k2):
+            emits[k] += 1
+            return real[k](*a, **k2)
+        return f
+
+    reset_counts()
+    plan = None
+
+    def cold():
+        nonlocal plan
+        plan = pt.plan_spgemm(A, A, cfg)
+        return plan.execute()
+
+    for k in emits:
+        setattr(sp_mod, k, counted(k))
+    try:
+        cold_ms, C = timed_ms(cold)
+    finally:
+        for k in emits:
+            setattr(sp_mod, k, real[k])
+    peak = torch.cuda.max_memory_allocated()
+    launches, shapes = launch_counts()
+    ss, d = plan.stream, plan.dense
+    check(plan.dia is None, f"{name} took a DIA route")
+    if name == "dense banded":
+        check(d is not None and d.full_cover and not plan.groups
+              and ss.layout.n_stream_rows == 0
+              and emits["dense_gather_emit"] == 1,
+              f"{name} did not run pure dense with the gather emit")
+        check(launches["row_sort"] > 0 and launches["stream_contract"] == 0,
+              f"{name}: launches {launches}")
+    elif name == "dense mixed":
+        check(d is not None and not d.full_cover
+              and ss.layout.n_stream_rows > 0 and emits["dense_emit"] > 0,
+              f"{name} did not run dense tiles beside stream rows")
+        check(all(v > 0 for v in launches.values()),
+              f"a kernel was not launched on {name}: {launches}")
+    else:
+        check(ss.n_accum > 0 and ss.accum["n_chunks2"] > 0,
+              f"{name} did not take the accumulator")
+        check(launches["row_sort"] > 0, f"{name}: launches {launches}")
+    if d is not None:
+        route = (f"dense tiles: {int((d.valids > 0).sum())} of "
+                 f"{-(-h.rows // d.tile_rows)} tiles in "
+                 f"{len(d.boffs) - 1} batches, windows kw={d.kw} cw={d.cw} "
+                 f"la={d.la} lb={d.lb}, full_cover={d.full_cover}; "
+                 f"{ss.layout.n_stream_rows} stream rows; emits {emits}")
+    else:
+        route = ""
+    if ss.n_accum:
+        parts = ss.accum["parts"]
+        route += ("; " if route else "") + (f"accumulator: {ss.n_accum} rows, {len(parts)} parts, "
+                  f"span classes {[c[:2] for pp in parts for c in pp['classes']]}"
+                  f", {ss.accum['n_chunks2']} chunks of {ss.accum['G']} x "
+                  f"{ss.accum['W']}; {ss.layout.n_stream_rows} stream rows, "
+                  f"dense tiles {d is not None}")
+    nnz = plan.nnz
+    t0 = time.perf_counter()
+    check_oracle(pt, name, ref, C, dtype, rel_tol)
+    t_ref += time.perf_counter() - t0
+    del C, plan
+    warm, warm_ms = warm_calls(lambda: pt.spgemm(A, A, cfg), nnz, name)
+    syncs = sync_count(lambda: pt.spgemm(A, A, cfg))
+    products = products_of(h)
+    dname = str(dtype).replace("torch.", "")
+    line = (f"{name} A*A {dname} [{smi}]: m={h.rows} nnz(A)={h.nnz} "
+            f"nnz(C)={nnz} products={products}; {route}; cold "
+            f"{cold_ms:.1f} ms, warm median of 3 {warm_ms:.2f} ms (all "
+            f"{[round(w, 2) for w in warm]}), GFLOPS "
+            f"{2 * products / (warm_ms * 1e6):.3f}, nnz(C)/s "
+            f"{nnz / (warm_ms * 1e-3):.4g}, peak memory "
+            f"{peak / 2**30:.2f} GiB ({(peak - base_mem) / 2**30:.2f} GiB "
+            f"above the inputs), synchronizing calls {syncs}; launches in "
+            f"the cold call {launches}; K1 by (R, W, rid, dtype) "
+            f"{dict(sorted(shapes[0].items()))}; K2 by (R, W, payloads) "
+            f"{dict(sorted(shapes[1].items()))}; oracle and its checks "
+            f"{t_ref:.2f} s")
+    print(line, flush=True)
+    del A
+    torch.cuda.empty_cache()
+    return {"name": name, "warm_ms": warm_ms, "cold_ms": cold_ms,
+            "launches": launches, "shapes": shapes, "h": h, "dtype": dtype,
+            "cfg": cfg, "line": line}
+
+
+def galerkin_cell(pt, smi):
+    """Phase 7e, config 4 and the Galerkin product: A = bench config 1, P =
+    make_prolongation(65536, 16384); A·P through spgemm (the stream, as
+    the reference plans it), Pᵀ by the device transpose (equal to scipy's
+    P.T exactly), then Pᵀ·(A·P), each against scipy; cold and warm times
+    (median of 3), GFLOPS, nnz(C)/s, peak memory, synchronizing calls, K1's
+    and K2's launches by shape over the three calls."""
+    import scipy.sparse as sp
+
+    from speck_tpu_torch.utils.generators import make_prolongation
+
+    a, _, _, _ = host_and_oracle(pt, CONFIG1)
+    t0 = time.perf_counter()
+    p = make_prolongation(65536, 16384)
+    As, Ps = a.to_scipy(), p.to_scipy()
+    ap = (As @ Ps).tocsr()
+    ap.sort_indices()
+    pts = Ps.T.tocsr()
+    pts.sort_indices()
+    g = (pts @ ap).tocsr()
+    g.sort_indices()
+    refs = [pt.HostCSR.from_scipy(x) for x in (ap, pts, g)]
+    t_ref = time.perf_counter() - t0
+    dtype = torch.float32
+    A = pt.device_put_csr(a, dtype, "cuda")
+    P = pt.device_put_csr(p, dtype, "cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base_mem = torch.cuda.memory_allocated()
+    reset_counts()
+    plan = None
+
+    def cold_ap():
+        nonlocal plan
+        plan = pt.plan_spgemm(A, P)
+        return plan.execute()
+
+    ap_cold, AP = timed_ms(cold_ap)
+    check(plan.dia is None and plan.dense is None and plan.stream is not None
+          and plan.stream.layout.n_stream_rows == a.rows,
+          "config 4's A·P did not stream every row")
+    lo = plan.stream.layout
+    route = (f"A·P streams: W={lo.W} G={lo.G} chunks={lo.n_chunks} "
+             f"n_wide={lo.n_wide} stream rows {lo.n_stream_rows}")
+    del plan
+    pt_cold, PT = timed_ms(lambda: pt.transpose(P))
+    g_cold, G = timed_ms(lambda: pt.spgemm(PT, AP))
+    peak = torch.cuda.max_memory_allocated()
+    launches, shapes = launch_counts()
+    check(all(v > 0 for v in launches.values()),
+          f"a kernel was not launched on config 4: {launches}")
+    check(shapes[1].get((1, 65536, 2), 0) >= 1,
+          f"the transpose did not launch K2 at (1, 65536, 2): {shapes[1]}")
+    t0 = time.perf_counter()
+    check_oracle(pt, "config 4 A·P", refs[0], AP, dtype, 2e-3)
+    pth = pt.device_get_csr(PT)
+    check(np.array_equal(np.asarray(pth.row_offsets, np.int64), pts.indptr)
+          and np.array_equal(np.asarray(pth.col_ids, np.int64), pts.indices)
+          and np.array_equal(pth.data, pts.data.astype(np.float32)),
+          "transpose(P) differs from scipy's P.T")
+    check_oracle(pt, "Galerkin product", refs[2], G, dtype, 2e-3)
+    t_ref += time.perf_counter() - t0
+    nnz = (AP.nnz, PT.nnz, G.nnz)
+    del AP, PT, G
+    ap_warm, ap_ms = warm_calls(lambda: pt.spgemm(A, P), nnz[0], "A·P")
+    AP = pt.spgemm(A, P)
+    pt_warm, pt_ms = warm_calls(lambda: pt.transpose(P), nnz[1], "Pᵀ")
+    PT = pt.transpose(P)
+    g_warm, g_ms = warm_calls(lambda: pt.spgemm(PT, AP), nnz[2], "PᵀAP")
+    syncs = (sync_count(lambda: pt.spgemm(A, P)),
+             sync_count(lambda: pt.transpose(P)),
+             sync_count(lambda: pt.spgemm(PT, AP)))
+    prods = (products_ab(a, p), products_ab(refs[1], refs[0]))
+    line = (f"config 4 and Galerkin f32 [{smi}]: A m={a.rows} nnz(A)="
+            f"{a.nnz}, P {p.rows}x{p.cols} nnz(P)={p.nnz}; {route}; "
+            f"A·P nnz(C)={nnz[0]} products={prods[0]} cold {ap_cold:.1f} ms, "
+            f"warm median of 3 {ap_ms:.2f} ms (all "
+            f"{[round(w, 2) for w in ap_warm]}), GFLOPS "
+            f"{2 * prods[0] / (ap_ms * 1e6):.3f}, nnz(C)/s "
+            f"{nnz[0] / (ap_ms * 1e-3):.4g}; transpose(P) equal to scipy's "
+            f"P.T, cold {pt_cold:.2f} ms, warm median of 3 {pt_ms:.3f} ms "
+            f"(all {[round(w, 3) for w in pt_warm]}); Pᵀ·(A·P) "
+            f"{g.shape[0]}x{g.shape[1]} nnz(C)={nnz[2]} products={prods[1]} "
+            f"cold {g_cold:.1f} ms, warm median of 3 {g_ms:.2f} ms (all "
+            f"{[round(w, 2) for w in g_warm]}), GFLOPS "
+            f"{2 * prods[1] / (g_ms * 1e6):.3f}, nnz(C)/s "
+            f"{nnz[2] / (g_ms * 1e-3):.4g}; peak memory "
+            f"{peak / 2**30:.2f} GiB ({(peak - base_mem) / 2**30:.2f} GiB "
+            f"above the inputs); synchronizing calls (A·P, Pᵀ, PᵀAP) "
+            f"{syncs}; launches in the cold calls {launches}; K1 by (R, W, "
+            f"rid, dtype) {dict(sorted(shapes[0].items()))}; K2 by (R, W, "
+            f"payloads) {dict(sorted(shapes[1].items()))}; scipy's products "
+            f"and the checks {t_ref:.2f} s")
+    print(line, flush=True)
+    del A, P, AP, PT
+    torch.cuda.empty_cache()
+    return {"name": "config 4 and Galerkin", "launches": launches,
+            "shapes": shapes, "line": line}
 
 
 def dia_cell(pt, smi, name, gen_call, dtype, rel_tol):
@@ -701,16 +975,10 @@ def giant_phase(pt, smi):
     """Phase 4b: spgemm on the bench's giant row against the oracle; returns
     the launch counts and shapes of the cold call and the summary line."""
     from speck_tpu_torch.ops import bitonic, contract
-    from speck_tpu_torch.utils.generators import make_giant_row
 
-    t0 = time.perf_counter()
-    h = make_giant_row()
-    t_gen = time.perf_counter() - t0
+    h, ref, t_gen, t_ref = host_and_oracle(pt, GIANT)
     check((h.rows, h.nnz) == (40000, 50084873),
           f"the giant row is {(h.rows, h.nnz)}, not the bench's")
-    t0 = time.perf_counter()
-    ref = pt.oracle_spgemm(h, h)
-    t_ref = time.perf_counter() - t0
     cfg = pt.SpgemmConfig()
     A = pt.device_put_csr(h, torch.float32, "cuda")
     torch.cuda.synchronize()
@@ -765,7 +1033,8 @@ def giant_phase(pt, smi):
             f"{2 * products / (warm_ms * 1e6):.3f}; launches {launches}")
     print(line, flush=True)
     return {"launches": launches, "k1_shapes": k1_shapes,
-            "k2_shapes": k2_shapes, "line": line, "h": h, "cfg": cfg}
+            "k2_shapes": k2_shapes, "line": line, "h": h, "cfg": cfg,
+            "warm_ms": warm_ms}
 
 
 def giant_profile(pt, giant, smi):
@@ -1035,6 +1304,18 @@ def main():
                                                             "float64")
     torch.cuda.empty_cache()
 
+    phase("7e")
+    # 7e. the dense tiles, the accumulator, the transpose: the cells of
+    # SLICE_CELLS through spgemm, then config 4 and the Galerkin product
+    slice_cells = [slice_cell(pt, smi, *c) for c in SLICE_CELLS]
+    print(f"giant row warm call: default config (the sort stream) "
+          f"{giant['warm_ms']:.1f} ms, enable_accum=True "
+          f"{slice_cells[2]['warm_ms']:.1f} ms "
+          f"({giant['warm_ms'] / slice_cells[2]['warm_ms']:.2f}x) [{smi}]",
+          flush=True)
+    slice_cells.append(galerkin_cell(pt, smi))
+    torch.cuda.empty_cache()
+
     phase("7b")
     # 7b. K1 at every shape phases 4, 4b, 7c and 7d launched it at (and the
     # shapes of the probe's table), K2 at every other shape of 4, 4b, 7, 7c
@@ -1043,7 +1324,7 @@ def main():
               | set(onebee_k1))
     k2_all = (set(stream_shapes) | set(giant["k2_shapes"]) | set(esc_shapes)
               | set(onebee_k2) | set(esc64_shapes))
-    for cell in gen_cells:
+    for cell in gen_cells + slice_cells:
         k1_all |= set(cell["shapes"][0])
         k2_all |= set(cell["shapes"][1])
     for shape in sorted(k1_all):
@@ -1089,6 +1370,9 @@ def main():
     # one profiled warm call of the 2^20 graph and of config 3 in float64
     gen_lines = [dia_profile(pt, cell, smi) for cell in gen_cells[:2]]
     torch.cuda.empty_cache()
+    # and of the dense-banded and accumulator cells (7e)
+    slice_lines = [dia_profile(pt, slice_cells[i], smi) for i in (0, 2)]
+    torch.cuda.empty_cache()
     probe_turns(probe_cases, probe_launches, smi,
                 " (after the profiled phase)")
     # each probe's device time and its library call's, without the host
@@ -1115,7 +1399,9 @@ def main():
          "replaces": "speck_tpu/ops/pallas_kernels.py:122",
          "launches": (launches["stream_contract"]
                       + giant["launches"]["stream_contract"]
-                      + onebee["stream_contract"]),
+                      + onebee["stream_contract"]
+                      + sum(c["launches"]["stream_contract"]
+                            for c in slice_cells)),
          "max_abs_err": max(v[0] for v in k1.values()),
          "ms": k1[k1_main][1], "device_ms": sum(k1_dev[k1_main].values()),
          "plain_ms": k1[k1_main][2],
@@ -1137,7 +1423,8 @@ def main():
          "launches": (launches["row_sort"] + giant["launches"]["row_sort"]
                       + esc_launches["row_sort"] + onebee["row_sort"]
                       + sum(c["launches"]["row_sort"] for c in gen_cells)
-                      + esc64_launches["row_sort"]),
+                      + esc64_launches["row_sort"]
+                      + sum(c["launches"]["row_sort"] for c in slice_cells)),
          "max_abs_err": max(v[0] for v in k2.values()),
          "ms": k2[(512, 8192, 1)][1], "device_ms": None,
          "plain_ms": k2[(512, 8192, 1)][2],
@@ -1182,6 +1469,10 @@ def main():
     for line in gen_lines:
         print(line, flush=True)
     print(esc64_line, flush=True)
+    for cell in slice_cells:
+        print(cell["line"], flush=True)
+    for line in slice_lines:
+        print(line, flush=True)
     phase("end")
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -8,12 +8,13 @@ kernels' plain torch versions; without a card the default raises. It
 mirrors ``speck_tpu``'s public names and plans; it imports torch, numpy
 and scipy, never jax.
 
-Ported so far: the product-stream route (analysis, planning, chunked
-count-and-stage, wide-row levels and finish, gather emission), the
-direct-copy route, the diagonal-plane routes (DIA, sparse DIA and the
-per-row DIA split, ``ops/dia.py``), the fixed-cap expand-sort-contract
-``ops.esc.esc_fixed`` with its entry (``entry.entry``), and the gather
-probes (``probes/``). Other routes raise ``NotImplementedError`` (see
+Ported: every single-device route of ``spgemm`` (the product stream with
+its wide-row levels and finish, the direct copy, the dense tiles
+``ops/dense.py``, the dense-span accumulator, the diagonal-plane routes
+``ops/dia.py``), the device transpose (``transpose``), the fixed-cap
+expand-sort-contract ``ops.esc.esc_fixed`` with its entry
+(``entry.entry``), and the gather probes (``probes/``). The TPU A/B knobs
+raise ``NotImplementedError``; the multi-chip mesh is not ported (see
 ROADMAP.md).
 """
 
@@ -23,6 +24,7 @@ from .formats.loader import DataLoader, load_matrix
 from .formats.mtx import load_mtx
 from .ops.device_csr import DeviceCSR, device_get_csr, device_put_csr
 from .ops.spgemm import SpgemmPlan, plan_spgemm, spgemm
+from .ops.transpose import transpose
 from .utils.compare import compare_csr
 from .utils.config import Config, ProductOverflow, SpgemmConfig
 from .utils.device import DeviceInfo, device_info
@@ -35,7 +37,7 @@ __all__ = [
     "HostCSR", "HostCOO", "coo_to_csr", "csr_transpose",
     "load_mtx", "load_hicsr", "store_hicsr", "DataLoader", "load_matrix",
     "DeviceCSR", "device_put_csr", "device_get_csr",
-    "spgemm", "SpgemmPlan", "plan_spgemm", "ProductOverflow",
+    "spgemm", "SpgemmPlan", "plan_spgemm", "ProductOverflow", "transpose",
     "Config", "SpgemmConfig", "Timings", "compare_csr", "oracle_spgemm",
     "DeviceInfo", "device_info",
 ]

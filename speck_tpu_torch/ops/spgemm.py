@@ -1,43 +1,44 @@
 """SpGEMM orchestrator (torch port of ``speck_tpu/ops/spgemm.py``): the
-product-stream, direct-copy and diagonal-plane routes.
+product-stream, direct-copy, dense-tile, accumulator and diagonal-plane
+routes.
 
 Stages (stage names as in the reference's timings):
 
   1. analysis     host numpy (HostCSR attached) or ops/analysis.analyze
   2. planning     the routing gates, then stream.plan_device_stream: one
                   device pass, ONE readback
-  3. counting     one fused count-and-stage pass per (G, W) chunk
-                  (stream.stream_chunk)
+  3. counting     the dense tiles (dense.dense_tiles), one fused
+                  count-and-stage pass per (G, W) chunk
+                  (stream.stream_chunk), the accumulator (_run_accum)
   4. wide rows    merge levels + the wide finish (_run_wide), with one
                   small readback of the wide rows' entry totals
-  5. offsets      cumsum + ONE nnz readback
-  6. emission     gather emit of the staged chunks, or the two-phase
-                  numeric chunks; wide rows and direct rows scatter
+  5. offsets      cumsum + ONE readback of nnz and the widest row
+  6. emission     gather emit of the staged chunks (or of the dense
+                  tiles when they cover every row), or the two-phase
+                  numeric chunks; dense, wide, accumulator and direct
+                  rows scatter
 
 Row routing as the reference's: a matrix whose diagonal band passes the
 gates runs whole over diagonal planes (ops/dia.py: contiguous DIA over a
 band, ``_plan_dia``; sparse DIA over present-offset lists, ``_plan_sdia``;
 planes, convolution and staging in counting, the meta readback in allocC,
 the emit in numeric); otherwise the per-row DIA split (``DiaRowGroup``)
-takes the banded bulk beside the stream and direct rows.
+takes the banded bulk, dense-eligible row tiles take window products
+(``DenseGroup``, ops/dense.py), huge rows of bounded output span take the
+accumulator (``cfg.enable_accum``), and the rest stream or copy.
 
 It keeps exactly the reference's host readbacks (the planning pack or the
-early gate, the wide-row totals, the nnz; on the DIA routes the diagonal
-bitmap and the meta) and adds none: no boolean-mask indexing,
-``.nonzero()`` or ``.item()`` on the device path.
+early gate, the wide-row totals, the nnz and widest row; on the DIA routes
+the diagonal bitmap and the meta) and adds none: no boolean-mask
+indexing, ``.nonzero()`` or ``.item()`` on the device path.
 
 float32 and float64 values run every route; float64 takes the
 reference's unpacked B gathers on the stream (``stream.Unpacked``). A
 call past ``block_products`` runs as row blocks (``_spgemm_blocked``).
-
-Routes that are not ported yet fail loudly: ``plan_spgemm`` raises
-``NotImplementedError`` naming the dense-tile route where the planning
-pass counts tiles that the reference would take (the device eligibility
-of ``stream.plan_device_stream``, after the host pre-reject
-``_host_dense_plausible``), and ``check_supported`` does the same for the
-accumulator and the TPU A/B knobs. The contract and the row sorts always
-run the hand-written kernels on a CUDA device (ops/contract.py,
-ops/bitonic.py).
+``check_supported`` raises ``NotImplementedError`` for the TPU A/B knobs
+(the multi-chip mesh is a separate entry point, not ported). The contract
+and the row sorts always run the hand-written kernels on a CUDA device
+(ops/contract.py, ops/bitonic.py).
 """
 
 from __future__ import annotations
@@ -54,7 +55,7 @@ from ..utils.config import ProductOverflow, SpgemmConfig
 from ..utils.timings import StageTimer, Timings, sync_tensors
 from .analysis import (analyze, cumsum1d, host_analyze, host_band_extremes,
                        host_gate_lite)
-from .dense import dense_gather_emit
+from .dense import dense_emit, dense_gather_emit, dense_tiles
 from .device_csr import DeviceCSR, host_of
 from .dia import (
     DiaState,
@@ -84,6 +85,7 @@ from .stream import (
     LevelPlan,
     StreamLayout,
     Unpacked,
+    accum_finalize,
     build_srec,
     compact_staged,
     plan_device_stream,
@@ -91,6 +93,7 @@ from .stream import (
     plan_layout,
     plan_levels,
     stream_chunk,
+    stream_chunk_accum,
     stream_chunk_numeric,
     stream_emit,
     stream_gather_emit,
@@ -122,16 +125,14 @@ def _unported(what: str):
 
 def check_supported(cfg: SpgemmConfig, A: DeviceCSR, B: DeviceCSR) -> None:
     """Raise NotImplementedError for inputs and knobs the port does not
-    run yet, instead of ignoring them: value dtypes other than float32
-    and float64, mixed dtypes, the accumulator and the TPU A/B knobs."""
+    run, instead of ignoring them: value dtypes other than float32 and
+    float64, mixed dtypes and the TPU A/B knobs."""
     for X in (A, B):
         if X.data.dtype not in (torch.float32, torch.float64):
             raise _unported(f"{X.data.dtype} values")
     if A.data.dtype != B.data.dtype:
         raise _unported(f"mixed value dtypes ({A.data.dtype} and "
                         f"{B.data.dtype})")
-    if cfg.enable_accum:
-        raise _unported("the dense-span accumulator route (EnableAccum)")
     if cfg.stream_expand_impl != "fill":
         raise _unported(f"StreamExpandImpl={cfg.stream_expand_impl!r}")
     if cfg.stream_compact_impl != "sort":
@@ -143,6 +144,40 @@ def check_supported(cfg: SpgemmConfig, A: DeviceCSR, B: DeviceCSR) -> None:
     if f < 2 or f & (f - 1):
         raise _unported(f"StreamLevelFactor={f} (merge-level widths must "
                         "stay powers of two)")
+
+
+@dataclasses.dataclass(frozen=True)
+class DenseGroup:
+    """Dense-eligible row tiles (ops/dense.py) in dispatch batches: batch b
+    covers tiles [boffs[b], boffs[b + 1]) of the padded tile arrays (on
+    the device; only their count crossed to the host). Tile i covers rows
+    [r0s[i], r0s[i] + valids[i]). kw, cw, la and lb are the effective
+    windows, fitted to the eligible tiles (a class ladder; the config
+    values are only ceilings). full_cover: every row tile is eligible, so
+    tile i covers rows [i * tile_rows, ...) in order (the gather emit's
+    precondition)."""
+
+    r0s: torch.Tensor
+    kbases: torch.Tensor
+    cbases: torch.Tensor
+    valids: torch.Tensor
+    boffs: List[int]
+    tile_rows: int
+    kw: int
+    cw: int
+    la: int
+    lb: int
+    full_cover: bool = False
+
+    @property
+    def staging_slots(self) -> int:
+        return len(self.r0s) * self.tile_rows * self.cw
+
+    def batches(self):
+        for b in range(len(self.boffs) - 1):
+            s, e = self.boffs[b], self.boffs[b + 1]
+            yield (self.r0s[s:e], self.kbases[s:e], self.cbases[s:e],
+                   self.valids[s:e])
 
 
 @dataclasses.dataclass(frozen=True)
@@ -185,9 +220,23 @@ class StreamState:
     finish: Optional[dict] = None
     # concatenated staged (cols, vals), cached for repeated execute()
     staged_flat: Optional[tuple] = None
-    # dense-eligible tiles the planning pass counted (0 on a streamed
-    # plan), None where the host pre-reject left the count off
+    # dense-eligible tiles the planning pass counted, None where the host
+    # pre-reject left the count off
     dense_elig: Optional[int] = None
+    # the accumulator region (huge rows of bounded output span, sorted
+    # first): its product space, records and host part plan
+    n_accum: int = 0
+    e2: Optional[torch.Tensor] = None
+    p02: Optional[torch.Tensor] = None
+    su2: Optional[torch.Tensor] = None
+    sa2: Optional[torch.Tensor] = None
+    pend2: Optional[torch.Tensor] = None
+    src2: Optional[torch.Tensor] = None
+    sid_bases2: Optional[torch.Tensor] = None
+    cmin_s: Optional[torch.Tensor] = None   # (m,) first output column
+    abase: Optional[torch.Tensor] = None    # part-local accumulator bases
+    accum: Optional[dict] = None            # n_chunks2, G, W, parts
+    accum_bufs: Optional[list] = None       # staged finalize outputs
 
 
 @dataclasses.dataclass
@@ -221,6 +270,8 @@ class SpgemmPlan:
     sum_products: object        # () float
     stream: Optional[StreamState] = None
     groups: List[DirectGroup] = dataclasses.field(default_factory=list)
+    dense: Optional[DenseGroup] = None
+    dense_staged: Optional[List[tuple]] = None
     max_count: int = 0
     dia: Optional[DiaState] = None
     dia_rows: Optional[DiaRowGroup] = None
@@ -249,6 +300,25 @@ class SpgemmPlan:
             return self._execute_dia(A, B, use_staged, timings, track)
         total = max(self.nnz, 1)
         ss = self.stream
+        d = self.dense
+        # every row in a dense tile, staged: C by gather from the tiles
+        if (d is not None and use_staged and self.dense_staged is not None
+                and not self.groups and d.full_cover and self.nnz > 0
+                and (ss is None or ss.layout.n_stream_rows == 0)):
+            with StageTimer(timings, "spGEMMNumeric", track) as st:
+                if len(self.dense_staged) == 1:
+                    _, cols_c, vals_c = self.dense_staged[0]
+                else:
+                    cols_c = torch.cat([x[1].reshape(-1, d.cw)
+                                        for x in self.dense_staged])
+                    vals_c = torch.cat([x[2].reshape(-1, d.cw)
+                                        for x in self.dense_staged])
+                c_cols, c_vals = dense_gather_emit(
+                    cols_c, vals_c, self.row_offsets, tile_rows=d.tile_rows,
+                    cw=d.cw, m=m, nnz=self.nnz)
+                st.stop(c_cols, c_vals)
+            return DeviceCSR(indptr=self.row_offsets, indices=c_cols,
+                             data=c_vals, shape=(m, n), nnz=self.nnz)
         gather_emit = (use_staged and ss is not None and ss.fused
                        and ss.staged is not None and ss.layout.total_q > 0
                        and self.nnz > 0)
@@ -268,6 +338,25 @@ class SpgemmPlan:
                 c_cols = torch.zeros(total + 1, dtype=I32, device=dev)
                 c_vals = torch.zeros(total + 1, dtype=A.data.dtype,
                                      device=dev)
+            if d is not None:
+                staged = use_staged and self.dense_staged is not None
+                if not staged:
+                    apk, bpk = _dense_operands(A, B)
+                for bi, (r0s, kbs, cbs, _) in enumerate(d.batches()):
+                    if staged:
+                        counts, cols_c, vals_c = self.dense_staged[bi]
+                    else:
+                        _, (counts, cols_c, vals_c) = dense_tiles(
+                            r0s, kbs, cbs, A.indptr, A.indices, A.data,
+                            B.indptr, B.indices, B.data,
+                            torch.zeros(m + 1, dtype=I32, device=dev), apk,
+                            bpk, tile_rows=d.tile_rows, kw=d.kw, cw=d.cw,
+                            la=d.la, lb=d.lb, m=m, k_dim=A.shape[1],
+                            n_cols=n, densify=self.cfg.dense_densify)
+                    c_cols, c_vals = dense_emit(
+                        r0s, counts, cols_c, vals_c, self.row_offsets,
+                        c_cols, c_vals, tile_rows=d.tile_rows, cw=d.cw, m=m,
+                        emit_cap=_pow2(self.max_count))
             if (ss is not None and ss.layout.n_chunks > 0
                     and ss.layout.total_q > 0):
                 lo = ss.layout
@@ -287,10 +376,10 @@ class SpgemmPlan:
                         c_cols, c_vals, stg = stream_chunk_numeric(
                             ss.rows_sorted, ss.e, ss.p0, ss.su, sa_n,
                             ss.pend, b_packed, self.row_offsets, c_cols,
-                            c_vals, c * CP, ss.sid_bases[c], lo.n_wide,
-                            G=Gc, W=W,
+                            c_vals, c * CP, ss.sid_bases[c],
+                            ss.n_accum + lo.n_wide, G=Gc, W=W,
                             n_cols=n, pack_bits=ss.pack_bits,
-                            stage_wide=has_wide)
+                            stage_wide=has_wide, window=CP)
                         if stg is not None:
                             wide_staged.append(stg)
                     if reuse_levels:
@@ -300,6 +389,17 @@ class SpgemmPlan:
                             ss, wide_staged, None, n, count=False,
                             max_width=self.cfg.stream_max_width)[1]
                 for rid_out, col_c, val_c, fcnt in level_bufs:
+                    rid_b = rid_out[:, None].expand(col_c.shape)
+                    c_cols, c_vals = stream_emit(
+                        ss.rows_sorted, rid_b, col_c, val_c, fcnt,
+                        self.row_offsets, c_cols, c_vals)
+            if ss is not None and ss.accum:
+                if use_staged and ss.accum_bufs is not None:
+                    accum_bufs = ss.accum_bufs
+                else:
+                    accum_bufs = _run_accum(ss, A, B, None, n,
+                                            count=False)[1]
+                for rid_out, col_c, val_c, fcnt in accum_bufs:
                     rid_b = rid_out[:, None].expand(col_c.shape)
                     c_cols, c_vals = stream_emit(
                         ss.rows_sorted, rid_b, col_c, val_c, fcnt,
@@ -417,10 +517,24 @@ def _stream_operands(A: DeviceCSR, B: DeviceCSR, src, sa=None):
     return src, Unpacked(A.data, B.indices, B.data)
 
 
-def _offsets_from_counts(nnz_row: torch.Tensor) -> torch.Tensor:
-    """Row offsets (int32, nnz(C) last)."""
+def _dense_operands(A: DeviceCSR, B: DeviceCSR):
+    """The dense tiles' packed (col, value bits) records of A and B
+    (shared when B is A), or (None, None) for float64 values, which the
+    tiles gather unpacked."""
+    if not packable(A.data):
+        return None, None
+    apk = pack_csr_arrays(A.indices, A.data)
+    if B.indices is A.indices and B.data is A.data:
+        return apk, apk
+    return apk, pack_csr_arrays(B.indices, B.data)
+
+
+def _offsets_from_counts(nnz_row: torch.Tensor):
+    """Row offsets (int32, nnz(C) last) and the meta [nnz(C), widest row]
+    for the one readback."""
     zero = torch.zeros(1, dtype=I32, device=nnz_row.device)
-    return torch.cat([zero, cumsum1d(nnz_row)])
+    offs = torch.cat([zero, cumsum1d(nnz_row)])
+    return offs, torch.stack([offs[-1], torch.amax(nnz_row)])
 
 
 def _wide_slices(ss: StreamState, wide_staged):
@@ -476,6 +590,9 @@ def _run_wide(ss: StreamState, wide_staged, nnz_row, n_cols: int,
         count = False
     wcol, wval, wcnt = _wide_slices(ss, wide_staged)
     rid_in, rid_in_h = ss.wide_rid_in, ss.wide_rid_in_h
+    # rids are sorted-row ids; the accumulator rows sort first, so the
+    # wide rows' segment ids start at n_accum
+    na = ss.n_accum
     W_in = lo.W
     deciding = ss.finish is None
     if deciding:
@@ -485,9 +602,9 @@ def _run_wide(ss: StreamState, wide_staged, nnz_row, n_cols: int,
     li = 0
     while True:
         if deciding:
-            totals = wide_entry_totals(wcnt, rid_in, n_wide=lo.n_wide
+            totals = wide_entry_totals(wcnt, rid_in - na, n_wide=lo.n_wide
                                        ).cpu().numpy().astype(np.int64)
-            live_loc = np.unique(rid_in_h)
+            live_loc = np.unique(rid_in_h) - na
             live_tot = totals[live_loc]
             keep_live = live_tot > 0
             live_loc, live_tot = live_loc[keep_live], live_tot[keep_live]
@@ -497,7 +614,7 @@ def _run_wide(ss: StreamState, wide_staged, nnz_row, n_cols: int,
             if _pow2(int(live_tot.max())) <= max_width:
                 ss.finish.update(
                     ladder_levels=li, W_in=W_in,
-                    classes=_finish_classes(live_tot, live_loc, dev))
+                    classes=_finish_classes(live_tot, live_loc + na, dev))
                 deciding = False
         if not deciding and li >= ss.finish["ladder_levels"]:
             classes = ss.finish["classes"]
@@ -539,6 +656,98 @@ def _run_wide(ss: StreamState, wide_staged, nnz_row, n_cols: int,
         rid_in_h = rid_out_h[keep]
         W_in = W_in * lp.F
         li += 1
+    return nnz_row, bufs
+
+
+def _plan_accum(a_hist: np.ndarray, a_psum: np.ndarray, budget: int):
+    """Host layout of the accumulator region from the planning pack: span
+    classes in the device sort order (descending), split greedily into
+    parts whose padded accumulator slots fit ``budget`` (a lone row wider
+    than the budget gets a part of its own). Returns (n_accum, total_p2,
+    parts, abase): parts = [dict(row_lo, row_hi, slots, classes=[(R_pad,
+    S, off, rid_of_out)])], abase each accumulator row's part-local slot
+    base (local, so that it stays inside int32; the chunk pass drops the
+    rows outside the active part)."""
+    classes = [(k, int(a_hist[k]), 1 << k)
+               for k in range(N_QCLASS - 1, -1, -1) if a_hist[k]]
+    n_accum = int(a_hist.sum())
+    total_p2 = int(a_psum.astype(np.int64).sum())
+    if total_p2 >= 2 ** 31:
+        raise ProductOverflow(
+            f"accumulator region of {total_p2} products exceeds the 2^31 "
+            "int32 ceiling; row-block the multiply")
+    parts = []
+    abase = np.zeros(max(n_accum, 1), np.int32)
+    row = 0
+    cur = None
+    for _, rows, span in classes:
+        done = 0
+        while done < rows:
+            if cur is None:
+                cur = dict(row_lo=row, row_hi=row, slots=0, classes=[])
+            avail = (budget - cur["slots"]) // span
+            if avail < 1:
+                if cur["classes"]:
+                    parts.append(cur)
+                    cur = None
+                    continue
+                avail = 1
+            take = min(rows - done, avail)
+            R_pad = _pow2(take)
+            rid = np.full(R_pad, -1, np.int32)
+            rid[:take] = np.arange(row, row + take)
+            abase[row: row + take] = (cur["slots"]
+                                      + np.arange(take, dtype=np.int64)
+                                      * span).astype(np.int32)
+            cur["classes"].append((R_pad, span, cur["slots"], rid))
+            cur["slots"] += R_pad * span
+            row += take
+            done += take
+            cur["row_hi"] = row
+    if cur is not None and cur["classes"]:
+        parts.append(cur)
+    return n_accum, total_p2, parts, abase
+
+
+def _run_accum(ss: StreamState, A: DeviceCSR, B: DeviceCSR, nnz_row,
+               n_cols: int, count: bool, sa=None):
+    """Drive the accumulator region: per part, every chunk's products
+    scatter-add into their rows' span windows (stream_chunk_accum), then
+    each span class finalizes into staged compacted rows. ``sa`` is the
+    planning pass's record channel (None: gathered again, for new
+    values). Returns (nnz_row, staged buffers)."""
+    ac = ss.accum
+    if not ac or ac["n_chunks2"] == 0:
+        return nnz_row, []
+    dev = ss.rows_sorted.device
+    if nnz_row is None:
+        nnz_row = torch.zeros(ss.rows_sorted.shape[0] + 1, dtype=I32,
+                              device=dev)
+        count = False
+    sa_ch, b_rec = _stream_operands(A, B, ss.src2, sa)
+    G, W = ac["G"], ac["W"]
+    CP = G * W
+    bufs = []
+    for part in ac["parts"]:
+        # float64 sums whatever the value type (one trailing slot takes
+        # the dropped adds): a column of a hub row takes thousands of
+        # atomic adds in no set order, and a float32 running sum of them
+        # drifts past the oracle's tolerance on the bench's giant row
+        acc = torch.zeros(part["slots"] + 1, dtype=torch.float64,
+                          device=dev)
+        pres = torch.zeros(part["slots"] + 1, dtype=I32, device=dev)
+        for c in range(ac["n_chunks2"]):
+            acc, pres = stream_chunk_accum(
+                ss.e2, ss.p02, ss.su2, sa_ch, ss.pend2, b_rec, ss.abase,
+                ss.cmin_s, acc, pres, c * CP, ss.sid_bases2[c],
+                part["row_lo"], part["row_hi"], G=G, W=W, n_cols=n_cols)
+        acc = acc.to(A.data.dtype)
+        for R_pad, S, off, rid in part["classes"]:
+            nnz_row, buf = accum_finalize(
+                ss.rows_sorted, acc[off: off + R_pad * S],
+                pres[off: off + R_pad * S], ss.cmin_s, rid, nnz_row,
+                R_c=R_pad, S_c=S, count=count)
+            bufs.append(buf)
     return nnz_row, bufs
 
 
@@ -943,10 +1152,10 @@ def plan_spgemm(A: DeviceCSR, B: DeviceCSR,
         # rides it instead, from build_srec's src)
         a32 = (A.data.contiguous().view(I32) if packable(A.data)
                else torch.zeros_like(A.indices))
-        # the sorted tile arrays (last) feed the dense-tile route, which
-        # raises below wherever the pass counts an eligible tile
+        use_accum = bool(cfg.enable_accum and B.canonical)
         (rows_sorted, e, q_sorted, el, ops_sorted, nnz_init, pack,
-         dia_mask, *_tiles) = plan_device_stream(
+         dia_mask, t_r0, t_kb, t_cb, t_valid, e2, q2_sorted,
+         cmin_sorted) = plan_device_stream(
             A.indptr, A.indices, a32, B.indptr, B.indices, stats.row_ops,
             stats.row_ops_f, stats.a_len, min_q=cfg.stream_min_q,
             direct_ok=direct_ok, m=m, w0=cfg.stream_width,
@@ -956,17 +1165,23 @@ def plan_spgemm(A: DeviceCSR, B: DeviceCSR,
             dia_itemsize=A.data.dtype.itemsize,
             use_dense=use_dense and max_tiles > 0, tile_rows=tr,
             kw_max=cfg.dense_kw, cw_max=cfg.dense_cw, la_max=cfg.dense_la,
-            lb_max=cfg.dense_lb, max_tiles=max_tiles)
+            lb_max=cfg.dense_lb, max_tiles=max_tiles, use_accum=use_accum,
+            accum_min_ops=cfg.accum_min_ops,
+            accum_span_cap=cfg.accum_span_cap)
         pack_h = pack.cpu().numpy()  # the ONE planning host sync
         s_hist = pack_h[:N_QCLASS]
         d_hist = pack_h[N_QCLASS: 2 * N_QCLASS]
-        n_elig = int(pack_h[4 * N_QCLASS])
+        a_hist = pack_h[2 * N_QCLASS: 3 * N_QCLASS]
+        a_psum = pack_h[3 * N_QCLASS: 4 * N_QCLASS]
+        n_elig, kw_e, cw_e, la_e, lb_e = (
+            int(x) for x in pack_h[4 * N_QCLASS: 4 * N_QCLASS + 5])
         (a_dmin, a_dmax, b_dmin, b_dmax, sp_sat, mxrow_sat, sp_exact) = (
             int(x) for x in pack_h[4 * N_QCLASS + 5: 4 * N_QCLASS + 12])
         # per-row DIA split: the robust band and the routed row count
         dr_dlo_a, dr_dhi_a, dr_dlo_b, dr_dhi_b, n_dia = (
             int(x) for x in pack_h[4 * N_QCLASS + 12: 4 * N_QCLASS + 17])
-        n_live = int(pack_h[4 * N_QCLASS + 17])
+        n_live, n_live2 = (
+            int(x) for x in pack_h[4 * N_QCLASS + 17: 4 * N_QCLASS + 19])
         tight_h = pack_h[4 * N_QCLASS + 19:]
         W, total_q, n_wide_t, r_wide_t = (int(x) for x in tight_h[:4])
         if not gate_done:
@@ -977,25 +1192,28 @@ def plan_spgemm(A: DeviceCSR, B: DeviceCSR,
                     return _plan_dia(A, B, cfg, timings, stats, a_dmin,
                                      b_dmin, *spans, track)
             _check_limits(cfg, sp_sat, mxrow_sat)
-        if n_elig > 0:
-            # the planning pass counted tiles the reference takes dense
-            raise _unported(f"the dense-tile route (EnableDense: {n_elig} "
-                            "eligible tiles)")
+        n_accum_h = int(a_hist.sum())
         if n_wide_t <= N_WSEG_PACK:
             wide_segs = tight_h[4: 4 + n_wide_t].astype(np.int64)
         else:
             # past the pack's window: ONE extra fetch of the wide rows' ops
-            wide_ops = ops_sorted[:n_wide_t].cpu().numpy().astype(np.int64)
+            wide_ops = ops_sorted[n_accum_h: n_accum_h + n_wide_t
+                                  ].cpu().numpy().astype(np.int64)
             wide_segs = -(-wide_ops // W)
         layout = plan_layout(s_hist, d_hist, W, cfg.product_budget,
                              total_q=total_q, n_wide=n_wide_t,
                              r_wide=r_wide_t, wide_segs=wide_segs)
         lplans = plan_levels(layout, F=cfg.stream_level_factor,
                              max_width=cfg.stream_max_width)
+        # the accumulator region sorts first: every layout-derived row
+        # offset (wide rids, direct class starts) shifts by n_accum
+        n_accum, total_p2, accum_parts, abase_h = _plan_accum(
+            a_hist, a_psum, cfg.accum_budget)
 
         groups: List[DirectGroup] = []
         max_chunk_rows = 1
         for cap, start, count in layout.direct_classes:
+            start = start + n_accum
             full = max(1, 4 * cfg.product_budget // cap)
             rpc = _bucket_rows(count, full)
             max_chunk_rows = max(max_chunk_rows, rpc)
@@ -1011,6 +1229,34 @@ def plan_spgemm(A: DeviceCSR, B: DeviceCSR,
         rows_padded = torch.cat(
             [rows_sorted, torch.zeros(max_chunk_rows, dtype=I32,
                                       device=dev)])
+
+        dense_grp: Optional[DenseGroup] = None
+        if n_elig > 0:
+            db = max(1, cfg.dense_tiles_per_dispatch)
+            n_full, tail = divmod(n_elig, db)
+            k = n_full * db + (_pow2(tail) if tail else 0)
+            boffs = [i * db for i in range(n_full + 1)]
+            if tail:
+                boffs.append(k)
+            if k > t_r0.shape[0]:
+                padn = k - t_r0.shape[0]
+
+                def padded(x, fill):
+                    return torch.cat([x, torch.full((padn,), fill, dtype=I32,
+                                                    device=dev)])
+
+                t_r0, t_kb, t_cb, t_valid = (
+                    padded(t_r0, m), padded(t_kb, 0), padded(t_cb, 0),
+                    padded(t_valid, 0))
+
+            def ceil128(v):
+                return max(128, -(-int(v) // 128) * 128)
+
+            dense_grp = DenseGroup(
+                r0s=t_r0[:k], kbases=t_kb[:k], cbases=t_cb[:k],
+                valids=t_valid[:k], boffs=boffs, tile_rows=tr,
+                kw=ceil128(kw_e), cw=ceil128(cw_e), la=_pow2(max(8, la_e)),
+                lb=_pow2(max(8, lb_e)), full_cover=(n_elig == -(-m // tr)))
 
         pack_bits = int(n + 1).bit_length()
         if (W // cfg.stream_min_q) * (1 << pack_bits) >= 2**31:
@@ -1032,10 +1278,12 @@ def plan_spgemm(A: DeviceCSR, B: DeviceCSR,
         else:
             p0 = su = sa = src = pend = sid_bases = \
                 torch.zeros(1, dtype=I32, device=dev)
-        # fused staging: 3 int32 planes per stream slot
-        fused = 3 * layout.total_q <= cfg.fused_staging_budget
-        wide_rid_h = np.repeat(np.arange(layout.n_wide, dtype=np.int32),
-                               layout.wide_segs)
+        # fused staging: 3 int32 planes per stream slot and the dense tiles
+        staging = 3 * layout.total_q + (dense_grp.staging_slots
+                                        if dense_grp else 0)
+        fused = staging <= cfg.fused_staging_budget
+        wide_rid_h = n_accum + np.repeat(
+            np.arange(layout.n_wide, dtype=np.int32), layout.wide_segs)
         ss = StreamState(
             layout=layout, lplans=lplans, rows_sorted=rows_sorted,
             rows_padded=rows_padded, e=e, q_sorted=q_sorted, el=el,
@@ -1043,7 +1291,29 @@ def plan_spgemm(A: DeviceCSR, B: DeviceCSR,
             sid_bases=sid_bases, pack_bits=pack_bits,
             fused=fused, wide_rid_in=torch.as_tensor(wide_rid_h, device=dev),
             wide_rid_in_h=wide_rid_h,
-            dense_elig=n_elig if use_dense and max_tiles > 0 else None)
+            dense_elig=n_elig if use_dense and max_tiles > 0 else None,
+            n_accum=n_accum)
+        if n_accum and total_p2:
+            # the accumulator's chunks take the stream's full budget (a
+            # short stream would otherwise cut them to its own size)
+            G2 = max(G, cfg.product_budget // W)
+            n_chunks2 = -(-total_p2 // (G2 * W))
+            p02, su2, sa2, src2, pend2 = build_srec(
+                A.indptr, A.indices, a32, B.indptr[:-1],
+                B.indptr[1:] - B.indptr[:-1], rows_sorted, e2, q2_sorted,
+                m=m, nl=_pow2(max(n_live2, 1)))
+            cks = torch.arange(n_chunks2, dtype=I32, device=dev) * (G2 * W)
+            ss.e2, ss.p02, ss.su2, ss.sa2 = e2, p02, su2, sa2
+            ss.pend2, ss.src2 = pend2, src2
+            ss.sid_bases2 = torch.searchsorted(p02, cks, out_int32=True)
+            ss.cmin_s = cmin_sorted
+            ss.abase = torch.as_tensor(abase_h, device=dev)
+            for part in accum_parts:
+                part["classes"] = [
+                    (R_pad, S, off, torch.as_tensor(rid, device=dev))
+                    for R_pad, S, off, rid in part["classes"]]
+            ss.accum = dict(n_chunks2=n_chunks2, parts=accum_parts, G=G2,
+                            W=W)
 
         # the per-row DIA split's group (its device gate passed: n_dia > 0)
         dia_grp: Optional[DiaRowGroup] = None
@@ -1076,6 +1346,18 @@ def plan_spgemm(A: DeviceCSR, B: DeviceCSR,
             dg.present = c_cnt.t() > 0.5   # exact: fp32 sums of 1.0
             dg.cvT = c_val.t()
             nnz_row[:m] += torch.sum(dg.present, dim=1, dtype=I32)
+        dense_staged: Optional[List[tuple]] = None
+        if dense_grp is not None:
+            apk, bpk = _dense_operands(A, B)
+            dense_staged = []
+            for r0s, kbs, cbs, _ in dense_grp.batches():
+                nnz_row, st_b = dense_tiles(
+                    r0s, kbs, cbs, A.indptr, A.indices, A.data, B.indptr,
+                    B.indices, B.data, nnz_row, apk, bpk,
+                    tile_rows=dense_grp.tile_rows, kw=dense_grp.kw,
+                    cw=dense_grp.cw, la=dense_grp.la, lb=dense_grp.lb, m=m,
+                    k_dim=A.shape[1], n_cols=n, densify=cfg.dense_densify)
+                dense_staged.append(st_b)
         if layout.n_chunks > 0 and layout.total_q > 0:
             sa_ch, b_rec = _stream_operands(A, B, src, sa)
             staged = []
@@ -1091,7 +1373,7 @@ def plan_spgemm(A: DeviceCSR, B: DeviceCSR,
                     rows_sorted, e, q_sorted, el, ops_sorted, p0, su, sa_ch,
                     pend, b_rec, nnz_row, c * CP, sid_bases[c], G=Gc,
                     W=W, n_cols=n, pack_bits=pack_bits,
-                    stage=fused or has_wide, stage_raw=stage_raw)
+                    stage=fused or has_wide, stage_raw=stage_raw, window=CP)
                 staged.append(stg)
             nw_chunks = -(-layout.r_wide // G) if layout.r_wide else 0
             nnz_row, level_bufs = _run_wide(
@@ -1099,11 +1381,16 @@ def plan_spgemm(A: DeviceCSR, B: DeviceCSR,
                 max_width=cfg.stream_max_width)
             ss.staged = staged if fused else None
             ss.level_bufs = level_bufs
+        if ss.accum:
+            nnz_row, ss.accum_bufs = _run_accum(ss, A, B, nnz_row, n,
+                                                count=True, sa=ss.sa2)
         st.stop(nnz_row)
 
     with StageTimer(timings, "allocC", track):
-        row_offsets = _offsets_from_counts(nnz_row[:m])
-        nnz = int(row_offsets[-1].cpu())  # the ONE nnz readback
+        row_offsets, meta = _offsets_from_counts(nnz_row[:m])
+        # the ONE readback of nnz(C) and the widest row (it trims the
+        # dense emit)
+        nnz, max_count = (int(x) for x in meta.cpu().numpy())
         # no-duplicate fast path: nnz(C) == products means every live raw
         # slot is a run-last, so raw chunks already equal their compaction
         if ss.staged is not None and raw_chunks and nnz != sp_exact:
@@ -1114,7 +1401,9 @@ def plan_spgemm(A: DeviceCSR, B: DeviceCSR,
 
     return SpgemmPlan(A=A, B=B, cfg=cfg, row_offsets=row_offsets, nnz=nnz,
                       sum_products=stats.sum_products, stream=ss,
-                      groups=groups, dia_rows=dia_grp)
+                      groups=groups, dense=dense_grp,
+                      dense_staged=dense_staged, max_count=max_count,
+                      dia_rows=dia_grp)
 
 
 def spgemm(A: DeviceCSR, B: DeviceCSR, cfg: Optional[SpgemmConfig] = None,

@@ -22,6 +22,13 @@ contracted at F times the width) and a single wide finish at each row's
 deduplicated entry width; emission gathers contained rows from the
 concatenated staged chunks and scatters the rest.
 
+With the accumulator on (``use_accum``), a row of many products whose
+output columns span a bounded window is planned into a product space of
+its own (sorted first, e = -1 in the stream): its chunks expand as the
+stream's do and scatter-add into a dense span window
+(``stream_chunk_accum``), and ``accum_finalize`` compacts the present
+columns (K2).
+
 Port conventions: int32 everywhere; every scatter that the reference
 writes with ``mode="drop"`` targets a buffer with one extra trailing slot
 that takes the dropped writes (``_drop_buf``), because torch raises on
@@ -106,52 +113,68 @@ def _stable_order(*keys: torch.Tensor) -> torch.Tensor:
 
 def _plan_rows_impl(row_ops, stream_mask, direct_mask, *, min_q: int, m: int,
                     w0: int = 8192, w_cap: int = 65536,
-                    w_fixed: Optional[int] = None):
+                    w_fixed: Optional[int] = None, accum_mask=None,
+                    span=None):
     """Row-level half of the stream planning (the tight layout): sort,
     stream offsets, live prefixes, class histograms, all O(m).
 
+    With ``accum_mask`` and ``span`` the accumulator rows form a fourth
+    region, sorted first by descending span class: their own tight product
+    space (e2, q2) and the sentinel e = -1 in the main stream, which the
+    decodes count and no chunk expands.
+
     Returns (rows_sorted, e, q_sorted, el, ops_sorted, hist_pack,
-    tight_pack): hist_pack (4 * N_QCLASS,) = [stream q-class hist |
-    direct class hist | 0 | 0] (the accumulator halves stay zero);
-    tight_pack (4 + N_WSEG_PACK,) = [W, total_q, n_wide, r_wide,
-    wide_segs...]."""
+    tight_pack, e2, q2_sorted): hist_pack (4 * N_QCLASS,) = [stream
+    q-class hist | direct class hist | accumulator span-class hist | its
+    product sums]; tight_pack (4 + N_WSEG_PACK,) = [W, total_q, n_wide,
+    r_wide, wide_segs...]."""
     dev = row_ops.device
     ops = torch.clamp(row_ops, min=0)
     # exact integer ceil(log2): count powers of two below ops
     pows = torch.ones(31, dtype=I32, device=dev) << _arange(31, dev)
     clog2 = torch.sum(ops[:, None] > pows[None, :], dim=1, dtype=I32)
     qc = torch.clamp(clog2, min=int(np.log2(min_q)))
+    if accum_mask is None:
+        accum_mask = torch.zeros(m, dtype=torch.bool, device=dev)
+        span = torch.ones(m, dtype=I32, device=dev)
+    sp = torch.clamp(span, min=1)
+    sc = torch.sum(sp[:, None] > pows[None, :], dim=1, dtype=I32)
     qc = torch.where(stream_mask, qc, 0)
     dc = torch.where(direct_mask, clog2, 0)
+    sc = torch.where(accum_mask, sc, 0)
 
-    # sort key: region (1 stream / 2 direct / 3 rest), descending class,
-    # then descending ops; stable, so ties keep row order
-    region = torch.where(stream_mask, 1, torch.where(direct_mask, 2, 3))
-    subkey = torch.where(stream_mask, N_QCLASS - 1 - qc,
-                         torch.where(direct_mask, N_QCLASS - 1 - dc, 0))
+    # sort key: region (0 accumulator / 1 stream / 2 direct / 3 rest),
+    # descending class, then descending ops; stable, so ties keep row order
+    region = torch.where(accum_mask, 0, torch.where(
+        stream_mask, 1, torch.where(direct_mask, 2, 3)))
+    subkey = torch.where(accum_mask, N_QCLASS - 1 - sc, torch.where(
+        stream_mask, N_QCLASS - 1 - qc,
+        torch.where(direct_mask, N_QCLASS - 1 - dc, 0)))
     key = (region * (2 * N_QCLASS) + subkey).to(I32)
     rows_sorted = _stable_order(key, -ops)
 
-    def class_hist(cls, mask):
+    def class_hist(cls, x):
         return torch.zeros(N_QCLASS, dtype=I32, device=dev).index_add_(
-            0, cls, mask.to(I32))
+            0, cls, x.to(I32))
 
     s_hist = class_hist(qc, stream_mask)
     d_hist = class_hist(dc, direct_mask)
-    zeros = torch.zeros(2 * N_QCLASS, dtype=I32, device=dev)
-    hist_pack = torch.cat([s_hist, d_hist, zeros])
-    return _tight_layout(rows_sorted, ops, qc, stream_mask, s_hist,
-                         hist_pack, min_q=min_q, m=m, w0=w0, w_cap=w_cap,
-                         w_fixed=w_fixed)
+    a_hist = class_hist(sc, accum_mask)
+    a_psum = class_hist(sc, torch.where(accum_mask, ops, 0))
+    hist_pack = torch.cat([s_hist, d_hist, a_hist, a_psum])
+    return _tight_layout(rows_sorted, ops, qc, stream_mask, accum_mask,
+                         s_hist, hist_pack, min_q=min_q, m=m, w0=w0,
+                         w_cap=w_cap, w_fixed=w_fixed)
 
 
-def _tight_layout(rows1, ops, qc, stream_mask, s_hist, hist_pack, *,
-                  min_q: int, m: int, w0: int, w_cap: int = 65536,
-                  w_fixed: Optional[int] = None):
+def _tight_layout(rows1, ops, qc, stream_mask, accum_mask, s_hist,
+                  hist_pack, *, min_q: int, m: int, w0: int,
+                  w_cap: int = 65536, w_fixed: Optional[int] = None):
     """Tight stream placement: exact wide segments, back-to-back contained
     rows, three relocation rounds for rows that would straddle a W
-    boundary, a pow2-aligned tail, then a stable sort by final start.
-    ``tight_total_host`` is the numpy twin of the total."""
+    boundary, a pow2-aligned tail, then a stable sort by final start; the
+    accumulator rows (first) get e = -1 and their own packed product
+    space. ``tight_total_host`` is the numpy twin of the total."""
     dev = ops.device
     if w_fixed is not None:
         W = torch.full((), w_fixed, dtype=I32, device=dev)
@@ -166,6 +189,7 @@ def _tight_layout(rows1, ops, qc, stream_mask, s_hist, hist_pack, *,
 
     ops1 = ops[rows1]
     stream1 = stream_mask[rows1]
+    accum1 = accum_mask[rows1]
     wide1 = stream1 & (ops1 > W)
     segs1 = torch.where(wide1, (ops1 + W - 1) // W, 0)
     # mid-size contained rows (q > W/8) take their pow2 quantum upfront
@@ -197,26 +221,37 @@ def _tight_layout(rows1, ops, qc, stream_mask, s_hist, hist_pack, *,
     e_f1 = torch.where(pend, base + c2 - qs2, e_f1)
     total_q = torch.where(c2[-1] > 0, base + c2[-1], total_q)
     q_f1 = torch.where(pend, qs2, q1)
-    e_f1 = torch.where(stream1, e_f1, total_q).to(I32)
+    e_f1 = torch.where(stream1, e_f1,
+                       torch.where(accum1, -1, total_q)).to(I32)
+    # the accumulator product space: the accumulator prefix of the first
+    # order is final, every other row carries the constant total
+    q2_1 = torch.where(accum1, ops1, 0)
+    e2_1 = cumsum1d(q2_1) - q2_1
 
-    # restore ascending-e order (stable)
+    # restore ascending-e order (stable: the -1s and the total_q tail keep
+    # their region order)
     pi = _stable_order(e_f1)
     rows_sorted = rows1[pi]
     e = e_f1[pi]
     q_sorted = q_f1[pi]
     ops_sorted = torch.where(stream1, ops1, 0)[pi]
     el = cumsum1d(ops_sorted) - ops_sorted
+    e2 = e2_1[pi].to(I32)
+    q2_sorted = q2_1[pi].to(I32)
 
+    # the wide rows' segment counts, at sorted positions from n_accum on
     n_wide = torch.sum(wide1, dtype=I32)
     r_wide = torch.sum(segs1, dtype=I32)
+    n_accum = torch.sum(accum1, dtype=I32)
+    k_idx = _arange(N_WSEG_PACK, dev)
     wwin = torch.cat([ops_sorted,
                       torch.zeros(N_WSEG_PACK, dtype=I32, device=dev)]
-                     )[:N_WSEG_PACK]
-    k_idx = _arange(N_WSEG_PACK, dev)
+                     )[n_accum + k_idx]
     wsegs = torch.where(k_idx < n_wide, (wwin + W - 1) // W, 0)
     tight_pack = torch.cat([torch.stack([W, total_q, n_wide, r_wide]).to(I32),
                             wsegs.to(I32)])
-    return rows_sorted, e, q_sorted, el, ops_sorted, hist_pack, tight_pack
+    return (rows_sorted, e, q_sorted, el, ops_sorted, hist_pack, tight_pack,
+            e2, q2_sorted)
 
 
 def tight_total_host(row_ops: np.ndarray, W: int, min_q: int) -> int:
@@ -429,11 +464,13 @@ def plan_device_stream(a_indptr, a_indices, a_data32, b_indptr, b_indices,
                        dia_mem_budget: int = 1 << 30, dia_itemsize: int = 4,
                        use_dense: bool = False, tile_rows: int = 256,
                        kw_max: int = 512, cw_max: int = 512, la_max: int = 64,
-                       lb_max: int = 64, max_tiles: int = 0):
-    """Single-pass device planning of the stream, direct, per-row DIA and
-    dense-tile routes: masks, the tight layout and ONE packed int32 array
-    that carries every host decision (read back once by the caller). The
-    pack has the reference's layout:
+                       lb_max: int = 64, max_tiles: int = 0,
+                       use_accum: bool = False, accum_min_ops: int = 1 << 14,
+                       accum_span_cap: int = 1 << 20):
+    """Single-pass device planning of the stream, direct, per-row DIA,
+    dense-tile and accumulator routes: masks, the tight layout and ONE
+    packed int32 array that carries every host decision (read back once by
+    the caller). The pack has the reference's layout:
 
       [stream q-class hist (32) | direct class hist (32) | accum hist (32)
        | accum product sums (32) | n_eligible_tiles, kw, cw, la, lb (5) |
@@ -441,15 +478,19 @@ def plan_device_stream(a_indptr, a_indices, a_data32, b_indptr, b_indices,
        n_dia (5) | n_live_slots, n_live_slots_accum (2) | W, total_q,
        n_wide, r_wide, wide_segs (N_WSEG_PACK)]
 
-    with the accumulator entries at their disabled values, the dense-tile
+    with the accumulator entries zero unless ``use_accum``, the dense-tile
     entries zero unless ``use_dense`` (the eligibility count of
     ``_dense_tiles``), and the per-row DIA band [1, 0, 1, 0, 0] unless
     ``use_dia_rows``. Rows in ``dia_mask`` (the per-row split) or in an
-    eligible dense tile ride neither the direct nor the stream route.
+    eligible dense tile ride neither the direct nor the stream route; a row
+    of more than ``accum_min_ops`` products whose output columns span at
+    most ``accum_span_cap`` rides the accumulator (``use_accum``).
 
     Returns (rows_sorted, e, q_sorted, el, ops_sorted, nnz_init, pack,
-    dia_mask, r0, kb_s, cb_s, valid), the last four the sorted tile arrays
-    (empty unless ``use_dense``)."""
+    dia_mask, r0, kb_s, cb_s, valid, e2, q2_sorted, cmin_sorted): r0 ..
+    valid the sorted tile arrays (empty unless ``use_dense``), e2 and
+    q2_sorted the accumulator product space and cmin_sorted each sorted
+    row's first output column (zero unless ``use_accum``)."""
     dev = a_indptr.device
     if a_len is None:
         a_len = a_indptr[1:] - a_indptr[:-1]
@@ -483,20 +524,50 @@ def plan_device_stream(a_indptr, a_indices, a_data32, b_indptr, b_indices,
                        & ~dia_mask)
     else:
         direct_mask = torch.zeros(m, dtype=torch.bool, device=dev)
-    stream_mask = (row_ops > 0) & ~direct_mask & ~dense_mask & ~dia_mask
-    (rows_sorted, e, q_sorted, el, ops_sorted, hist,
-     tight_pack) = _plan_rows_impl(row_ops, stream_mask, direct_mask,
-                                   min_q=min_q, m=m, w0=w0, w_cap=w_cap)
+    if use_accum and m > 0 and b_indices.shape[0] > 0:
+        gcmin, span = _out_span(a_indptr, a_indices, b_indptr, b_indices,
+                                m=m)
+        accum_mask = ((row_ops > accum_min_ops) & (span <= accum_span_cap)
+                      & ~dense_mask & ~direct_mask & ~dia_mask
+                      & (row_ops > 0))
+    else:
+        gcmin = torch.zeros(m, dtype=I32, device=dev)
+        span = torch.ones(m, dtype=I32, device=dev)
+        accum_mask = torch.zeros(m, dtype=torch.bool, device=dev)
+    stream_mask = ((row_ops > 0) & ~direct_mask & ~dense_mask & ~accum_mask
+                   & ~dia_mask)
+    (rows_sorted, e, q_sorted, el, ops_sorted, hist, tight_pack, e2,
+     q2_sorted) = _plan_rows_impl(row_ops, stream_mask, direct_mask,
+                                  min_q=min_q, m=m, w0=w0, w_cap=w_cap,
+                                  accum_mask=accum_mask, span=span)
     # direct rows' exact counts come free from the analysis
     nnz_init = torch.where(direct_mask, row_ops, 0)
     gate = _gate_scalars(a_indptr, a_indices, b_indptr, b_indices, row_ops,
                          row_ops_f, a_len, m=m)
     n_live = torch.sum(torch.where(stream_mask, a_len, 0), dtype=I32)
+    n_live2 = torch.sum(torch.where(accum_mask, a_len, 0), dtype=I32)
     pack = torch.cat([hist, dense_pack, gate, dia_pack,
-                      torch.stack([n_live, torch.zeros_like(n_live)]),
-                      tight_pack])
-    return (rows_sorted, e, q_sorted, el, ops_sorted, nnz_init, pack,
-            dia_mask) + tiles
+                      torch.stack([n_live, n_live2]), tight_pack])
+    return ((rows_sorted, e, q_sorted, el, ops_sorted, nnz_init, pack,
+             dia_mask) + tiles + (e2, q2_sorted, gcmin[rows_sorted]))
+
+
+def _out_span(a_indptr, a_indices, b_indptr, b_indices, *, m: int):
+    """Each A row's output-column range (canonical B: a B row's range is
+    its first and last column): (gcmin, span), span = last - first + 1,
+    1 for a row with no products and gcmin 0 there, as in the reference's
+    segment min and max."""
+    from .dense import _row_ends, _segment_reduce
+
+    dev = a_indptr.device
+    nnz = a_indices.shape[0]
+    _, b_cmin, b_cmax = _row_ends(b_indptr, b_indices)
+    seg = _count_le(a_indptr[1:], _arange(nnz, dev))
+    gcmin = _segment_reduce(b_cmin[a_indices], seg, a_indptr, "amin")
+    gcmax = _segment_reduce(b_cmax[a_indices], seg, a_indptr, "amax")
+    span = torch.clamp(gcmax - torch.minimum(gcmin, gcmax) + 1, min=1)
+    gcmin = torch.where(gcmax < 0, 0, gcmin)
+    return gcmin.to(I32), span.to(I32)
 
 
 def _gate_scalars(a_indptr, a_indices, b_indptr, b_indices, row_ops,
@@ -568,7 +639,8 @@ class Unpacked(NamedTuple):
 
 
 def _expand_chunk(e, p0, su, sa, pend, b_packed, chunk_start: int,
-                  sid_base, G: int, W: int, n_cols: int):
+                  sid_base, G: int, W: int, n_cols: int,
+                  window: Optional[int] = None):
     """The expand stage for chunk [chunk_start, chunk_start + G*W): each
     slot's sorted row (the last row start e <= t) and its A-slot record
     (the last record start p0 <= t, which is the reference's forward fill
@@ -577,13 +649,20 @@ def _expand_chunk(e, p0, su, sa, pend, b_packed, chunk_start: int,
     live product. ``b_packed`` is the (nnz, 2) int32 record of float32
     values with ``sa`` the A value bits, or ``Unpacked`` float64 operands
     with ``sa`` the A-source map. Returns (rid, col, val); dead slots carry
-    col = n_cols and val = 0."""
+    col = n_cols and val = 0.
+
+    ``window`` (default G * W) is the slots of the plan's full chunk: the
+    records are read from a window of window + 2 of them, which holds
+    every record a chunk can meet when they are compacted and all of them
+    when they are not (``build_srec(compact=False)`` keeps that many at
+    most). The reference sizes the window by the chunk's own G, which
+    misses records in a shorter last chunk over uncompacted records."""
     dev = e.device
     CP = G * W
     t = chunk_start + _arange(CP, dev).reshape(G, W)
     rid = _decode(e, t)
     nnzA = su.shape[0]
-    K = min(nnzA, CP + 2)
+    K = min(nnzA, (window or CP) + 2)
     # window of the records that can intersect this chunk (kept p0 is
     # strictly increasing) plus the run straddling its start
     if K < nnzA:
@@ -688,7 +767,7 @@ def compact_staged(rid_s, col_s, val_s, counts, *, n_cols: int):
 def stream_chunk(rows_sorted, e, q_sorted, el, ops_sorted, p0, su, sa, pend,
                  b_packed, nnz_row, chunk_start: int, sid_base, *,
                  G: int, W: int, n_cols: int, pack_bits: int, stage: bool,
-                 stage_raw: bool = False):
+                 stage_raw: bool = False, window: Optional[int] = None):
     """One fused count(+stage) pass over chunk [chunk_start,
     chunk_start + G*W). Every row contained in the chunk gets its exact
     nnz in ``nnz_row`` (padded by one drop slot, updated in place) by an
@@ -696,7 +775,8 @@ def stream_chunk(rows_sorted, e, q_sorted, el, ops_sorted, p0, su, sa, pend,
     counts. stage=True also returns the compacted (rid, col, val, counts)
     rectangle rows; stage_raw returns them sorted but uncompacted."""
     rid, col, val = _expand_chunk(e, p0, su, sa, pend, b_packed,
-                                  chunk_start, sid_base, G, W, n_cols)
+                                  chunk_start, sid_base, G, W, n_cols,
+                                  window)
     rid_s, col_s, val_s = _sort_rect(rid, col, val, n_cols, pack_bits)
     last, run_sum = stream_contract(rid_s, col_s, val_s, n_cols)
 
@@ -731,13 +811,17 @@ def stream_chunk(rows_sorted, e, q_sorted, el, ops_sorted, p0, su, sa, pend,
 def stream_chunk_numeric(rows_sorted, e, p0, su, sa, pend, b_packed,
                          row_offsets, c_cols, c_vals, chunk_start: int,
                          sid_base, n_wide: int, *, G: int, W: int,
-                         n_cols: int, pack_bits: int, stage_wide: bool):
+                         n_cols: int, pack_bits: int, stage_wide: bool,
+                         window: Optional[int] = None):
     """Two-phase numeric pass over one chunk: the same expand, sort and
     contract, then contained rows' run-last entries scatter straight to
-    their offsets in C (padded buffers, updated in place). stage_wide
-    also returns the compacted rectangle rows for the merge levels."""
+    their offsets in C (padded buffers, updated in place); the first
+    ``n_wide`` sorted rows (the accumulator and wide rows) emit elsewhere.
+    stage_wide also returns the compacted rectangle rows for the merge
+    levels."""
     rid, col, val = _expand_chunk(e, p0, su, sa, pend, b_packed,
-                                  chunk_start, sid_base, G, W, n_cols)
+                                  chunk_start, sid_base, G, W, n_cols,
+                                  window)
     rid_s, col_s, val_s = _sort_rect(rid, col, val, n_cols, pack_bits)
     last, run_sum = stream_contract(rid_s, col_s, val_s, n_cols)
 
@@ -756,6 +840,63 @@ def stream_chunk_numeric(rows_sorted, e, p0, su, sa, pend, b_packed,
     if not stage_wide:
         return c_cols, c_vals, None
     return c_cols, c_vals, _compact_rect(last, rid_s, col_s, run_sum)
+
+
+# ---------------------------------------------------------------------------
+# The dense-span accumulator
+# ---------------------------------------------------------------------------
+
+
+def stream_chunk_accum(e2, p02, su2, sa2, pend2, b_packed, abase, cmin_s,
+                       acc, pres, chunk_start: int, sid_base, row_lo: int,
+                       row_hi: int, *, G: int, W: int, n_cols: int):
+    """One expand and scatter-add pass over chunk [chunk_start,
+    chunk_start + G*W) of the accumulator product space: the products of
+    sorted rows in the active part [row_lo, row_hi) add into
+    acc[abase[rid] + col - cmin_s[rid]] and mark ``pres`` there (abase is
+    part-local); the other rows' products and the dead slots go to the
+    trailing drop slot of ``acc`` and ``pres`` (updated in place).
+
+    The reference's dense mode for single huge rows: no sort, one
+    scatter-add a product. The adds are ``index_add_`` (atomics on the
+    card) into ``acc``'s type (the caller's float64 plane), so the order
+    in which equal columns sum changes from launch to launch: values agree
+    to rounding, not to the bit; the int32 presence is exact."""
+    rid, col, val = _expand_chunk(e2, p02, su2, sa2, pend2, b_packed,
+                                  chunk_start, sid_base, G, W, n_cols)
+    na = abase.shape[0]
+    rid_c = torch.clamp(rid, 0, na - 1)
+    live = (col < n_cols) & (rid >= row_lo) & (rid < row_hi)
+    drop = acc.shape[0] - 1
+    tgt = torch.where(live, abase[rid_c] + (col - cmin_s[rid_c]), drop)
+    tgt = tgt.reshape(-1)
+    acc.index_add_(0, tgt, val.reshape(-1).to(acc.dtype))
+    pres.index_fill_(0, tgt.long(), 1)
+    return acc, pres
+
+
+def accum_finalize(rows_sorted, acc_slice, pres_slice, cmin_s, rid_of_out,
+                   nnz_row, *, R_c: int, S_c: int, count: bool):
+    """One span class's accumulators as staged compacted rows: presence
+    gives the exact counts (set into ``nnz_row`` in place when ``count``),
+    a present slot's column is cmin + its index, so the rows come out
+    sorted; the rank compaction is kernel K2 (``_compact_rect``). Returns
+    (nnz_row, (rid, col_c, val_c, counts)) in ``stream_emit``'s staged
+    format."""
+    acc = acc_slice.reshape(R_c, S_c)
+    pres = pres_slice.reshape(R_c, S_c)
+    idx = _arange(S_c, acc.device)[None, :]
+    m = rows_sorted.shape[0]
+    rid_b = rid_of_out[:, None].expand(R_c, S_c)
+    last = (pres > 0) & (rid_b >= 0)
+    cols = torch.where(last, cmin_s[torch.clamp(rid_b, 0, m - 1)] + idx,
+                       0).to(I32)
+    if count:
+        tgt = torch.where(rid_of_out >= 0,
+                          rows_sorted[torch.clamp(rid_of_out, 0, m - 1)], m)
+        nnz_row.index_put_((tgt,), torch.sum(last, 1, dtype=I32))
+    _, col_c, val_c, counts = _compact_rect(last, None, cols, acc)
+    return nnz_row, (rid_of_out, col_c, val_c, counts)
 
 
 # ---------------------------------------------------------------------------

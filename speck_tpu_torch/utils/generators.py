@@ -103,3 +103,14 @@ def make_giant_row(mg=40000, NH=5000, HN=10000, seed=17) -> HostCSR:
         shape=(mg, mg))
     gm.sum_duplicates()
     return HostCSR.from_scipy(gm)
+
+
+def make_prolongation(m=65536, mc=16384, seed=11) -> HostCSR:
+    """An AMG-style prolongation: m rows of one unit entry each at a random
+    one of mc columns (bench config 4's P: ``make_prolongation(65536,
+    16384)``), float64 values."""
+    import scipy.sparse as sp
+
+    rs = np.random.RandomState(seed)
+    return HostCSR.from_scipy(sp.csr_matrix(
+        (np.ones(m), (np.arange(m), rs.randint(0, mc, m))), shape=(m, mc)))

@@ -645,8 +645,8 @@ def test_dia_rows_parity(kind):
 def test_default_routing_skips_the_dia_family():
     """The small power-law input takes neither DIA route in either package
     (it streams). The giant row at a quarter of the bench's rows fails
-    both packages' DIA gates alike; the port then raises for the dense
-    tiles, which JAX takes there. The split's host gate rejects bench
+    both packages' DIA gates alike; the port then plans dense tiles, as
+    JAX does there. The split's host gate rejects bench
     configs 2 and 3 whole, and the giant row."""
     jsp = importlib.import_module("speck_tpu.ops.spgemm")
     tsp = importlib.import_module("speck_tpu_torch.ops.spgemm")
@@ -665,8 +665,7 @@ def test_default_routing_skips_the_dia_family():
                               hg.b_dmax, hg.sp_sat) is None
         assert mod._sdia_gate(cfg, A, A, h, h, hg) is None
         assert not mod._host_dia_rows_plausible(h, h, cfg)
-    with pytest.raises(NotImplementedError, match="dense-tile"):
-        pt.plan_spgemm(At, At)
+    assert pt.plan_spgemm(At, At).dense is not None
     cfg = pt.SpgemmConfig()
     for h in (gen.make_powerlaw(131072, seed=5),
               gen.make_powerlaw(262144, seed=7)):

@@ -208,14 +208,21 @@ def test_host_analysis_off_streams_like_jax(which):
 def test_dense_tiles_raise_only_where_jax_takes_them():
     """A narrow band with the DIA routes off and no host analysis: JAX
     counts eligible tiles and plans its dense group; the port counts the
-    same tiles in its planning pass and raises for the dense-tile route."""
+    same tiles in its planning pass and takes them too (the dense-tile
+    route no longer raises): equal tile arrays and windows, equal C."""
     kw = dict(host_analysis=False, enable_dia=False, enable_sdia=False,
               dia_rows=False)
     ah = st.HostCSR.from_scipy(_banded())
     Aj, At = _put(ah, np.float32)
-    assert st.plan_spgemm(Aj, Aj, st.SpgemmConfig(**kw)).dense is not None
-    with pytest.raises(NotImplementedError, match="dense-tile"):
-        pt.plan_spgemm(At, At, pt.SpgemmConfig(**kw))
+    pj = st.plan_spgemm(Aj, Aj, st.SpgemmConfig(**kw))
+    ptp = pt.plan_spgemm(At, At, pt.SpgemmConfig(**kw))
+    assert pj.dense is not None and ptp.dense is not None
+    for f in ("r0s", "kbases", "cbases", "valids"):
+        _eq(getattr(ptp.dense, f), getattr(pj.dense, f), f)
+    for f in ("boffs", "kw", "cw", "la", "lb", "full_cover"):
+        assert getattr(ptp.dense, f) == getattr(pj.dense, f), f
+    _assert_c(ah, ah, st.device_get_csr(pj.execute()),
+              pt.device_get_csr(ptp.execute()), np.float32)
 
 
 def test_giant_row_tiles_eligible_in_both():

@@ -523,3 +523,164 @@ def test_general_stream_on_card_matches_oracle(cuda_device, case):
     r = pt.compare_csr(pt.oracle_spgemm(a, b), Ch, compare_data=True,
                        rel_tol=tol)
     assert r.ok, r.message
+
+
+def _densify_keys(rs, R, L, W):
+    """The first densify sort's keys: each row's L sorted entry columns
+    (loc * 2, pads at 2 * W) beside W background slots (col * 2 + 1),
+    padded to a power of two with INT32_MAX."""
+    loc = np.sort(rs.integers(0, W, (R, L)), 1)
+    loc[:, L // 2:] = W
+    key = np.concatenate([loc * 2, np.broadcast_to(
+        np.arange(W) * 2 + 1, (R, W))], 1).astype(np.int32)
+    P = 1 << (L + W - 1).bit_length()
+    return np.concatenate([key, np.full((R, P - L - W), I32.max, np.int32)],
+                          1)
+
+
+def _rank_keys(rs, R, W, P):
+    """A compaction's keys: rank among the present slots, else W + t;
+    padded to P with INT32_MAX."""
+    last = rs.random((R, W)) < 0.3
+    key = np.where(last, np.cumsum(last, 1) - 1, W + np.arange(W))
+    return np.concatenate([key, np.full((R, P - W), I32.max)], 1).astype(
+        np.int32)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case,R,W,n_pay", [
+    # densify on bench config 1 (la = lb = 64, kw = cw = 384): A side,
+    # then B side, each a (key, slot) sort and a (rank, slot, hit) sort
+    ("densify", 65536, 384, 1), ("densify", 98304, 384, 1),
+    # (the tile compaction, columns and values, sorts at the A side's
+    # rank shape: cw = 384 padded to 512)
+    ("rank", 65536, 384, 2), ("rank", 98304, 384, 2),
+    # small windows of the CPU tests
+    ("densify", 48, 128, 1), ("rank", 48, 128, 2),
+    # the transpose row of bench config 4's P (65536 nonzeros) and of A
+    ("transpose", 1, 65536, 2), ("transpose", 1, 2162672, 2)])
+def test_sort_kernel_at_the_new_shapes(rs, cuda_device, case, R, W, n_pay):
+    """K2 at the shapes the dense tiles, the accumulator's and the tiles'
+    compactions and the transpose launch it at, with their key patterns:
+    keys and payloads equal to sort_plain's bit for bit."""
+    if case == "densify":
+        key = _densify_keys(rs, R, 64, W)
+    elif case == "rank":
+        key = _rank_keys(rs, R, W, 1 << (W - 1).bit_length())
+    else:
+        P = 1 << (W - 1).bit_length()
+        key = np.concatenate([np.sort(rs.integers(0, 16384, W))[
+            rs.permutation(W)], np.full(P - W, I32.max)]).astype(
+                np.int32)[None, :]
+    pays = [np.broadcast_to(np.arange(key.shape[1], dtype=np.int32),
+                            key.shape).copy()]
+    if n_pay == 2:
+        pays.append(special_floats(rs, *key.shape))
+    sort_on_card(cuda_device, key, pays)
+
+
+def _new_route_case(case):
+    """(A, B, dtype, config keywords) of one route this slice ported."""
+    from speck_tpu_torch.utils.generators import (make_giant_row,
+                                                  make_mixed,
+                                                  make_prolongation)
+
+    if case == "dense":
+        a = make_banded(3000, half_band=16, seed=3)
+        return a, a, torch.float32, dict(enable_dia=False)
+    if case == "dense_fp64":
+        a = make_banded(2000, half_band=8, seed=9)
+        return a, a, torch.float64, dict(enable_dia=False)
+    if case == "dense_mixed":
+        a = make_mixed(4096, 16, 256, 64, seed=13)
+        return a, a, torch.float32, dict(enable_dia=False)
+    if case == "dense_scatter":
+        a = make_banded(3000, half_band=16, seed=3)
+        return a, a, torch.float32, dict(enable_dia=False,
+                                          dense_densify="scatter")
+    if case in ("accum", "accum_fp64"):
+        a = make_giant_row(mg=4000, NH=200, HN=400)
+        return a, a, (torch.float64 if case == "accum_fp64"
+                      else torch.float32), dict(enable_accum=True)
+    a = make_banded(4096, half_band=16, seed=3)
+    return a, make_prolongation(4096, 1024), torch.float32, {}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["dense", "dense_fp64", "dense_mixed",
+                                  "dense_scatter", "accum", "accum_fp64",
+                                  "config4"])
+@pytest.mark.parametrize("new_values", [False, True])
+def test_new_routes_on_card_match_the_cpu(cuda_device, case, new_values):
+    """The dense tiles, the accumulator and config 4's A·P on the card:
+    the plan equal to the CPU's, C's structure equal to the CPU's and the
+    oracle's, values within 2e-3 (float32) or 1e-9 (float64) of the
+    oracle, also for a replay with new values."""
+    a, b, dtype, kw = _new_route_case(case)
+    tol = 1e-9 if dtype == torch.float64 else 2e-3
+    cfg = pt.SpgemmConfig(**kw)
+    Ac = pt.device_put_csr(a, dtype, "cpu")
+    Bc = Ac if b is a else pt.device_put_csr(b, dtype, "cpu")
+    Ag = pt.device_put_csr(a, dtype, cuda_device)
+    Bg = Ag if b is a else pt.device_put_csr(b, dtype, cuda_device)
+    pc, pg = pt.plan_spgemm(Ac, Bc, cfg), pt.plan_spgemm(Ag, Bg, cfg)
+    assert pg.nnz == pc.nnz and pg.max_count == pc.max_count
+    assert (pg.dense is None) == (pc.dense is None)
+    if case.startswith("dense"):
+        assert pg.dense is not None
+        assert pg.dense.full_cover == (case != "dense_mixed")
+    if case.startswith("accum"):
+        assert pg.stream.n_accum == pc.stream.n_accum > 0
+    ref_a, ref_b = a, b
+    if new_values:
+        a2 = pt.HostCSR.from_parts(a.rows, a.cols, a.row_offsets, a.col_ids,
+                                   a.data * -2.0 + 0.5)
+        b2 = a2 if b is a else b
+        Ag2 = pt.device_put_csr(a2, dtype, cuda_device)
+        Bg2 = Ag2 if b is a else Bg
+        C = pt.device_get_csr(pg.execute(Ag2, Bg2))
+        ref_a, ref_b = a2, b2
+    else:
+        C = pt.device_get_csr(pg.execute())
+    _eq = np.testing.assert_array_equal
+    if new_values:
+        Ac2 = pt.device_put_csr(ref_a, dtype, "cpu")
+        Cc = pt.device_get_csr(pc.execute(Ac2, Ac2 if b is a else Bc))
+    else:
+        Cc = pt.device_get_csr(pc.execute())
+    _eq(C.row_offsets, Cc.row_offsets)
+    _eq(C.col_ids, Cc.col_ids)
+    r = pt.compare_csr(pt.oracle_spgemm(ref_a, ref_b), C, compare_data=True,
+                       rel_tol=tol)
+    assert r.ok, r.message
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_transpose_and_galerkin_on_card(cuda_device, dtype):
+    """transpose(P) on the card equals scipy's P.T exactly (one K2
+    launch); Pᵀ·(A·P) on the card matches scipy's."""
+    import scipy.sparse as sp
+
+    from speck_tpu_torch.utils.generators import make_prolongation
+
+    a, p = make_banded(4096, half_band=16, seed=3), make_prolongation(4096,
+                                                                      1024)
+    A = pt.device_put_csr(a, dtype, cuda_device)
+    P = pt.device_put_csr(p, dtype, cuda_device)
+    n0 = bitonic.LAUNCH_SHAPES.get((1, 4096, 2), 0)
+    PT = pt.transpose(P)
+    torch.cuda.synchronize()
+    assert bitonic.LAUNCH_SHAPES[(1, 4096, 2)] == n0 + 1
+    ref = p.to_scipy().T.tocsr()
+    ref.sort_indices()
+    got = pt.device_get_csr(PT)
+    np.testing.assert_array_equal(got.row_offsets, ref.indptr)
+    np.testing.assert_array_equal(got.col_ids, ref.indices)
+    np.testing.assert_array_equal(got.data, ref.data.astype(got.data.dtype))
+    G = pt.device_get_csr(pt.spgemm(PT, pt.spgemm(A, P)))
+    g = (ref @ (a.to_scipy() @ p.to_scipy())).tocsr()
+    g.sort_indices()
+    r = pt.compare_csr(pt.HostCSR.from_scipy(g), G, compare_data=True,
+                       rel_tol=1e-9 if dtype == torch.float64 else 2e-3)
+    assert r.ok, r.message

@@ -201,7 +201,7 @@ def test_banded_input_raises_where_dia_would_run():
     _assert_matches(h, Cj, Ct)
 
 
-@pytest.mark.parametrize("knob", [dict(enable_accum=True),
+@pytest.mark.parametrize("knob", [dict(stream_level_factor=3),
                                   dict(stream_expand_impl="decode"),
                                   dict(stream_compact_impl="scatter"),
                                   dict(stream_sort_impl="bitonic")])
