@@ -87,22 +87,42 @@ Phases (any failure raises and exits non-zero; nothing falls back):
      Pᵀ·(A·P)). Each: the cold call, the median of 3 warm calls, GFLOPS,
      nnz(C)/s, peak memory, synchronizing calls, K1's and K2's launches by
      shape;
-  7b. K1 at every shape phases 4, 4b, 7c, 7d and 7e launched it at (and
+  7f. (after 7e, before 7b) the row-sharded stream mesh, four shards on
+     one card (parallel.make_row_mesh(4, devices=["cuda:0"]); the shards
+     run one after another, so a mesh time is the sum of theirs and no
+     copy crosses a link): mesh_stream_spgemm on config 3 (needset, then
+     allgather, then float64 under needset; beside them phase 4's
+     single-device warm call), on the giant row (needset: the k-split
+     must engage with row 0 among the split rows) and on scipy's
+     block_diag of four make_powerlaw(65536, seed=7) (needset: zero bytes
+     exchanged, equal row ranges); mesh_spgemm_fixed_cap on config 1 (K2
+     and K3 launched, padded_to_host_csr against the oracle); then
+     multihost_spgemm in one process on config 3 and
+     entry.dryrun_multichip(4, devices=["cuda:0"]). Every output tensor must be on the
+     card; each against the oracle (structure exact, values rel_tol 2e-3,
+     float64 1e-9); the route asserted; the cold call, the median of 3
+     warm calls, GFLOPS, peak memory, synchronizing calls, the shards'
+     products, K1's, K2's and K3's launches; multihost_spgemm must reuse
+     the config 3 needset cell's cached step;
+  7b. K1 at every shape phases 4, 4b, 7c, 7d, 7e and 7f launched it at (and
      the shapes of probes/contract_profile.py's table), K2 at every other
-     shape phases 4, 4b, 7, 7c, 7d and 7e launched it at, checked and timed
-     as in phase 3, each beside its bound;
+     shape phases 4, 4b, 7, 7c, 7d, 7e and 7f launched it at, checked and timed
+     as in phase 3, each beside its bound, and K3 at the fixed-cap mesh's
+     per-shard shape as in phase 6;
   8. the gather probes' mains (python -m speck_tpu_torch.probes...) with
      their launch counts, then sublane_gather (N = 2^22, S = 2048) and
      run_copy (G = 512, K = 64, L = 128 over a 2^21 source) against their
      plain versions, exactly equal; each timed against its library call in
      turns over PROBE_REPS rounds (medians, quartiles and extremes), GB/s;
   9. every torch.profiler session, after every CUDA-event time above: K1
-     and K3 at each shape timed before, their device time (the kernel and
-     the clear of its scratch, medians of cp.REPS calls) beside the bound;
+     and K3 at each shape timed before (K1 but at the shapes only the
+     mesh launches), their device time (the kernel and the clear of its
+     scratch, medians of cp.REPS calls) beside the bound;
      one warm giant-row call: its device time, K1's and K2's share of it
      and its longest kernels; one warm call of each phase 7c cell, of
-     the 2^20 graph and config 3 in float64 (7d) and of the dense-banded
-     and accumulator cells (7e): its device time, idle share (1 - device /
+     the 2^20 graph and config 3 in float64 (7d), of the dense-banded
+     and accumulator cells (7e) and of the mesh's config 3 needset, giant
+     row and fixed-cap cells (7f): its device time, idle share (1 - device /
      host time) and five longest kernels; then the
      probes of phase 8 in turns once
      more, to show what a profiler session before them changes, and each
@@ -113,9 +133,9 @@ outputs written once) over 3.35 TB/s, the H100 SXM's device memory rate
 (NVIDIA's data sheet); every kernel here is bound by bytes. library_ms is
 one PyTorch call computing the same function, where there is one; the port
 never calls it. Launches in the kernels' line: K1's over phases 4, 4b, 7c
-(config 1b) and 7e, its double variant's over the float64 cells of 7d,
-K2's over 4, 4b, 7, 7c, 7d and 7e, K3's over 7 and its double variant's
-over 7d's esc_fixed. The line's ms is the CUDA-event
+(config 1b), 7e and 7f, its double variant's over the float64 cells of 7d
+and 7f, K2's over 4, 4b, 7, 7c, 7d, 7e and 7f, K3's over 7 and 7f (the
+fixed cap) and its double variant's over 7d's esc_fixed. The line's ms is the CUDA-event
 time around one wrapper call, as plain_ms is; device_ms is the device time by
 torch.profiler from phase 9 (K1, K3 and the probes; null for K2): where a
 call is shorter on the card than its wrapper's host time, the event time
@@ -1148,6 +1168,270 @@ def probe_turns(cases, launches, smi, where=""):
     return out
 
 
+# the mesh cells of phase 7f: name, generator call (None: the block-diagonal
+# product), exchange, value dtype, rel_tol against the oracle
+MESH_CELLS = [
+    ("mesh config 3 needset", CONFIG3, "needset", torch.float32, 2e-3),
+    ("mesh config 3 allgather", CONFIG3, "allgather", torch.float32, 2e-3),
+    ("mesh config 3 fp64 needset", CONFIG3, "needset", torch.float64, 1e-9),
+    ("mesh giant row needset", GIANT, "needset", torch.float32, 2e-3),
+    ("mesh block-diagonal needset", None, "needset", torch.float32, 2e-3),
+]
+MESH_SHARDS = 4
+
+
+def block_diagonal(pt):
+    """scipy's block_diag of MESH_SHARDS copies of make_powerlaw(65536,
+    seed=7), and its oracle (made once)."""
+    import scipy.sparse as sp
+
+    from speck_tpu_torch.utils.generators import make_powerlaw
+
+    key = ("block_diag", MESH_SHARDS)
+    if key not in _HOST:
+        t0 = time.perf_counter()
+        blk = make_powerlaw(65536, seed=7).to_scipy()
+        h = pt.HostCSR.from_scipy(sp.block_diag([blk] * MESH_SHARDS,
+                                                format="csr"))
+        t1 = time.perf_counter()
+        _HOST[key] = (h, pt.oracle_spgemm(h, h), t1 - t0,
+                      time.perf_counter() - t1)
+    return _HOST[key]
+
+
+def mesh_counts():
+    """K1's, K2's and K3's launches and shapes since reset_counts."""
+    from speck_tpu_torch.ops import bitonic, contract
+
+    return ({"stream_contract": contract.LAUNCHES,
+             "row_sort": bitonic.LAUNCHES,
+             "contract_runs": contract.RUNS_LAUNCHES},
+            (dict(contract.LAUNCH_SHAPES), dict(bitonic.LAUNCH_SHAPES),
+             dict(contract.RUNS_LAUNCH_SHAPES)))
+
+
+def shard_products(h, ranges):
+    """Products of A·A in each shard's row range."""
+    b_len = np.diff(np.asarray(h.row_offsets, np.int64))
+    per_row = np.add.reduceat(
+        b_len[np.asarray(h.col_ids, np.int64)],
+        np.minimum(np.asarray(h.row_offsets[:-1], np.int64),
+                   max(h.nnz - 1, 0))) if h.nnz else np.zeros(h.rows)
+    per_row = np.where(np.diff(h.row_offsets) > 0, per_row, 0)
+    return [int(per_row[r0:r1].sum()) for r0, r1 in ranges]
+
+
+def mesh_run(fn, name):
+    """The cold call of fn (after reset_counts), its launches, peak memory
+    and host time; every output tensor must be on the card."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base_mem = torch.cuda.memory_allocated()
+    reset_counts()
+    cold_ms, out = timed_ms(fn)
+    peak = torch.cuda.max_memory_allocated()
+    launches, shapes = mesh_counts()
+    for x in out[:3]:
+        check(x.device.type == "cuda", f"{name}: an output is on {x.device}")
+    return cold_ms, out, launches, shapes, peak, base_mem
+
+
+def mesh_warm(fn, name, nnz_total):
+    """Three warm calls (nnz(C) each equal to the cold call's), their
+    median, and the synchronizing calls of one more."""
+    warm = []
+    for _ in range(3):
+        ms, out = timed_ms(fn)
+        check(int(out[0].sum()) == nnz_total, f"{name}: warm nnz differs")
+        warm.append(ms)
+        del out
+    return warm, statistics.median(warm), sync_count(fn)
+
+
+def mesh_cell(pt, smi, name, gen_call, exchange, dtype, rel_tol):
+    """Phase 7f, one cell: mesh_stream_spgemm of the matrix with itself
+    over MESH_SHARDS shards on one card (make_row_mesh(4,
+    devices=["cuda:0"])), the route asserted, the result against the
+    oracle, the cold call, the median of 3 warm calls, GFLOPS, peak
+    memory, synchronizing calls, the shards' products and K1's, K2's and
+    K3's launches; returns the numbers."""
+    from speck_tpu_torch.parallel import (make_row_mesh, mesh_stream_spgemm,
+                                          mesh_stream_to_host_csr)
+
+    if gen_call is None:
+        h, ref, t_gen, t_ref = block_diagonal(pt)
+    else:
+        h, ref, t_gen, t_ref = host_and_oracle(pt, gen_call)
+    mesh = make_row_mesh(MESH_SHARDS, devices=["cuda:0"])
+
+    def call():
+        return mesh_stream_spgemm(h, h, mesh, exchange=exchange, dtype=dtype)
+
+    cold_ms, out, launches, shapes, peak, base_mem = mesh_run(call, name)
+    meta = out[3]
+    st, ks = meta["stats"], meta["ksplit"]
+    check(meta["route"] == "stream", f"{name}: route {meta['route']}")
+    check(launches["stream_contract"] > 0 and launches["row_sort"] > 0,
+          f"a kernel was not launched on {name}: {launches}")
+    check(launches["contract_runs"] == 0, f"{name} launched K3")
+    dname = str(dtype).replace("torch.", "")
+    check(set(k[3] for k in shapes[0]) == {dname},
+          f"{name}: K1 did not run in {dname} alone: {shapes[0]}")
+    # all_gather reports no stats (as the reference): every shard
+    # receives all of B's 8- or 12-byte records
+    mode = st.mode if st is not None else "allgather"
+    rec = 12 if dtype == torch.float64 else 8
+    ns_bytes = st.needset_bytes if st is not None else None
+    check(mode == exchange, f"{name}: exchange ran as {mode}")
+    if gen_call == GIANT:
+        check(ks is not None and ks["n_split"] >= 1 and 0 in ks["split_ids"],
+              f"{name}: the k-split did not engage: {ks}")
+    elif gen_call is None:
+        check(st.needset_bytes == 0 and st.zero_comm,
+              f"{name}: {st.needset_bytes} bytes exchanged")
+        q = h.rows // MESH_SHARDS
+        check([tuple(r) for r in meta["ranges"]]
+              == [(d * q, (d + 1) * q) for d in range(MESH_SHARDS)],
+              f"{name}: ranges {meta['ranges']}")
+    else:
+        check(ks is None, f"{name}: unexpected k-split {ks}")
+    t0 = time.perf_counter()
+    Ch = mesh_stream_to_host_csr(*out)
+    check(Ch.data.dtype == np.dtype(dname), f"{name}: C holds {Ch.data.dtype}")
+    check(bool(np.isfinite(Ch.data).all()), f"non-finite values in {name}")
+    r = pt.compare_csr(ref, Ch)
+    check(r.ok, f"{name} structure differs from the oracle: {r.message}")
+    r = pt.compare_csr(ref, Ch, compare_data=True, rel_tol=rel_tol)
+    check(r.ok, f"{name} values differ from the oracle: {r.message}")
+    t_ref += time.perf_counter() - t0
+    nnz = Ch.nnz
+    del out, Ch
+    warm, warm_ms, syncs = mesh_warm(call, name, nnz)
+    products = products_of(h)
+    line = (f"{name} A*A {dname} [{smi}; {MESH_SHARDS} shards on one card, "
+            f"run one after another]: m={h.rows} nnz(A)={h.nnz} "
+            f"nnz(C)={nnz} products={products}; ranges {meta['ranges']}, "
+            f"shard products {shard_products(h, meta['ranges'])}, m_loc "
+            f"{meta['m_loc']}, out_cap {meta['out_cap']}; exchange "
+            f"{mode}: needset_bytes {ns_bytes}, allgather_bytes "
+            f"{h.nnz * rec}; k-split {ks}; cold {cold_ms:.1f} ms, "
+            f"warm median of 3 {warm_ms:.2f} ms (all "
+            f"{[round(w, 2) for w in warm]}), GFLOPS "
+            f"{2 * products / (warm_ms * 1e6):.3f}, peak memory "
+            f"{peak / 2**30:.2f} GiB ({(peak - base_mem) / 2**30:.2f} GiB "
+            f"above the inputs), synchronizing calls {syncs}; launches in "
+            f"the cold call {launches}; K1 by (R, W, rid, dtype) "
+            f"{dict(sorted(shapes[0].items()))}; K2 by (R, W, payloads) "
+            f"{dict(sorted(shapes[1].items()))}; generated in {t_gen:.2f} "
+            f"s, oracle and its checks {t_ref:.2f} s")
+    print(line, flush=True)
+    torch.cuda.empty_cache()
+    return {"name": name, "warm_ms": warm_ms, "cold_ms": cold_ms,
+            "launches": launches, "shapes": shapes, "dtype": dtype,
+            "line": line, "call": call}
+
+
+def mesh_fixed_cap_cell(pt, smi):
+    """Phase 7f: mesh_spgemm_fixed_cap on bench config 1 over MESH_SHARDS
+    shards on one card: K2 and K3 launched, padded_to_host_csr against the
+    oracle."""
+    from speck_tpu_torch.parallel import (make_row_mesh,
+                                          mesh_spgemm_fixed_cap,
+                                          padded_to_host_csr)
+    from speck_tpu_torch.parallel.dist import stack_row_shards
+
+    name = "mesh fixed cap config 1"
+    h, ref, t_gen, t_ref = host_and_oracle(pt, CONFIG1)
+    mesh = make_row_mesh(MESH_SHARDS, devices=["cuda:0"])
+
+    def call():
+        return mesh_spgemm_fixed_cap(h, h, mesh)
+
+    cold_ms, out, launches, shapes, peak, base_mem = mesh_run(call, name)
+    check(launches["row_sort"] > 0 and launches["contract_runs"] > 0,
+          f"a kernel was not launched on {name}: {launches}")
+    check(launches["stream_contract"] == 0, f"{name} launched K1")
+    C = padded_to_host_csr(*out, h.rows, h.cols)
+    r = pt.compare_csr(ref, C)
+    check(r.ok, f"{name} structure differs from the oracle: {r.message}")
+    r = pt.compare_csr(ref, C, compare_data=True, rel_tol=2e-3)
+    check(r.ok, f"{name} values differ from the oracle: {r.message}")
+    nnz, cap = C.nnz, out[1].shape[1]
+    del out, C
+    warm, warm_ms, syncs = mesh_warm(call, name, nnz)
+    products = products_of(h)
+    ranges = stack_row_shards(h, MESH_SHARDS)[3]
+    line = (f"{name} A*A float32 [{smi}; {MESH_SHARDS} shards on one card, "
+            f"run one after another]: m={h.rows} nnz(C)={nnz} products="
+            f"{products}, cap {cap}; shard products "
+            f"{shard_products(h, ranges)}; cold {cold_ms:.1f} ms, warm "
+            f"median of 3 {warm_ms:.2f} ms (all {[round(w, 2) for w in warm]}"
+            f"), GFLOPS {2 * products / (warm_ms * 1e6):.3f}, peak memory "
+            f"{peak / 2**30:.2f} GiB ({(peak - base_mem) / 2**30:.2f} GiB "
+            f"above the inputs), synchronizing calls {syncs}; launches in "
+            f"the cold call {launches}; K2 by (R, W, payloads) "
+            f"{dict(sorted(shapes[1].items()))}; K3 by (R, W, dtype) "
+            f"{dict(sorted(shapes[2].items()))}")
+    print(line, flush=True)
+    torch.cuda.empty_cache()
+    return {"name": name, "warm_ms": warm_ms, "cold_ms": cold_ms,
+            "launches": launches, "shapes": shapes, "dtype": torch.float32,
+            "line": line, "call": call}
+
+
+def mesh_profile(cell, smi):
+    """Phase 9, one mesh cell: one warm call under torch.profiler, its
+    device time (the four shards' kernels on the one card), idle share
+    and five longest kernels; returns the line."""
+    host_ms, dev_ms, kernels = profile_call(cell.pop("call"))
+    line = (f"{cell['name']} profiled warm call: host {host_ms:.2f} ms, "
+            f"device {dev_ms:.3f} ms over {sum(e.count for e in kernels)} "
+            f"kernels (idle share {1 - dev_ms / host_ms:.3f}) [{smi}; "
+            f"{MESH_SHARDS} shards on one card]; longest kernels: "
+            + "; ".join(f"{e.key[:60]} {device_us(e) / 1e3:.3f} ms "
+                        f"x{e.count}" for e in kernels[:5]))
+    print(line, flush=True)
+    torch.cuda.empty_cache()
+    return line
+
+
+def mesh_dryrun_cell(pt, smi):
+    """Phase 7f: multihost_spgemm in one process on config 3 (the needset
+    cell's plan: its cached step must be reused), then
+    entry.dryrun_multichip over MESH_SHARDS shards on one card."""
+    from speck_tpu_torch.entry import dryrun_multichip
+    from speck_tpu_torch.parallel import (make_row_mesh,
+                                          mesh_stream_to_host_csr)
+    from speck_tpu_torch.parallel import multihost
+
+    reset_counts()
+    multihost.initialize()
+    check(multihost.local_row_range(100) == (0, 100),
+          "one process owns every row")
+    h, ref, _, _ = host_and_oracle(pt, CONFIG3)
+    mesh = make_row_mesh(MESH_SHARDS, devices=["cuda:0"])
+    ms, out = timed_ms(lambda: multihost.multihost_spgemm(h, h, mesh=mesh))
+    check(out[3]["compiled_reused"], "multihost_spgemm built a new step")
+    r = pt.compare_csr(ref, mesh_stream_to_host_csr(*out), compare_data=True,
+                       rel_tol=2e-3)
+    check(r.ok, f"multihost_spgemm differs from the oracle: {r.message}")
+    t0 = time.perf_counter()
+    line = dryrun_multichip(MESH_SHARDS, devices=["cuda:0"])
+    dry_s = time.perf_counter() - t0
+    launches, shapes = mesh_counts()
+    check(launches["stream_contract"] > 0 and launches["row_sort"] > 0,
+          f"a kernel was not launched in the dryrun: {launches}")
+    text = (f"mesh dryrun [{smi}; {MESH_SHARDS} shards on one card]: "
+            f"multihost_spgemm (one process) on config 3: {ms:.1f} ms, "
+            f"compiled_reused {out[3]['compiled_reused']}, matches the "
+            f"oracle; {line} ({dry_s:.1f} s)")
+    print(text, flush=True)
+    del out
+    torch.cuda.empty_cache()
+    return {"name": "mesh dryrun", "launches": launches,
+            "shapes": shapes, "dtype": torch.float32, "line": text}
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; "
@@ -1230,6 +1514,7 @@ def main():
         torch.cuda.synchronize()
         warm.append((time.perf_counter() - t0) * 1e3)
     warm_ms = statistics.median(warm)
+    config3_warm = warm_ms
     check(Cw.nnz == C.nnz, "warm call nnz differs from the cold call")
     products = products_of(h)
     print(f"config 3 A*A f32 [{smi}]: nnz(C)={C.nnz} products={products}"
@@ -1316,6 +1601,17 @@ def main():
     slice_cells.append(galerkin_cell(pt, smi))
     torch.cuda.empty_cache()
 
+    phase("7f")
+    # 7f. the row-sharded stream mesh, four shards on one card
+    mesh_cells = [mesh_cell(pt, smi, *c) for c in MESH_CELLS]
+    print(f"config 3 warm call [{smi}]: spgemm on the card "
+          f"{config3_warm:.1f} ms; the mesh of {MESH_SHARDS} shards on the "
+          f"same card (run one after another) needset "
+          f"{mesh_cells[0]['warm_ms']:.1f} ms, allgather "
+          f"{mesh_cells[1]['warm_ms']:.1f} ms", flush=True)
+    mesh_cells.append(mesh_fixed_cap_cell(pt, smi))
+    mesh_cells.append(mesh_dryrun_cell(pt, smi))
+
     phase("7b")
     # 7b. K1 at every shape phases 4, 4b, 7c and 7d launched it at (and the
     # shapes of the probe's table), K2 at every other shape of 4, 4b, 7, 7c
@@ -1327,6 +1623,14 @@ def main():
     for cell in gen_cells + slice_cells:
         k1_all |= set(cell["shapes"][0])
         k2_all |= set(cell["shapes"][1])
+    # the mesh's own K1 shapes are timed here by events; phase 9 profiles
+    # the rest (each profile is a session of its own, and the mesh's
+    # launch-bound shapes would double their number)
+    k1_mesh = set()
+    for cell in mesh_cells:
+        k1_mesh |= set(cell["shapes"][0]) - k1_all
+        k2_all |= set(cell["shapes"][1])
+    k1_all |= k1_mesh
     for shape in sorted(k1_all):
         if shape not in k1:
             k1[shape] = contract_case(gen, *shape)
@@ -1337,6 +1641,14 @@ def main():
             k2[shape] = sort_case(gen, *shape)
             sort_line(*shape, k2[shape], smi, " (main-path shape)")
             torch.cuda.empty_cache()
+    # K3 at the fixed-cap mesh's per-shard shape
+    for shape in sorted(set(mesh_cells[5]["shapes"][2]) - set(k3)):
+        k3[shape] = contract_runs_case(gen, *shape)
+        err, ms, pms = k3[shape]
+        print(f"K3 contract_runs {shape} (main-path shape): max_abs_err "
+              f"{err:.3g}, kernel {ms:.4f} ms, plain {pms:.4f} ms, bound "
+              f"{bound_ms(cp.k3_bytes(*shape)):.4f} ms [{smi}]", flush=True)
+        torch.cuda.empty_cache()
 
     phase("8")
     # 8. the gather probes
@@ -1348,7 +1660,7 @@ def main():
     # the probes in turns once more, to show what a profiler session before
     # them changes
     k1_dev, k3_dev = {}, {}
-    for shape in sorted(k1):
+    for shape in sorted(set(k1) - k1_mesh):
         rid, col, val = cp.contract_inputs(gen, *shape)
         k1_dev[shape] = cp.kernel_device_ms(
             lambda: contract.stream_contract(rid, col, val, cp.N_COLS))
@@ -1372,6 +1684,8 @@ def main():
     torch.cuda.empty_cache()
     # and of the dense-banded and accumulator cells (7e)
     slice_lines = [dia_profile(pt, slice_cells[i], smi) for i in (0, 2)]
+    # the mesh: config 3 under need-set, the giant row, the fixed cap
+    mesh_lines = [mesh_profile(mesh_cells[i], smi) for i in (0, 3, 5)]
     torch.cuda.empty_cache()
     probe_turns(probe_cases, probe_launches, smi,
                 " (after the profiled phase)")
@@ -1390,7 +1704,7 @@ def main():
     k1_main64 = (512, 8192, "plane", "float64")
     k3_main, k3_main64 = (65536, 2048, "float32"), (65536, 2048, "float64")
     # the float64 K1 launches of the main path: phase 7d's float64 cells
-    k1_f64_launches = sum(n for cell in gen_cells
+    k1_f64_launches = sum(n for cell in gen_cells + mesh_cells
                           for k, n in cell["shapes"][0].items()
                           if k[3] == "float64")
     kernels = [
@@ -1401,7 +1715,10 @@ def main():
                       + giant["launches"]["stream_contract"]
                       + onebee["stream_contract"]
                       + sum(c["launches"]["stream_contract"]
-                            for c in slice_cells)),
+                            for c in slice_cells)
+                      + sum(n for c in mesh_cells
+                            for k, n in c["shapes"][0].items()
+                            if k[3] == "float32")),
          "max_abs_err": max(v[0] for v in k1.values()),
          "ms": k1[k1_main][1], "device_ms": sum(k1_dev[k1_main].values()),
          "plain_ms": k1[k1_main][2],
@@ -1424,7 +1741,8 @@ def main():
                       + esc_launches["row_sort"] + onebee["row_sort"]
                       + sum(c["launches"]["row_sort"] for c in gen_cells)
                       + esc64_launches["row_sort"]
-                      + sum(c["launches"]["row_sort"] for c in slice_cells)),
+                      + sum(c["launches"]["row_sort"] for c in slice_cells)
+                      + sum(c["launches"]["row_sort"] for c in mesh_cells)),
          "max_abs_err": max(v[0] for v in k2.values()),
          "ms": k2[(512, 8192, 1)][1], "device_ms": None,
          "plain_ms": k2[(512, 8192, 1)][2],
@@ -1433,7 +1751,9 @@ def main():
         {"name": "contract_runs", "route": "cuda",
          "source": "speck_tpu_torch/csrc/stream_contract.cu",
          "replaces": "speck_tpu/ops/pallas_kernels.py:153",
-         "launches": esc_launches["contract_runs"],
+         "launches": (esc_launches["contract_runs"]
+                      + sum(c["launches"]["contract_runs"]
+                            for c in mesh_cells)),
          "max_abs_err": max(v[0] for k, v in k3.items()
                             if k[2] == "float32"),
          "ms": k3[k3_main][1], "device_ms": sum(k3_dev[k3_main].values()),
@@ -1472,6 +1792,10 @@ def main():
     for cell in slice_cells:
         print(cell["line"], flush=True)
     for line in slice_lines:
+        print(line, flush=True)
+    for cell in mesh_cells:
+        print(cell["line"], flush=True)
+    for line in mesh_lines:
         print(line, flush=True)
     phase("end")
     print(json.dumps({"kernels": kernels}))

@@ -13,9 +13,15 @@ its wide-row levels and finish, the direct copy, the dense tiles
 ``ops/dense.py``, the dense-span accumulator, the diagonal-plane routes
 ``ops/dia.py``), the device transpose (``transpose``), the fixed-cap
 expand-sort-contract ``ops.esc.esc_fixed`` with its entry
-(``entry.entry``), and the gather probes (``probes/``). The TPU A/B knobs
-raise ``NotImplementedError``; the multi-chip mesh is not ported (see
-ROADMAP.md).
+(``entry.entry``), the gather probes (``probes/``), and the multi-device
+layer ``parallel/``: the row mesh (``make_row_mesh``, one controller over
+a list of devices, several shards on one card allowed), the row-sharded
+stream mesh ``mesh_stream_spgemm`` (all_gather and need-set exchange, the
+wide-row ladder, two-phase staging, k-split), ``mesh_spgemm_fixed_cap``,
+``distributed_spgemm``, ``multihost_spgemm`` over torch.distributed and
+``entry.dryrun_multichip``. The TPU A/B knobs, the mesh's diagonal-plane
+and dense routes and ``exchange="needset_overlap"`` raise
+``NotImplementedError`` (see ROADMAP.md).
 """
 
 from .formats.csr import HostCOO, HostCSR, coo_to_csr, csr_transpose

@@ -36,9 +36,9 @@ float32 and float64 values run every route; float64 takes the
 reference's unpacked B gathers on the stream (``stream.Unpacked``). A
 call past ``block_products`` runs as row blocks (``_spgemm_blocked``).
 ``check_supported`` raises ``NotImplementedError`` for the TPU A/B knobs
-(the multi-chip mesh is a separate entry point, not ported). The contract
-and the row sorts always run the hand-written kernels on a CUDA device
-(ops/contract.py, ops/bitonic.py).
+(the multi-device mesh is a separate entry point, ``parallel/``). The
+contract and the row sorts always run the hand-written kernels on a CUDA
+device (ops/contract.py, ops/bitonic.py).
 """
 
 from __future__ import annotations
@@ -133,6 +133,12 @@ def check_supported(cfg: SpgemmConfig, A: DeviceCSR, B: DeviceCSR) -> None:
     if A.data.dtype != B.data.dtype:
         raise _unported(f"mixed value dtypes ({A.data.dtype} and "
                         f"{B.data.dtype})")
+    check_knobs(cfg)
+
+
+def check_knobs(cfg: SpgemmConfig) -> None:
+    """Raise NotImplementedError for the TPU A/B knobs (the port has only
+    their defaults); the mesh checks them too."""
     if cfg.stream_expand_impl != "fill":
         raise _unported(f"StreamExpandImpl={cfg.stream_expand_impl!r}")
     if cfg.stream_compact_impl != "sort":

@@ -992,13 +992,15 @@ def stream_wide_finish(rows_sorted, wcol_flat, wval_flat, wcnt, entry_excl,
 
 
 def stream_emit(rows_sorted, rid_c, col_c, val_c, counts, row_offsets,
-                c_cols, c_vals):
+                c_cols, c_vals, min_rid=0):
     """Scatter a final wide-row buffer's compacted entries into C's padded
     buffers (in place): entries of row r go to row_offsets[r] + rank;
-    rows with rid < 0 are padding."""
+    rows with rid < 0 are padding. ``min_rid`` (>= 0, an int or a device
+    scalar) skips the sorted rows before it: a staged chunk passes the
+    wide-row count, so only its contained rows emit."""
     R, W = col_c.shape
     t = _arange(W, col_c.device)[None, :]
-    live = (t < counts[:, None]) & (rid_c >= 0)
+    live = (t < counts[:, None]) & (rid_c >= min_rid)
     # the compacted prefix is sorted by rid; the rest is masked
     rank = t - _run_start(torch.where(t < counts[:, None], rid_c, INT_MAX))
     m = rows_sorted.shape[0]

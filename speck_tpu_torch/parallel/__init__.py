@@ -1,4 +1,31 @@
-"""Multi-device pieces of the port. Only ``padded_to_host_csr`` so far; the
-mesh paths wait for their port."""
+"""The port's multi-device layer: the row mesh and its collectives
+(``dist``), the row-sharded stream mesh (``mesh_stream``) and multi-process
+execution (``multihost``). The mesh DIA and dense routes and
+``exchange="needset_overlap"`` raise ``NotImplementedError``."""
 
-from .dist import padded_to_host_csr  # noqa: F401
+from .dist import (
+    RowMesh,
+    ShardedCSR,
+    distributed_spgemm,
+    make_row_mesh,
+    mesh_spgemm_fixed_cap,
+    padded_to_host_csr,
+    partition_rows,
+)
+from .mesh_stream import (
+    NeedsetStats,
+    RowShards,
+    balanced_row_ranges,
+    mesh_stream_spgemm,
+    mesh_stream_to_host_csr,
+)
+from .multihost import global_row_mesh, initialize, local_row_range
+
+__all__ = [
+    "ShardedCSR", "distributed_spgemm", "make_row_mesh",
+    "mesh_spgemm_fixed_cap", "partition_rows",
+    "NeedsetStats", "RowShards", "balanced_row_ranges",
+    "mesh_stream_spgemm", "mesh_stream_to_host_csr",
+    "initialize", "global_row_mesh", "local_row_range",
+    "padded_to_host_csr", "RowMesh",
+]

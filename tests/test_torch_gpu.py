@@ -684,3 +684,81 @@ def test_transpose_and_galerkin_on_card(cuda_device, dtype):
     r = pt.compare_csr(pt.HostCSR.from_scipy(g), G, compare_data=True,
                        rel_tol=1e-9 if dtype == torch.float64 else 2e-3)
     assert r.ok, r.message
+
+
+def _mesh_input(case):
+    """Small mesh inputs: a power-law matrix (the stream with a wide row)
+    and a random one with a row past a lowered k-split threshold."""
+    import scipy.sparse as sp
+
+    if case == "powerlaw":
+        return make_powerlaw(4096, avg=6, seed=3), {}
+    rs_ = np.random.RandomState(33)
+    base = sp.random(240, 240, 0.08, format="csr", random_state=rs_)
+    base.data = rs_.standard_normal(base.nnz)
+    lil = base.tolil()
+    lil[17, :] = rs_.standard_normal(240)
+    return (pt.HostCSR.from_scipy(lil.tocsr()),
+            dict(stream_width=64, product_budget=1 << 14,
+                 mesh_split_min_ops=900))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("exchange", ["allgather", "needset"])
+@pytest.mark.parametrize("case", ["powerlaw", "ksplit"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_mesh_on_card_matches_the_cpu(cuda_device, exchange, case, dtype):
+    """The stream mesh with four shards on one card against the same call
+    with four CPU shards: meta and nnz_row equal, each shard's columns
+    equal within its counts, values within rtol 2e-3 (float32) or 1e-12
+    (float64); every output on the card; K1 and K2 launched."""
+    from speck_tpu_torch.parallel import (make_row_mesh, mesh_stream_spgemm,
+                                          mesh_stream_to_host_csr)
+    from speck_tpu_torch.parallel.dist import fetch_output
+
+    h, kw = _mesh_input(case)
+    cfg = pt.SpgemmConfig(**kw)
+    k1, k2 = contract.LAUNCHES, bitonic.LAUNCHES
+    got = mesh_stream_spgemm(h, h, make_row_mesh(4, devices=["cuda:0"]),
+                             cfg, exchange=exchange, dtype=dtype)
+    torch.cuda.synchronize()
+    assert contract.LAUNCHES > k1 and bitonic.LAUNCHES > k2
+    assert all(x.device.type == "cuda" for x in got[:3])
+    want = mesh_stream_spgemm(h, h, make_row_mesh(4, devices=["cpu"]), cfg,
+                              exchange=exchange, dtype=dtype)
+    gm, wm = got[3], want[3]
+    for k in ("ranges", "m_loc", "out_cap", "shape", "route", "ksplit"):
+        assert gm[k] == wm[k], k
+    assert (gm["ksplit"] is not None) == (case == "ksplit")
+    gn = fetch_output(got[0]).reshape(4, -1)
+    np.testing.assert_array_equal(gn, fetch_output(want[0]).reshape(4, -1))
+    gc, wc = (fetch_output(x[1]).reshape(4, -1) for x in (got, want))
+    gv, wv = (fetch_output(x[2]).reshape(4, -1) for x in (got, want))
+    tol = 2e-3 if dtype == torch.float32 else 1e-12
+    for d in range(4):
+        tot = int(gn[d].sum())
+        np.testing.assert_array_equal(gc[d, :tot], wc[d, :tot])
+        np.testing.assert_allclose(gv[d, :tot], wv[d, :tot], rtol=tol,
+                                   atol=tol * 1e-2)
+    r = pt.compare_csr(pt.oracle_spgemm(h, h), mesh_stream_to_host_csr(*got),
+                       compare_data=True,
+                       rel_tol=2e-3 if dtype == torch.float32 else 1e-9)
+    assert r.ok, r.message
+
+
+@pytest.mark.gpu
+def test_mesh_fixed_cap_on_card(cuda_device):
+    """mesh_spgemm_fixed_cap with four shards on one card: K2 and K3
+    launched, the result equal in structure to the oracle's."""
+    from speck_tpu_torch.parallel import (make_row_mesh,
+                                          mesh_spgemm_fixed_cap)
+
+    h = make_banded(4096, half_band=4, seed=3)
+    k2, k3 = bitonic.LAUNCHES, contract.RUNS_LAUNCHES
+    out = mesh_spgemm_fixed_cap(h, h, make_row_mesh(4, devices=["cuda:0"]))
+    torch.cuda.synchronize()
+    assert bitonic.LAUNCHES > k2 and contract.RUNS_LAUNCHES > k3
+    C = padded_to_host_csr(*out, h.rows, h.cols)
+    r = pt.compare_csr(pt.oracle_spgemm(h, h), C, compare_data=True,
+                       rel_tol=2e-3)
+    assert r.ok, r.message
