@@ -101,8 +101,10 @@ Phases (any failure raises and exits non-zero; nothing falls back):
      entry.dryrun_multichip(4, devices=["cuda:0"]). Every output tensor must be on the
      card; each against the oracle (structure exact, values rel_tol 2e-3,
      float64 1e-9); the route asserted; the cold call, the median of 3
-     warm calls, GFLOPS, peak memory, synchronizing calls, the shards'
-     products, K1's, K2's and K3's launches; multihost_spgemm must reuse
+     warm calls, GFLOPS, peak memory, synchronizing calls (and by the
+     port's line that makes them), the shards' products, K1's, K2's and
+     K3's launches, and the host clock around each stage of one more warm
+     call of each mesh_stream_spgemm cell; multihost_spgemm must reuse
      the config 3 needset cell's cached step;
   7b. K1 at every shape phases 4, 4b, 7c, 7d, 7e and 7f launched it at (and
      the shapes of probes/contract_profile.py's table), K2 at every other
@@ -120,14 +122,14 @@ Phases (any failure raises and exits non-zero; nothing falls back):
      scratch, medians of cp.REPS calls) beside the bound;
      one warm giant-row call: its device time, K1's and K2's share of it
      and its longest kernels; one warm call of each phase 7c cell, of
-     the 2^20 graph and config 3 in float64 (7d), of the dense-banded
-     and accumulator cells (7e) and of the mesh's config 3 needset, giant
-     row and fixed-cap cells (7f): its device time, idle share (1 - device /
+     the 2^20 graph and config 3 in float64 (7d) and of the dense-banded
+     and accumulator cells (7e): its device time, idle share (1 - device /
      host time) and five longest kernels; then the
      probes of phase 8 in turns once
      more, to show what a profiler session before them changes, and each
      probe's and its library call's device time (medians of 5 profiled
-     calls).
+     calls); last, one warm call of the mesh's config 3 needset, giant
+     row and fixed-cap cells (7f) as those of 7c.
 Bounds (bound_ms): the bytes each function must move (inputs read once,
 outputs written once) over 3.35 TB/s, the H100 SXM's device memory rate
 (NVIDIA's data sheet); every kernel here is bound by bytes. library_ms is
@@ -350,20 +352,41 @@ def host_and_oracle(pt, gen_call):
     return _HOST[gen_call]
 
 
-def sync_count(fn):
+def sync_sites(fn):
     """Synchronizing calls (readbacks and pageable copies) in one call of
-    fn, as torch.cuda's sync debug mode reports them."""
+    fn, as torch.cuda's sync debug mode reports them, by where the port
+    makes them: {"file:line (function)" of the innermost frame in
+    speck_tpu_torch: count}."""
+    import collections
+    import traceback
     import warnings
+
+    sites = collections.Counter()
+
+    def hook(message, category, filename, lineno, file=None, line=None):
+        where = "outside the port"
+        for fr in reversed(traceback.extract_stack()[:-1]):
+            if "speck_tpu_torch" in fr.filename:
+                where = (f"{fr.filename.split('speck_tpu_torch/')[-1]}:"
+                         f"{fr.lineno} ({fr.name})")
+                break
+        sites[where] += 1
 
     torch.cuda.set_sync_debug_mode("warn")
     try:
-        with warnings.catch_warnings(record=True) as caught:
+        with warnings.catch_warnings():
             warnings.simplefilter("always")
+            warnings.showwarning = hook
             fn()
             torch.cuda.synchronize()
     finally:
         torch.cuda.set_sync_debug_mode("default")
-    return len(caught)
+    return sites
+
+
+def sync_count(fn):
+    """Synchronizing calls in one call of fn (``sync_sites``)."""
+    return sum(sync_sites(fn).values())
 
 
 def timed_ms(fn):
@@ -1236,16 +1259,79 @@ def mesh_run(fn, name):
     return cold_ms, out, launches, shapes, peak, base_mem
 
 
+# the stages of mesh_stream_spgemm that host_stages times: its module's
+# functions, and the two steps (which enqueue the shards' card work)
+MESH_STAGES = ("_shard_row_lens", "_host_row_ops", "_mesh_sdia_gate",
+               "_mesh_dense_gate", "_plan_ksplit_shards", "_stack_shards",
+               "tight_total_host", "_mesh_wide_plans", "put",
+               "_plan_needset_device", "_lut_gather")
+
+
+def host_stages(fn):
+    """One call of fn with the host clock around each stage of
+    mesh_stream_spgemm (MESH_STAGES, RowShards.from_global and the step's
+    call; a stage inside another counts in the outer one): {stage: (ms,
+    calls)}, "other" for the rest of the call until its return, and
+    "card after return" for the synchronize that follows it (the card's
+    work still queued when the host is done)."""
+    from speck_tpu_torch.parallel import mesh_stream as ms
+
+    clock = {}
+    depth = [0]
+
+    def timed(name, f):
+        def run(*a, **k):
+            depth[0] += 1
+            t0 = time.perf_counter()
+            try:
+                return f(*a, **k)
+            finally:
+                depth[0] -= 1
+                if depth[0] == 0:
+                    t, n = clock.get(name, (0.0, 0))
+                    clock[name] = (t + (time.perf_counter() - t0) * 1e3,
+                                   n + 1)
+        return run
+
+    saved = {n: getattr(ms, n) for n in MESH_STAGES}
+    calls = {c: c.__call__ for c in (ms._AllgatherStep, ms._NeedsetStep)}
+    from_global = ms.RowShards.__dict__["from_global"]
+    try:
+        for n, f in saved.items():
+            setattr(ms, n, timed(n, f))
+        for c, f in calls.items():
+            c.__call__ = timed("step", f)
+        ms.RowShards.from_global = classmethod(
+            timed("RowShards.from_global", from_global.__func__))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+    finally:
+        for n, f in saved.items():
+            setattr(ms, n, f)
+        for c, f in calls.items():
+            c.__call__ = f
+        ms.RowShards.from_global = from_global
+    clock["other"] = ((t1 - t0) * 1e3 - sum(t for t, _ in clock.values()),
+                      1)
+    clock["card after return"] = ((t2 - t1) * 1e3, 1)
+    return clock
+
+
 def mesh_warm(fn, name, nnz_total):
     """Three warm calls (nnz(C) each equal to the cold call's), their
-    median, and the synchronizing calls of one more."""
+    median, and the synchronizing calls of one more by site
+    (sync_sites)."""
     warm = []
     for _ in range(3):
         ms, out = timed_ms(fn)
         check(int(out[0].sum()) == nnz_total, f"{name}: warm nnz differs")
         warm.append(ms)
         del out
-    return warm, statistics.median(warm), sync_count(fn)
+    return warm, statistics.median(warm), sync_sites(fn)
 
 
 def mesh_cell(pt, smi, name, gen_call, exchange, dtype, rel_tol):
@@ -1306,7 +1392,8 @@ def mesh_cell(pt, smi, name, gen_call, exchange, dtype, rel_tol):
     t_ref += time.perf_counter() - t0
     nnz = Ch.nnz
     del out, Ch
-    warm, warm_ms, syncs = mesh_warm(call, name, nnz)
+    warm, warm_ms, sites = mesh_warm(call, name, nnz)
+    syncs = sum(sites.values())
     products = products_of(h)
     line = (f"{name} A*A {dname} [{smi}; {MESH_SHARDS} shards on one card, "
             f"run one after another]: m={h.rows} nnz(A)={h.nnz} "
@@ -1325,6 +1412,12 @@ def mesh_cell(pt, smi, name, gen_call, exchange, dtype, rel_tol):
             f"{dict(sorted(shapes[1].items()))}; generated in {t_gen:.2f} "
             f"s, oracle and its checks {t_ref:.2f} s")
     print(line, flush=True)
+    print(f"{name} synchronizing calls by site: {dict(sites.most_common())}",
+          flush=True)
+    stages = host_stages(call)
+    print(f"{name} host stages of one warm call [{smi}] (ms, calls): "
+          + ", ".join(f"{k} {t:.1f} x{n}" for k, (t, n) in sorted(
+              stages.items(), key=lambda kv: -kv[1][0])), flush=True)
     torch.cuda.empty_cache()
     return {"name": name, "warm_ms": warm_ms, "cold_ms": cold_ms,
             "launches": launches, "shapes": shapes, "dtype": dtype,
@@ -1358,7 +1451,8 @@ def mesh_fixed_cap_cell(pt, smi):
     check(r.ok, f"{name} values differ from the oracle: {r.message}")
     nnz, cap = C.nnz, out[1].shape[1]
     del out, C
-    warm, warm_ms, syncs = mesh_warm(call, name, nnz)
+    warm, warm_ms, sites = mesh_warm(call, name, nnz)
+    syncs = sum(sites.values())
     products = products_of(h)
     ranges = stack_row_shards(h, MESH_SHARDS)[3]
     line = (f"{name} A*A float32 [{smi}; {MESH_SHARDS} shards on one card, "
@@ -1373,6 +1467,8 @@ def mesh_fixed_cap_cell(pt, smi):
             f"{dict(sorted(shapes[1].items()))}; K3 by (R, W, dtype) "
             f"{dict(sorted(shapes[2].items()))}")
     print(line, flush=True)
+    print(f"{name} synchronizing calls by site: {dict(sites.most_common())}",
+          flush=True)
     torch.cuda.empty_cache()
     return {"name": name, "warm_ms": warm_ms, "cold_ms": cold_ms,
             "launches": launches, "shapes": shapes, "dtype": torch.float32,
@@ -1384,6 +1480,7 @@ def mesh_profile(cell, smi):
     device time (the four shards' kernels on the one card), idle share
     and five longest kernels; returns the line."""
     host_ms, dev_ms, kernels = profile_call(cell.pop("call"))
+    check(kernels, f"{cell['name']}: the profile recorded no kernel")
     line = (f"{cell['name']} profiled warm call: host {host_ms:.2f} ms, "
             f"device {dev_ms:.3f} ms over {sum(e.count for e in kernels)} "
             f"kernels (idle share {1 - dev_ms / host_ms:.3f}) [{smi}; "
@@ -1684,9 +1781,6 @@ def main():
     torch.cuda.empty_cache()
     # and of the dense-banded and accumulator cells (7e)
     slice_lines = [dia_profile(pt, slice_cells[i], smi) for i in (0, 2)]
-    # the mesh: config 3 under need-set, the giant row, the fixed cap
-    mesh_lines = [mesh_profile(mesh_cells[i], smi) for i in (0, 3, 5)]
-    torch.cuda.empty_cache()
     probe_turns(probe_cases, probe_launches, smi,
                 " (after the profiled phase)")
     # each probe's device time and its library call's, without the host
@@ -1699,6 +1793,10 @@ def main():
         print(f"{name}: device {probes[name]['device_ms']:.4f} ms by "
               f"torch.profiler, {lib_name} {lib_dev:.4f} ms [{smi}]",
               flush=True)
+    # the mesh last: config 3 under need-set, the giant row, the fixed cap
+    # (sessions of thousands of kernels, after which a later session of
+    # this process may record no device events)
+    mesh_lines = [mesh_profile(mesh_cells[i], smi) for i in (0, 3, 5)]
 
     k1_main = (512, 8192, "plane", "float32")
     k1_main64 = (512, 8192, "plane", "float64")

@@ -71,82 +71,82 @@ def entry(device=None):
     return fn, esc_args(a, b, device)
 
 
-def dryrun_multichip(n_devices: int, devices=None) -> str:
-    """The port's counterpart of the repository's
-    ``__graft_entry__.dryrun_multichip``: the stream mesh over an
-    ``n_devices`` row mesh (``devices`` as ``parallel.make_row_mesh``
-    takes them: every CUDA card by default, or one device repeated) on
-    tiny shapes, each step checked against the host oracle, and the
-    reference's summary line printed (and returned).
-
-    It runs the need-set and all_gather exchanges on the stream, the
-    block-diagonal need-set product (zero communication) and the k-split
-    of a row above a lowered threshold. The reference's two other steps,
-    the mesh dense route and ``exchange="needset_overlap"``, are not
-    ported yet and are left out."""
+def dryrun_inputs(n_devices: int):
+    """The dryrun's three products, made as ``__graft_entry__`` makes them
+    (the same seeds, in the same order): {step: (a, b, cfg, exchange)} for
+    "needset" and "allgather" (the example matrices on the stream),
+    "block-diagonal" (n_devices blocks of 8 rows, need-set) and "k-split"
+    (a dense row 3 above a lowered split threshold, need-set)."""
     import scipy.sparse as sp
 
-    from .parallel import (make_row_mesh, mesh_stream_spgemm,
-                           mesh_stream_to_host_csr)
-    from .utils.compare import compare_csr
     from .utils.config import SpgemmConfig
-    from .utils.oracle import oracle_spgemm
 
-    mesh = make_row_mesh(n_devices, devices=devices)
-    assert mesh.size == n_devices, (
-        f"wanted {n_devices} devices, mesh has {mesh.size}")
     a, b = _example_matrices(m=48, k=40, n=32, density=0.15)
-    ref = oracle_spgemm(a, b)
-    st = None
-    for exchange in ("needset", "allgather"):
-        # EnableDense=false pins the stream in both exchange modes
-        nnz_row, cols, vals, meta = mesh_stream_spgemm(
-            a, b, mesh, exchange=exchange,
-            cfg=SpgemmConfig(mesh_exchange_auto=False, enable_dense=False))
-        assert meta["route"] == "stream", meta["route"]
-        got = mesh_stream_to_host_csr(nnz_row, cols, vals, meta)
-        res = compare_csr(ref, got, compare_data=True, rel_tol=1e-2)
-        assert res.ok, f"mesh_stream {exchange} mismatch: {res.message}"
-        st = st or meta["stats"]
-
-    # block-diagonal input: each shard's A references only its own B rows,
-    # so every non-self round is empty and no bytes move
+    # EnableDense=false pins the stream in both exchange modes
+    cfg = SpgemmConfig(mesh_exchange_auto=False, enable_dense=False)
     rs = np.random.RandomState(11)
     blk = sp.block_diag(
         [sp.random(8, 8, 0.6, format="csr", random_state=rs)
          for _ in range(n_devices)], format="csr")
     blk.data = rs.standard_normal(blk.nnz)
     ab = HostCSR.from_scipy(blk)
-    nnz_row, cols, vals, meta_b = mesh_stream_spgemm(
-        ab, ab, mesh, exchange="needset")
-    got_b = mesh_stream_to_host_csr(nnz_row, cols, vals, meta_b)
-    res = compare_csr(oracle_spgemm(ab, ab), got_b, compare_data=True,
-                      rel_tol=1e-2)
-    assert res.ok, f"block-diagonal needset mismatch: {res.message}"
-    st_b = meta_b["stats"]
-    assert st_b.needset_bytes < st_b.allgather_bytes, (
-        st_b.needset_bytes, st_b.allgather_bytes)
-
-    # k-split single-row sharding: a row above the (lowered) threshold
-    # computes as per-B-shard partials merged by all_gather
     lil = sp.random(40, 40, 0.1, format="csr", random_state=rs).tolil()
     lil[3, :] = rs.standard_normal(40)
     ak = HostCSR.from_scipy(lil.tocsr())
     cfgk = SpgemmConfig(stream_width=64, product_budget=1 << 12,
                         mesh_split_min_ops=60, mesh_exchange_auto=False)
-    nnz_row, cols, vals, meta_k = mesh_stream_spgemm(
-        ak, ak, mesh, cfg=cfgk, exchange="needset")
-    ksm = meta_k["ksplit"]
+    return {"needset": (a, b, cfg, "needset"),
+            "allgather": (a, b, cfg, "allgather"),
+            "block-diagonal": (ab, ab, None, "needset"),
+            "k-split": (ak, ak, cfgk, "needset")}
+
+
+def dryrun_multichip(n_devices: int, devices=None) -> str:
+    """The port's counterpart of the repository's
+    ``__graft_entry__.dryrun_multichip``: the stream mesh over an
+    ``n_devices`` row mesh (``devices`` as ``parallel.make_row_mesh``
+    takes them: every CUDA card by default, or one device repeated) on
+    the tiny products of ``dryrun_inputs``, each checked against the host
+    oracle, and the reference's summary line printed (and returned).
+
+    It runs the need-set and all_gather exchanges on the stream, the
+    block-diagonal need-set product (zero communication) and the k-split
+    of a row above a lowered threshold. The reference's two other steps,
+    the mesh dense route and ``exchange="needset_overlap"``, are not
+    ported yet and are left out."""
+    from .parallel import (make_row_mesh, mesh_stream_spgemm,
+                           mesh_stream_to_host_csr)
+    from .utils.compare import compare_csr
+    from .utils.oracle import oracle_spgemm
+
+    mesh = make_row_mesh(n_devices, devices=devices)
+    assert mesh.size == n_devices, (
+        f"wanted {n_devices} devices, mesh has {mesh.size}")
+    meta, nnz = {}, {}
+    for step, (a, b, cfg, exchange) in dryrun_inputs(n_devices).items():
+        out = mesh_stream_spgemm(a, b, mesh, exchange=exchange, cfg=cfg)
+        meta[step] = out[3]
+        got = mesh_stream_to_host_csr(*out)
+        res = compare_csr(oracle_spgemm(a, b), got, compare_data=True,
+                          rel_tol=1e-2)
+        assert res.ok, f"mesh_stream {step} mismatch: {res.message}"
+        nnz[step] = got.nnz
+    for step in ("needset", "allgather"):
+        assert meta[step]["route"] == "stream", meta[step]["route"]
+    # block-diagonal input: each shard's A references only its own B rows,
+    # so every non-self round is empty and no bytes move
+    st, st_b = meta["needset"]["stats"], meta["block-diagonal"]["stats"]
+    assert st_b.needset_bytes < st_b.allgather_bytes, (
+        st_b.needset_bytes, st_b.allgather_bytes)
+    # k-split single-row sharding: a row above the (lowered) threshold
+    # computes as per-B-shard partials merged by all_gather
+    ksm = meta["k-split"]["ksplit"]
     assert ksm is not None and ksm["n_split"] >= 1 \
         and 3 in ksm["split_ids"], f"k-split plan did not engage: {ksm}"
-    got_k = mesh_stream_to_host_csr(nnz_row, cols, vals, meta_k)
-    res = compare_csr(oracle_spgemm(ak, ak), got_k, compare_data=True,
-                      rel_tol=1e-2)
-    assert res.ok, f"k-split dryrun mismatch: {res.message}"
 
     bd_comm = ("ZERO-COMM" if st_b.zero_comm
                else f"reduction {st_b.reduction:.1f}x")
-    line = (f"dryrun_multichip({n_devices}): OK, nnz(C)={got.nnz}, "
+    line = (f"dryrun_multichip({n_devices}): OK, nnz(C)={nnz['allgather']}, "
             f"needset bytes {st.needset_bytes} vs allgather "
             f"{st.allgather_bytes}; block-diag needset "
             f"{st_b.needset_bytes} vs {st_b.allgather_bytes} ({bd_comm}); "

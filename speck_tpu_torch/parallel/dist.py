@@ -144,21 +144,33 @@ def make_row_mesh(n_devices: Optional[int] = None, devices=None) -> RowMesh:
 # ---------------------------------------------------------------------------
 
 
+def upload(x, dev: torch.device) -> torch.Tensor:
+    """A host array on ``dev``. To a card it goes through pinned memory
+    and an asynchronous copy, so the host does not wait for the card (the
+    reference's device_put does not either); on the CPU the tensor shares
+    the array's memory."""
+    t = torch.from_numpy(np.ascontiguousarray(x))
+    if dev.type != "cuda":
+        return t
+    return t.pin_memory().to(dev, non_blocking=True)
+
+
 def put(mesh: RowMesh, x, live=None) -> Dict[int, torch.Tensor]:
     """A host (D, ...) array as per-shard tensors: shard d's row on
-    ``devices[d]``, for the local shards. With ``live`` (a length per
-    shard) only each row's first live[d] entries are copied to the device
-    and the zero padding behind them is made there: the shapes stay the
-    common padded ones, the host-to-device bytes are the live ones."""
+    ``devices[d]``, for the local shards (``upload``). With ``live`` (a
+    length per shard) only each row's first live[d] entries are copied to
+    the device and the zero padding behind them is made there: the shapes
+    stay the common padded ones, the host-to-device bytes are the live
+    ones."""
     x = np.asarray(x)
     out = {}
     for d in mesh.local:
         dev = mesh.devices[d]
         if live is None:
-            out[d] = torch.as_tensor(np.ascontiguousarray(x[d]), device=dev)
+            out[d] = upload(x[d], dev)
             continue
         n = int(live[d])
-        head = torch.as_tensor(np.ascontiguousarray(x[d, :n]), device=dev)
+        head = upload(x[d, :n], dev)
         out[d] = head.new_zeros(x.shape[1:])
         out[d][:n] = head
     return out

@@ -64,7 +64,7 @@ from ..ops.contract import stream_contract
 from ..utils.config import SpgemmConfig
 from .dist import (RowMesh, _host_all_gather, _pad_to, _slice_rows,
                    all_gather, assemble, fetch_global, fetch_output, ppermute,
-                   process_count, put)
+                   process_count, put, upload)
 
 I32 = torch.int32
 
@@ -377,10 +377,13 @@ def _needset_bitmap(ax, nnz_d: int, spl, spl_n: int, b_len_pad, *, D: int,
     dev = ax.device
     b_rows_pad = D * k_loc
     need = torch.zeros(b_rows_pad + 1, dtype=torch.bool, device=dev)
+    # the value set is a tensor on the device: a Python scalar there would
+    # be copied from the host, and the host would wait for the card
+    true = need.new_ones(())
     valid = torch.arange(ax.shape[0], dtype=I32, device=dev) < nnz_d
-    need[torch.where(valid, ax, b_rows_pad)] = True
+    need[torch.where(valid, ax, b_rows_pad)] = true
     vs = torch.arange(spl.shape[0], dtype=I32, device=dev) < spl_n
-    need[torch.where(vs, spl, b_rows_pad)] = True
+    need[torch.where(vs, spl, b_rows_pad)] = true
     need = need[:b_rows_pad].reshape(D, k_loc)
     rows_cnt = torch.sum(need, dim=1, dtype=I32)
     nnz_cnt = torch.sum(torch.where(need, b_len_pad.reshape(D, k_loc), 0),
@@ -446,7 +449,7 @@ def _needset_send_plan(blk, lens, *, Rr: int):
     # run-length decode: segment id of each payload position (the live
     # starts are distinct, so a set marks them)
     marks = torch.zeros(Rr + 1, dtype=I32, device=dev)
-    marks[torch.where(live, starts, Rr)] = 1
+    marks[torch.where(live, starts, Rr)] = marks.new_ones(())
     seg = torch.cumsum(marks[:Rr], 0, dtype=I32) - 1
     segc = torch.clamp(seg, 0, Rr - 1)
     i = torch.arange(Rr, dtype=I32, device=dev)
@@ -464,8 +467,7 @@ def _plan_needset_device(mesh: RowMesh, ax, nnz_d_h, spl_cols, spl_nnz_h,
     the D^2 pair counts (``fetch_global``: one per process)."""
     b_len_pad = np.zeros(D * k_loc, np.int32)
     b_len_pad[: b_len_h.shape[0]] = b_len_h
-    blp = {d: torch.as_tensor(b_len_pad, device=mesh.devices[d])
-           for d in mesh.local}
+    blp = {d: upload(b_len_pad, mesh.devices[d]) for d in mesh.local}
     need, cnts = {}, {}
     for d in mesh.local:
         spl = (spl_cols[d] if spl_cols is not None
@@ -489,8 +491,7 @@ def _plan_needset_device(mesh: RowMesh, ax, nnz_d_h, spl_cols, spl_nnz_h,
             "per shard, past the 2^31 int32 ceiling; use more shards")
     rb_start, rb_len, lut = {}, {}, {}
     for d in mesh.local:
-        so = torch.as_tensor(seg_off[:-1].astype(np.int32),
-                             device=mesh.devices[d])
+        so = upload(seg_off[:-1].astype(np.int32), mesh.devices[d])
         rb_start[d], rb_len[d], lut[d] = _needset_recv_tables(
             need[d], blp[d], so, d, D=D, k_loc=k_loc, P_rows=P_rows)
 

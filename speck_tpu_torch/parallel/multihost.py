@@ -5,7 +5,8 @@ Every process calls ``initialize()`` once, then every process calls
 the global mesh spans every process's devices, each process runs the
 shards its devices own, and the collectives of ``parallel/dist.py`` go
 through ``torch.distributed``: NCCL for device tensors when every process
-has a card of its own, gloo otherwise and always for the host metadata.
+of a node has a card of its own, gloo on the CPU or when asked, and gloo
+always for the host metadata.
 
 With one process this is exactly ``mesh_stream_spgemm`` over the local
 mesh.
@@ -27,10 +28,16 @@ def initialize(coordinator_address: Optional[str] = None,
                backend: Optional[str] = None) -> None:
     """Initialize torch.distributed (idempotent): ``coordinator_address``
     is "host:port" of process 0 (``tcp://`` is added), else the env://
-    variables (without either, one process, and nothing is done). The
-    backend defaults to NCCL when CUDA cards are present
-    and every process can have one of its own, else gloo; a gloo group
-    for host metadata is made beside an NCCL one."""
+    variables (without either, one process, and nothing is done).
+
+    The backend defaults to gloo without CUDA cards. With cards it is NCCL
+    when every process of this node has a card of its own: the node's
+    process count is ``LOCAL_WORLD_SIZE`` (as torchrun sets it), and
+    without it, or with more processes than cards on the node, the call
+    raises rather than move card tensors through the host; pass
+    ``backend`` to choose. A process takes the card ``LOCAL_RANK`` (else
+    its rank modulo the node's cards). A gloo group for host metadata is
+    made beside an NCCL one."""
     import os
 
     import torch.distributed as tdist
@@ -40,9 +47,7 @@ def initialize(coordinator_address: Optional[str] = None,
         return      # one process and no job around it: nothing to join
     if not tdist.is_initialized():
         if backend is None:
-            n = num_processes or 1
-            backend = ("nccl" if torch.cuda.is_available()
-                       and torch.cuda.device_count() >= n else "gloo")
+            backend = _default_backend(os.environ.get("LOCAL_WORLD_SIZE"))
         kw = {}
         if coordinator_address is not None:
             addr = coordinator_address
@@ -52,13 +57,41 @@ def initialize(coordinator_address: Optional[str] = None,
         if process_id is not None:
             kw["rank"] = process_id
         if backend == "nccl":
-            rank = process_id or 0
-            torch.cuda.set_device(rank % torch.cuda.device_count())
+            torch.cuda.set_device(_local_card(process_id or 0))
         tdist.init_process_group(backend=backend, **kw)
     if _dist._HOST_GROUP is None:
         _dist._HOST_GROUP = (tdist.new_group(backend="gloo")
                              if tdist.get_backend() != "gloo"
                              else tdist.group.WORLD)
+
+
+def _local_card(rank: int) -> int:
+    """This process's card: ``LOCAL_RANK`` (as torchrun sets it), else its
+    rank, modulo the node's cards."""
+    import os
+
+    return (int(os.environ.get("LOCAL_RANK", rank))
+            % torch.cuda.device_count())
+
+
+def _default_backend(local_world_size: Optional[str]) -> str:
+    """gloo without CUDA cards; NCCL when this node's processes
+    (``local_world_size``) each have a card of their own; else raises."""
+    if not torch.cuda.is_available():
+        return "gloo"
+    cards = torch.cuda.device_count()
+    if local_world_size is None:
+        raise ValueError(
+            "multihost.initialize: CUDA cards are present but the number "
+            "of processes on this node is unknown; set LOCAL_WORLD_SIZE or "
+            "pass backend='nccl' (a card per process) or 'gloo'")
+    if int(local_world_size) > cards:
+        raise ValueError(
+            f"multihost.initialize: {local_world_size} processes on this "
+            f"node share {cards} CUDA card(s), and NCCL takes one process "
+            "per card; pass backend='gloo' to move card tensors through "
+            "the host")
+    return "nccl"
 
 
 def global_row_mesh(devices=None) -> "_dist.RowMesh":
@@ -71,8 +104,8 @@ def global_row_mesh(devices=None) -> "_dist.RowMesh":
         return _dist.make_row_mesh(devices=devices)
     if devices is None:
         _dist.resolve_device("cuda")
-        devices = [torch.device("cuda", _dist.process_index()
-                                % torch.cuda.device_count())]
+        devices = [torch.device("cuda",
+                                _local_card(_dist.process_index()))]
     local = _dist.make_row_mesh(devices=devices)
     L, p = local.size, _dist.process_index()
     return _dist.RowMesh(devices=tuple(local.devices) * P,

@@ -111,34 +111,29 @@ def sums_close(got, want, mag) -> bool:
 KERNELS = ("contract_kernel", "contract_scratch_clear")
 
 
-def kernel_device_ms(fn, reps: int = REPS, sessions: int = 3) -> dict:
+def kernel_device_ms(fn, reps: int = REPS) -> dict:
     """Device time (ms) of one call of fn by ``torch.profiler``, after one
     warm-up call, for each of ``KERNELS`` (a kernel name holds it): the
     median over reps calls, 0.0 where fn launched no such kernel. The sum
-    is the call's device time, without its wrapper's host time. A session
-    that records no contract kernel at all (the profiler has dropped a
-    whole session's device events after many sessions in one process) is
-    taken again, up to ``sessions`` in all, then raises."""
+    is the call's device time, without its wrapper's host time."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    for _ in range(sessions):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-        times = {n: [] for n in KERNELS}
-        for e in prof.events():
-            if e.device_type == torch.autograd.DeviceType.CUDA:
-                for n in KERNELS:
-                    if n in e.name:
-                        times[n].append(e.time_range.elapsed_us() / 1e3)
-        if times[KERNELS[0]]:
-            return {n: statistics.median(t) if t else 0.0
-                    for n, t in times.items()}
-    raise RuntimeError(f"no {KERNELS[0]} kernel in {sessions} profiles")
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    times = {n: [] for n in KERNELS}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            for n in KERNELS:
+                if n in e.name:
+                    times[n].append(e.time_range.elapsed_us() / 1e3)
+    if not times[KERNELS[0]]:
+        raise RuntimeError(f"no {KERNELS[0]} kernel in the profile")
+    return {n: statistics.median(t) if t else 0.0 for n, t in times.items()}
 
 
 def host_ms(fn, reps: int = REPS) -> float:

@@ -13,6 +13,8 @@ cases are those of ``tests/test_parallel.py``; the routes the port does
 not have yet (the mesh DIA and dense routes, ``needset_overlap``) must
 raise exactly where the reference takes them."""
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -27,7 +29,7 @@ from speck_tpu.formats.csr import HostCSR as JHostCSR
 from speck_tpu.parallel import dist as jdist
 from speck_tpu.parallel import mesh_stream as jms
 from speck_tpu.utils.config import SpgemmConfig as JConfig
-from speck_tpu_torch.entry import dryrun_multichip
+from speck_tpu_torch.entry import dryrun_inputs, dryrun_multichip
 from speck_tpu_torch.formats.csr import HostCSR
 from speck_tpu_torch.parallel import dist as tdist
 from speck_tpu_torch.parallel import mesh_stream as tms
@@ -292,6 +294,22 @@ def test_multihost_helpers_single_process():
     assert tdist.process_count() == 1
 
 
+@pytest.mark.parametrize("cards, local, want", [
+    (0, None, "gloo"), (0, "4", "gloo"), (1, "1", "nccl"), (4, "4", "nccl"),
+    (1, "2", "ValueError"), (4, None, "ValueError")])
+def test_multihost_default_backend(monkeypatch, cards, local, want):
+    """gloo without cards; NCCL when each of the node's processes
+    (LOCAL_WORLD_SIZE) has a card of its own, as on two nodes of one card
+    each; no quiet fall back to gloo with cards present."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: cards > 0)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: cards)
+    if want == "ValueError":
+        with pytest.raises(ValueError, match="backend="):
+            tmh._default_backend(local)
+    else:
+        assert tmh._default_backend(local) == want
+
+
 # ---------------------------------------------------------------------------
 # the stream mesh
 # ---------------------------------------------------------------------------
@@ -548,9 +566,27 @@ def test_unported_routes_raise(case):
 def test_dryrun_multichip(capsys):
     """The dryrun's numbers of the reference's record on 8 shards:
     need-set 1192 against all_gather 1536 bytes, the block-diagonal
-    product 0 against 2432 (zero communication), k-split n_split=2."""
+    product 0 against 2432 (zero communication), k-split n_split=2; and
+    on each of its products (``dryrun_inputs``, the reference dryrun's
+    seeds) the reference's own mesh gives the same meta (need-set stats
+    and k-split among them) and the same C."""
     line = dryrun_multichip(8, devices=["cpu"])
     assert capsys.readouterr().out.strip() == line
     assert ("needset bytes 1192 vs allgather 1536; block-diag needset 0 "
             "vs 2432 (ZERO-COMM); k-split engaged (n_split=2)") in line
     assert "nnz(C)=964" in line
+    for step, (a, b, cfg, exchange) in dryrun_inputs(8).items():
+        kw = {f.name: getattr(cfg, f.name)
+              for f in dataclasses.fields(TConfig)
+              if cfg is not None and getattr(cfg, f.name) != f.default}
+        jo = jp.mesh_stream_spgemm(_jax(a), _jax(b), jp.make_row_mesh(8),
+                                   JConfig(**kw), exchange=exchange)
+        to = tp.mesh_stream_spgemm(a, b, _tmesh(8), cfg, exchange=exchange)
+        _check_out(jo, to, 8, np.float32)
+        st = to[3]["stats"]
+        if step == "needset":
+            assert (st.needset_bytes, st.allgather_bytes) == (1192, 1536)
+        elif step == "block-diagonal":
+            assert (st.needset_bytes, st.allgather_bytes) == (0, 2432)
+        elif step == "k-split":
+            assert to[3]["ksplit"]["n_split"] == 2
