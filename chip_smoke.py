@@ -95,17 +95,28 @@ Phases (any failure raises and exits non-zero; nothing falls back):
      single-device warm call), on the giant row (needset: the k-split
      must engage with row 0 among the split rows) and on scipy's
      block_diag of four make_powerlaw(65536, seed=7) (needset: zero bytes
-     exchanged, equal row ranges); mesh_spgemm_fixed_cap on config 1 (K2
-     and K3 launched, padded_to_host_csr against the oracle); then
-     multihost_spgemm in one process on config 3 and
-     entry.dryrun_multichip(4, devices=["cuda:0"]). Every output tensor must be on the
+     exchanged, equal row ranges), on config 1, stencil27 (27, 27 and 125
+     planes) and the fp64 band (the diagonal-plane route: mode dia_halo,
+     no kernel), on config 1 under allgather with enable_sdia=False (the
+     dense route: K2 alone) and on config 3 under needset_overlap (K1 and
+     K2; its bytes equal to the needset cell's); mesh_spgemm_fixed_cap on
+     config 1 (K2 and K3 launched, padded_to_host_csr against the
+     oracle); then multihost_spgemm in one process on config 3 and
+     entry.dryrun_multichip(4, devices=["cuda:0"]) (every step of the
+     reference's, the dense route and the overlapped exchange among
+     them). Every output tensor must be on the
      card; each against the oracle (structure exact, values rel_tol 2e-3,
-     float64 1e-9); the route asserted; the cold call, the median of 3
+     float64 1e-9); the route, the exchange's mode and the kernels the
+     route launches asserted; the cold call, the median of 3
      warm calls, GFLOPS, peak memory, synchronizing calls (and by the
      port's line that makes them), the shards' products, K1's, K2's and
      K3's launches, and the host clock around each stage of one more warm
      call of each mesh_stream_spgemm cell; multihost_spgemm must reuse
      the config 3 needset cell's cached step;
+  7g. (after 7f) the native host library (speck_tpu_torch/native) must
+     build; config 3 written with store_mtx and read back with load_mtx
+     and coo_to_csr, natively and by numpy, both equal to config 3, each
+     stage's host time;
   7b. K1 at every shape phases 4, 4b, 7c, 7d, 7e and 7f launched it at (and
      the shapes of probes/contract_profile.py's table), K2 at every other
      shape phases 4, 4b, 7, 7c, 7d, 7e and 7f launched it at, checked and timed
@@ -128,8 +139,9 @@ Phases (any failure raises and exits non-zero; nothing falls back):
      probes of phase 8 in turns once
      more, to show what a profiler session before them changes, and each
      probe's and its library call's device time (medians of 5 profiled
-     calls); last, one warm call of the mesh's config 3 needset, giant
-     row and fixed-cap cells (7f) as those of 7c.
+     calls); last, one warm call of the mesh's config 3 needset, config 1
+     dense, config 3 overlap, giant row and fixed-cap cells (7f) as those
+     of 7c.
 Bounds (bound_ms): the bytes each function must move (inputs read once,
 outputs written once) over 3.35 TB/s, the H100 SXM's device memory rate
 (NVIDIA's data sheet); every kernel here is bound by bytes. library_ms is
@@ -402,13 +414,15 @@ CONFIG1 = ("make_banded", (65536, 16, 3))
 CONFIG1B = ("make_mixed", ())
 CONFIG3 = ("make_powerlaw", (262144, 12, 2.2, 7))
 GIANT = ("make_giant_row", ())
+STENCIL27 = ("make_stencil27", (102, 19))
+FP64_BAND = ("make_banded", (16384, 8, 9))
 
 # the diagonal-plane cells (phase 7c): name, generator call, value dtype,
 # rel_tol against the oracle
 DIA_CELLS = [
     ("config 1", CONFIG1, torch.float32, 2e-3),
-    ("stencil27", ("make_stencil27", (102, 19)), torch.float32, 2e-3),
-    ("fp64", ("make_banded", (16384, 8, 9)), torch.float64, 1e-9),
+    ("stencil27", STENCIL27, torch.float32, 2e-3),
+    ("fp64", FP64_BAND, torch.float64, 1e-9),
     ("config 1b", CONFIG1B, torch.float32, 2e-3),
 ]
 
@@ -1192,14 +1206,33 @@ def probe_turns(cases, launches, smi, where=""):
 
 
 # the mesh cells of phase 7f: name, generator call (None: the block-diagonal
-# product), exchange, value dtype, rel_tol against the oracle
+# product), exchange, value dtype, rel_tol against the oracle, SpgemmConfig
+# keywords, the route the reference's gates take and the exchange's mode
 MESH_CELLS = [
-    ("mesh config 3 needset", CONFIG3, "needset", torch.float32, 2e-3),
-    ("mesh config 3 allgather", CONFIG3, "allgather", torch.float32, 2e-3),
-    ("mesh config 3 fp64 needset", CONFIG3, "needset", torch.float64, 1e-9),
-    ("mesh giant row needset", GIANT, "needset", torch.float32, 2e-3),
-    ("mesh block-diagonal needset", None, "needset", torch.float32, 2e-3),
+    ("mesh config 3 needset", CONFIG3, "needset", torch.float32, 2e-3, {},
+     "stream", "needset"),
+    ("mesh config 3 allgather", CONFIG3, "allgather", torch.float32, 2e-3,
+     {}, "stream", "allgather"),
+    ("mesh config 3 fp64 needset", CONFIG3, "needset", torch.float64, 1e-9,
+     {}, "stream", "needset"),
+    ("mesh giant row needset", GIANT, "needset", torch.float32, 2e-3, {},
+     "stream", "needset"),
+    ("mesh block-diagonal needset", None, "needset", torch.float32, 2e-3,
+     {}, "stream", "needset"),
+    ("mesh config 1 sdia", CONFIG1, "needset", torch.float32, 2e-3, {},
+     "sdia", "dia_halo"),
+    ("mesh stencil27 sdia", STENCIL27, "needset", torch.float32, 2e-3, {},
+     "sdia", "dia_halo"),
+    ("mesh fp64 sdia", FP64_BAND, "needset", torch.float64, 1e-9, {},
+     "sdia", "dia_halo"),
+    ("mesh config 1 dense", CONFIG1, "allgather", torch.float32, 2e-3,
+     {"enable_sdia": False}, "dense", "dense_allgather"),
+    ("mesh config 3 overlap", CONFIG3, "needset_overlap", torch.float32,
+     2e-3, {}, "stream", "needset_overlap"),
 ]
+# the kernels each mesh route launches (the diagonal planes none)
+ROUTE_KERNELS = {"stream": ("stream_contract", "row_sort"),
+                 "dense": ("row_sort",), "sdia": ()}
 MESH_SHARDS = 4
 
 
@@ -1294,7 +1327,9 @@ def host_stages(fn):
         return run
 
     saved = {n: getattr(ms, n) for n in MESH_STAGES}
-    calls = {c: c.__call__ for c in (ms._AllgatherStep, ms._NeedsetStep)}
+    calls = {c: c.__call__ for c in (ms._AllgatherStep, ms._NeedsetStep,
+                                     ms._OverlapStep, ms._SdiaStep,
+                                     ms._DenseStep)}
     from_global = ms.RowShards.__dict__["from_global"]
     try:
         for n, f in saved.items():
@@ -1334,15 +1369,18 @@ def mesh_warm(fn, name, nnz_total):
     return warm, statistics.median(warm), sync_sites(fn)
 
 
-def mesh_cell(pt, smi, name, gen_call, exchange, dtype, rel_tol):
+def mesh_cell(pt, smi, name, gen_call, exchange, dtype, rel_tol, kw, route,
+              mode_want):
     """Phase 7f, one cell: mesh_stream_spgemm of the matrix with itself
     over MESH_SHARDS shards on one card (make_row_mesh(4,
-    devices=["cuda:0"])), the route asserted, the result against the
-    oracle, the cold call, the median of 3 warm calls, GFLOPS, peak
+    devices=["cuda:0"])), the route and the exchange's mode asserted (and
+    the kernels the route launches: ROUTE_KERNELS), the result against
+    the oracle, the cold call, the median of 3 warm calls, GFLOPS, peak
     memory, synchronizing calls, the shards' products and K1's, K2's and
     K3's launches; returns the numbers."""
     from speck_tpu_torch.parallel import (make_row_mesh, mesh_stream_spgemm,
                                           mesh_stream_to_host_csr)
+    from speck_tpu_torch.parallel import mesh_stream as ms
 
     if gen_call is None:
         h, ref, t_gen, t_ref = block_diagonal(pt)
@@ -1350,25 +1388,42 @@ def mesh_cell(pt, smi, name, gen_call, exchange, dtype, rel_tol):
         h, ref, t_gen, t_ref = host_and_oracle(pt, gen_call)
     mesh = make_row_mesh(MESH_SHARDS, devices=["cuda:0"])
 
+    cfg = pt.SpgemmConfig(**kw)
+
     def call():
-        return mesh_stream_spgemm(h, h, mesh, exchange=exchange, dtype=dtype)
+        return mesh_stream_spgemm(h, h, mesh, cfg, exchange=exchange,
+                                  dtype=dtype)
 
     cold_ms, out, launches, shapes, peak, base_mem = mesh_run(call, name)
     meta = out[3]
     st, ks = meta["stats"], meta["ksplit"]
-    check(meta["route"] == "stream", f"{name}: route {meta['route']}")
-    check(launches["stream_contract"] > 0 and launches["row_sort"] > 0,
-          f"a kernel was not launched on {name}: {launches}")
-    check(launches["contract_runs"] == 0, f"{name} launched K3")
+    check(meta["route"] == route, f"{name}: route {meta['route']}")
+    for k, n in launches.items():
+        check((n > 0) == (k in ROUTE_KERNELS[route]),
+              f"{name} ({route}): launches {launches}")
     dname = str(dtype).replace("torch.", "")
-    check(set(k[3] for k in shapes[0]) == {dname},
-          f"{name}: K1 did not run in {dname} alone: {shapes[0]}")
+    if route == "stream":
+        check(set(k[3] for k in shapes[0]) == {dname},
+              f"{name}: K1 did not run in {dname} alone: {shapes[0]}")
     # all_gather reports no stats (as the reference): every shard
     # receives all of B's 8- or 12-byte records
     mode = st.mode if st is not None else "allgather"
     rec = 12 if dtype == torch.float64 else 8
     ns_bytes = st.needset_bytes if st is not None else None
-    check(mode == exchange, f"{name}: exchange ran as {mode}")
+    ag_bytes = st.allgather_bytes if st is not None else h.nnz * rec
+    check(mode == mode_want, f"{name}: exchange ran as {mode}")
+    planes = ""
+    if route == "sdia":
+        step = ms.last_exec()[0]
+        nd = tuple(len(x) for x in (step.off_a, step.off_b, step.off_c))
+        planes = (f"; planes A {nd[0]}, B {nd[1]}, C {nd[2]}, halo "
+                  f"{step.halo_l} + {step.halo_r} rows")
+        if gen_call == STENCIL27:
+            check(nd == (27, 27, 125), f"{name}: planes {nd}")
+    elif route == "dense":
+        step = ms.last_exec()[0]
+        planes = (f"; {step.K} tiles of {step.tr} rows a shard, kw "
+                  f"{step.kw}, cw {step.cw}, la {step.la}, lb {step.lb}")
     if gen_call == GIANT:
         check(ks is not None and ks["n_split"] >= 1 and 0 in ks["split_ids"],
               f"{name}: the k-split did not engage: {ks}")
@@ -1399,9 +1454,9 @@ def mesh_cell(pt, smi, name, gen_call, exchange, dtype, rel_tol):
             f"run one after another]: m={h.rows} nnz(A)={h.nnz} "
             f"nnz(C)={nnz} products={products}; ranges {meta['ranges']}, "
             f"shard products {shard_products(h, meta['ranges'])}, m_loc "
-            f"{meta['m_loc']}, out_cap {meta['out_cap']}; exchange "
-            f"{mode}: needset_bytes {ns_bytes}, allgather_bytes "
-            f"{h.nnz * rec}; k-split {ks}; cold {cold_ms:.1f} ms, "
+            f"{meta['m_loc']}, out_cap {meta['out_cap']}; route {route}"
+            f"{planes}; exchange {mode}: needset_bytes {ns_bytes}, "
+            f"allgather_bytes {ag_bytes}; k-split {ks}; cold {cold_ms:.1f} ms, "
             f"warm median of 3 {warm_ms:.2f} ms (all "
             f"{[round(w, 2) for w in warm]}), GFLOPS "
             f"{2 * products / (warm_ms * 1e6):.3f}, peak memory "
@@ -1421,7 +1476,7 @@ def mesh_cell(pt, smi, name, gen_call, exchange, dtype, rel_tol):
     torch.cuda.empty_cache()
     return {"name": name, "warm_ms": warm_ms, "cold_ms": cold_ms,
             "launches": launches, "shapes": shapes, "dtype": dtype,
-            "line": line, "call": call}
+            "line": line, "call": call, "needset_bytes": ns_bytes}
 
 
 def mesh_fixed_cap_cell(pt, smi):
@@ -1492,10 +1547,12 @@ def mesh_profile(cell, smi):
     return line
 
 
-def mesh_dryrun_cell(pt, smi):
-    """Phase 7f: multihost_spgemm in one process on config 3 (the needset
-    cell's plan: its cached step must be reused), then
-    entry.dryrun_multichip over MESH_SHARDS shards on one card."""
+def mesh_dryrun_cell(pt, smi, needset_call):
+    """Phase 7f: multihost_spgemm in one process on config 3 after one
+    more call of the needset cell (``needset_call``; the step cache holds
+    the last few plans, fewer than phase 7f makes): the cell's cached step
+    must be reused; then entry.dryrun_multichip over MESH_SHARDS shards on
+    one card."""
     from speck_tpu_torch.entry import dryrun_multichip
     from speck_tpu_torch.parallel import (make_row_mesh,
                                           mesh_stream_to_host_csr)
@@ -1507,6 +1564,7 @@ def mesh_dryrun_cell(pt, smi):
           "one process owns every row")
     h, ref, _, _ = host_and_oracle(pt, CONFIG3)
     mesh = make_row_mesh(MESH_SHARDS, devices=["cuda:0"])
+    needset_call()
     ms, out = timed_ms(lambda: multihost.multihost_spgemm(h, h, mesh=mesh))
     check(out[3]["compiled_reused"], "multihost_spgemm built a new step")
     r = pt.compare_csr(ref, mesh_stream_to_host_csr(*out), compare_data=True,
@@ -1527,6 +1585,63 @@ def mesh_dryrun_cell(pt, smi):
     torch.cuda.empty_cache()
     return {"name": "mesh dryrun", "launches": launches,
             "shapes": shapes, "dtype": torch.float32, "line": text}
+
+
+def native_mtx_cell(pt, smi):
+    """Phase 7g: the native host library must build here; config 3 written
+    with store_mtx and read with load_mtx and coo_to_csr, natively and by
+    numpy (the library switched off), the arrays of both equal to each
+    other and to config 3's; each stage's host time."""
+    import tempfile
+    from pathlib import Path
+
+    from speck_tpu_torch import native
+    from speck_tpu_torch.formats.csr import HostCOO, coo_to_csr
+    from speck_tpu_torch.formats.mtx import load_mtx, store_mtx
+
+    t0 = time.perf_counter()
+    check(native.available(), "the native host library did not build")
+    build_s = time.perf_counter() - t0
+    h = host_and_oracle(pt, CONFIG3)[0]
+    rows = np.repeat(np.arange(h.rows, dtype=np.uint32),
+                     np.diff(np.asarray(h.row_offsets, np.int64)))
+    coo = HostCOO(rows=h.rows, cols=h.cols, row_ids=rows,
+                  col_ids=np.asarray(h.col_ids, np.uint32),
+                  data=np.asarray(h.data, np.float64))
+    out = Path(__file__).resolve().parent / "build" / "chip_smoke"
+    out.mkdir(parents=True, exist_ok=True)
+    times, got = {}, {}
+    lib = native._lib
+    with tempfile.TemporaryDirectory(dir=out) as tmp:
+        for path in ("native", "numpy"):
+            if path == "numpy":
+                native._lib, native._failed = None, True
+            try:
+                f = str(Path(tmp) / f"{path}.mtx")
+                t0 = time.perf_counter()
+                store_mtx(f, coo)
+                t1 = time.perf_counter()
+                back = load_mtx(f, np.float64)
+                t2 = time.perf_counter()
+                csr = coo_to_csr(back)
+                t3 = time.perf_counter()
+            finally:
+                native._lib, native._failed = lib, False
+            times[path] = (t1 - t0, t2 - t1, t3 - t2)
+            got[path] = csr
+    for path, csr in got.items():
+        for k in ("row_offsets", "col_ids", "data"):
+            check(np.array_equal(np.asarray(getattr(csr, k)),
+                                 np.asarray(getattr(h, k))),
+                  f".mtx round trip ({path}): {k} differs from config 3's")
+    line = (f"native host library [{smi}; the card machine's host]: built "
+            f"and loaded in {build_s:.2f} s; config 3 (nnz {h.nnz}) "
+            + "; ".join(f"{p}: store_mtx {a:.2f} s, load_mtx {b:.2f} s, "
+                        f"coo_to_csr {c:.2f} s" for p, (a, b, c)
+                        in times.items())
+            + "; both round trips equal config 3")
+    print(line, flush=True)
+    return line
 
 
 def main():
@@ -1701,13 +1816,25 @@ def main():
     phase("7f")
     # 7f. the row-sharded stream mesh, four shards on one card
     mesh_cells = [mesh_cell(pt, smi, *c) for c in MESH_CELLS]
+    mesh = {c["name"]: c for c in mesh_cells}
+    ns, ov = mesh["mesh config 3 needset"], mesh["mesh config 3 overlap"]
+    check(ov["needset_bytes"] == ns["needset_bytes"],
+          f"the overlapped exchange moved {ov['needset_bytes']} bytes, the "
+          f"need-set exchange {ns['needset_bytes']}")
     print(f"config 3 warm call [{smi}]: spgemm on the card "
           f"{config3_warm:.1f} ms; the mesh of {MESH_SHARDS} shards on the "
           f"same card (run one after another) needset "
-          f"{mesh_cells[0]['warm_ms']:.1f} ms, allgather "
-          f"{mesh_cells[1]['warm_ms']:.1f} ms", flush=True)
+          f"{ns['warm_ms']:.1f} ms, allgather "
+          f"{mesh['mesh config 3 allgather']['warm_ms']:.1f} ms, overlapped "
+          f"need-set {ov['warm_ms']:.1f} ms (no link: nothing to overlap)",
+          flush=True)
     mesh_cells.append(mesh_fixed_cap_cell(pt, smi))
-    mesh_cells.append(mesh_dryrun_cell(pt, smi))
+    mesh_cells.append(mesh_dryrun_cell(pt, smi, ns["call"]))
+    mesh = {c["name"]: c for c in mesh_cells}
+
+    phase("7g")
+    # 7g. the native host library: config 3 through .mtx and back
+    native_mtx_cell(pt, smi)
 
     phase("7b")
     # 7b. K1 at every shape phases 4, 4b, 7c and 7d launched it at (and the
@@ -1739,7 +1866,8 @@ def main():
             sort_line(*shape, k2[shape], smi, " (main-path shape)")
             torch.cuda.empty_cache()
     # K3 at the fixed-cap mesh's per-shard shape
-    for shape in sorted(set(mesh_cells[5]["shapes"][2]) - set(k3)):
+    for shape in sorted(set(mesh["mesh fixed cap config 1"]["shapes"][2])
+                        - set(k3)):
         k3[shape] = contract_runs_case(gen, *shape)
         err, ms, pms = k3[shape]
         print(f"K3 contract_runs {shape} (main-path shape): max_abs_err "
@@ -1793,10 +1921,14 @@ def main():
         print(f"{name}: device {probes[name]['device_ms']:.4f} ms by "
               f"torch.profiler, {lib_name} {lib_dev:.4f} ms [{smi}]",
               flush=True)
-    # the mesh last: config 3 under need-set, the giant row, the fixed cap
-    # (sessions of thousands of kernels, after which a later session of
-    # this process may record no device events)
-    mesh_lines = [mesh_profile(mesh_cells[i], smi) for i in (0, 3, 5)]
+    # the mesh last: config 3 under need-set, the dense route, the
+    # overlapped exchange, the giant row, the fixed cap (sessions of
+    # thousands of kernels, after which a later session of this process
+    # may record no device events)
+    mesh_lines = [mesh_profile(mesh[n], smi) for n in (
+        "mesh config 3 needset", "mesh config 1 dense",
+        "mesh config 3 overlap", "mesh giant row needset",
+        "mesh fixed cap config 1")]
 
     k1_main = (512, 8192, "plane", "float32")
     k1_main64 = (512, 8192, "plane", "float64")

@@ -16,11 +16,13 @@ expand-sort-contract ``ops.esc.esc_fixed`` with its entry
 (``entry.entry``), the gather probes (``probes/``), and the multi-device
 layer ``parallel/``: the row mesh (``make_row_mesh``, one controller over
 a list of devices, several shards on one card allowed), the row-sharded
-stream mesh ``mesh_stream_spgemm`` (all_gather and need-set exchange, the
-wide-row ladder, two-phase staging, k-split), ``mesh_spgemm_fixed_cap``,
-``distributed_spgemm``, ``multihost_spgemm`` over torch.distributed and
-``entry.dryrun_multichip``. The TPU A/B knobs, the mesh's diagonal-plane
-and dense routes and ``exchange="needset_overlap"`` raise
+stream mesh ``mesh_stream_spgemm`` (all_gather, need-set and overlapped
+need-set exchange, the wide-row ladder, two-phase staging, k-split, and
+the mesh's diagonal-plane and dense-window routes),
+``mesh_spgemm_fixed_cap``, ``distributed_spgemm``, ``multihost_spgemm``
+over torch.distributed and ``entry.dryrun_multichip``, and the native host
+library ``native/`` (the .mtx parser and writer and the COO->CSR convert
+in C++, built with g++ at first use). Only the TPU A/B knobs raise
 ``NotImplementedError`` (see ROADMAP.md).
 """
 

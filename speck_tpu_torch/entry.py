@@ -72,11 +72,14 @@ def entry(device=None):
 
 
 def dryrun_inputs(n_devices: int):
-    """The dryrun's three products, made as ``__graft_entry__`` makes them
-    (the same seeds, in the same order): {step: (a, b, cfg, exchange)} for
-    "needset" and "allgather" (the example matrices on the stream),
-    "block-diagonal" (n_devices blocks of 8 rows, need-set) and "k-split"
-    (a dense row 3 above a lowered split threshold, need-set)."""
+    """The dryrun's products, made as ``__graft_entry__`` makes them (the
+    same seeds), in its order: {step: (a, b, cfg, exchange)} for "needset"
+    and "allgather" (the example matrices on the stream), "dense" (the
+    example matrices under allgather with the default config: the mesh
+    dense route), "block-diagonal" (n_devices blocks of 8 rows, need-set),
+    "overlap" (the example matrices under
+    ``exchange="needset_overlap"``) and "k-split" (a dense row 3 above a
+    lowered split threshold, need-set)."""
     import scipy.sparse as sp
 
     from .utils.config import SpgemmConfig
@@ -97,7 +100,9 @@ def dryrun_inputs(n_devices: int):
                         mesh_split_min_ops=60, mesh_exchange_auto=False)
     return {"needset": (a, b, cfg, "needset"),
             "allgather": (a, b, cfg, "allgather"),
+            "dense": (a, b, None, "allgather"),
             "block-diagonal": (ab, ab, None, "needset"),
+            "overlap": (a, b, None, "needset_overlap"),
             "k-split": (ak, ak, cfgk, "needset")}
 
 
@@ -109,11 +114,10 @@ def dryrun_multichip(n_devices: int, devices=None) -> str:
     the tiny products of ``dryrun_inputs``, each checked against the host
     oracle, and the reference's summary line printed (and returned).
 
-    It runs the need-set and all_gather exchanges on the stream, the
-    block-diagonal need-set product (zero communication) and the k-split
-    of a row above a lowered threshold. The reference's two other steps,
-    the mesh dense route and ``exchange="needset_overlap"``, are not
-    ported yet and are left out."""
+    It runs the need-set and all_gather exchanges on the stream, the mesh
+    dense route, the block-diagonal need-set product (zero communication),
+    the overlapped need-set exchange and the k-split of a row above a
+    lowered threshold."""
     from .parallel import (make_row_mesh, mesh_stream_spgemm,
                            mesh_stream_to_host_csr)
     from .utils.compare import compare_csr
@@ -133,6 +137,8 @@ def dryrun_multichip(n_devices: int, devices=None) -> str:
         nnz[step] = got.nnz
     for step in ("needset", "allgather"):
         assert meta[step]["route"] == "stream", meta[step]["route"]
+    # tile-bounded inputs under allgather run the dense window products
+    assert meta["dense"]["route"] == "dense", meta["dense"]["route"]
     # block-diagonal input: each shard's A references only its own B rows,
     # so every non-self round is empty and no bytes move
     st, st_b = meta["needset"]["stats"], meta["block-diagonal"]["stats"]
@@ -150,6 +156,7 @@ def dryrun_multichip(n_devices: int, devices=None) -> str:
             f"needset bytes {st.needset_bytes} vs allgather "
             f"{st.allgather_bytes}; block-diag needset "
             f"{st_b.needset_bytes} vs {st_b.allgather_bytes} ({bd_comm}); "
-            f"k-split engaged (n_split={ksm['n_split']})")
+            f"dense route OK; overlap OK; k-split engaged "
+            f"(n_split={ksm['n_split']})")
     print(line)
     return line

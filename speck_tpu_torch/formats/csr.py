@@ -103,7 +103,16 @@ class HostCSR:
 
 
 def coo_to_csr(coo: HostCOO) -> HostCSR:
-    """Sort-based COO->CSR conversion (numpy lexsort), duplicates kept."""
+    """COO->CSR conversion, duplicates kept, stable within (row, col): the
+    native counting sort (``speck_tpu_torch.native``), or a numpy lexsort
+    where the library is unavailable."""
+    from ..native import coo_to_csr_native
+
+    native = coo_to_csr_native(coo.row_ids, coo.col_ids, coo.data, coo.rows)
+    if native is not None:
+        offsets, cols, vals = native
+        return HostCSR(rows=coo.rows, cols=coo.cols, row_offsets=offsets,
+                       col_ids=cols, data=vals)
     order = np.lexsort((coo.col_ids, coo.row_ids))
     row_ids = coo.row_ids[order]
     counts = np.bincount(row_ids, minlength=coo.rows).astype(np.uint32)

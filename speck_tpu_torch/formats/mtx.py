@@ -1,10 +1,12 @@
-"""MatrixMarket (.mtx) coordinate-file parser (numpy only).
+"""MatrixMarket (.mtx) coordinate-file parser and writer.
 
-The Python path of ``speck_tpu/formats/mtx.py``: only ``matrix coordinate``
+The port of ``speck_tpu/formats/mtx.py``: only ``matrix coordinate``
 files; real/integer/double, ``pattern`` (values 1) and ``complex`` (real
 part) fields; general, symmetric and Hermitian symmetry (off-diagonal
 entries mirrored); 1-based indices in the file; duplicates kept;
-out-of-range indices raise.
+out-of-range indices raise. The native tokenizer and writer
+(``speck_tpu_torch.native``) run where the library builds; the numpy
+path gives the same result where it does not.
 """
 
 from __future__ import annotations
@@ -35,9 +37,20 @@ def _parse_header(line: str):
     return field, symmetry
 
 
-def load_mtx(path: str, dtype=np.float64) -> HostCOO:
+def load_mtx(path: str, dtype=np.float64, use_native: bool = True
+             ) -> HostCOO:
     """Parse a .mtx file into a HostCOO (duplicates kept, symmetry
-    expanded)."""
+    expanded), natively unless ``use_native`` is False or the library is
+    unavailable."""
+    if use_native:
+        try:
+            from ..native import mtx_parse_native
+
+            out = mtx_parse_native(path, dtype)
+            if out is not None:
+                return out
+        except Exception:
+            pass  # the numpy parser below gives the answer or the error
     with open(path, "r") as fh:
         field, symmetry = _parse_header(fh.readline())
         while True:
@@ -87,12 +100,19 @@ def load_mtx(path: str, dtype=np.float64) -> HostCOO:
 
 
 def store_mtx(path: str, coo: HostCOO, field: str = "real") -> None:
-    """Write a HostCOO as a general MatrixMarket coordinate file (1-based)."""
+    """Write a HostCOO as a general MatrixMarket coordinate file (1-based).
+    The body is formatted by the native writer where the library is
+    available (%.17g: float64 round-trips exactly), else by numpy."""
+    from ..native import mtx_write_native
+
     with open(path, "wb") as fh:
         fh.write(f"%%MatrixMarket matrix coordinate {field} general\n"
                  .encode())
         fh.write(f"{coo.rows} {coo.cols} {coo.nnz}\n".encode())
-        if field == "pattern":
+        if mtx_write_native(fh, coo.row_ids, coo.col_ids,
+                            np.asarray(coo.data, np.float64), field):
+            pass
+        elif field == "pattern":
             np.savetxt(fh, np.stack([coo.row_ids + 1, coo.col_ids + 1],
                                     axis=1), fmt="%d %d")
         else:

@@ -118,10 +118,14 @@ def row_sort(key: torch.Tensor, payloads: Sequence[torch.Tensor] = ()
     ins = [p.data_ptr() for p in payloads] + pad
     ptr_out = [p.data_ptr() for p in outs] + pad
     lib = build.library()
-    err = lib.speck_row_sort(
-        key.data_ptr(), key_out.data_ptr(), *ins, *ptr_out, len(payloads),
-        R, W, plan.tile, None if scratch is None else scratch.data_ptr(),
-        torch.cuda.current_stream(key.device).cuda_stream)
+    # the launch runs on the key's card (the current device is the
+    # launcher's, which a mesh over several cards does not set)
+    with torch.cuda.device(key.device):
+        err = lib.speck_row_sort(
+            key.data_ptr(), key_out.data_ptr(), *ins, *ptr_out,
+            len(payloads), R, W, plan.tile,
+            None if scratch is None else scratch.data_ptr(),
+            torch.cuda.current_stream(key.device).cuda_stream)
     build.check(err, "row_sort launch")
     global LAUNCHES
     LAUNCHES += 1

@@ -170,11 +170,14 @@ def stream_contract(rid, col, val, n_cols: int):
     lib = build.library()
     fn = (lib.speck_stream_contract if val.dtype == torch.float32
           else lib.speck_stream_contract_f64)
-    err = fn(
-        None if per_row else rid.data_ptr(), col.data_ptr(), val.data_ptr(),
-        last.data_ptr(), sums.data_ptr(), R, W, int(n_cols),
-        None if scratch is None else scratch.data_ptr(),
-        torch.cuda.current_stream(col.device).cuda_stream)
+    # the launch runs on the tensors' card (the current device is the
+    # launcher's, which a mesh over several cards does not set)
+    with torch.cuda.device(col.device):
+        err = fn(
+            None if per_row else rid.data_ptr(), col.data_ptr(),
+            val.data_ptr(), last.data_ptr(), sums.data_ptr(), R, W,
+            int(n_cols), None if scratch is None else scratch.data_ptr(),
+            torch.cuda.current_stream(col.device).cuda_stream)
     build.check(err, "stream_contract launch")
     global LAUNCHES
     LAUNCHES += 1
@@ -201,10 +204,12 @@ def contract_runs(col, val, n_cols: int):
     lib = build.library()
     fn = (lib.speck_contract_runs if val.dtype == torch.float32
           else lib.speck_contract_runs_f64)
-    err = fn(
-        col.data_ptr(), val.data_ptr(), last.data_ptr(), sums.data_ptr(), R,
-        W, int(n_cols), None if scratch is None else scratch.data_ptr(),
-        torch.cuda.current_stream(col.device).cuda_stream)
+    with torch.cuda.device(col.device):
+        err = fn(
+            col.data_ptr(), val.data_ptr(), last.data_ptr(),
+            sums.data_ptr(), R, W, int(n_cols),
+            None if scratch is None else scratch.data_ptr(),
+            torch.cuda.current_stream(col.device).cuda_stream)
     build.check(err, "contract_runs launch")
     global RUNS_LAUNCHES
     RUNS_LAUNCHES += 1

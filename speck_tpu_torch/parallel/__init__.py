@@ -1,7 +1,7 @@
 """The port's multi-device layer: the row mesh and its collectives
-(``dist``), the row-sharded stream mesh (``mesh_stream``) and multi-process
-execution (``multihost``). The mesh DIA and dense routes and
-``exchange="needset_overlap"`` raise ``NotImplementedError``."""
+(``dist``), the row-sharded stream mesh with its diagonal-plane and
+dense-window routes (``mesh_stream``) and multi-process execution
+(``multihost``)."""
 
 from .dist import (
     RowMesh,

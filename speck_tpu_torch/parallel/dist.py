@@ -16,9 +16,11 @@ mesh (8 virtual CPU devices in one process):
   shard finishes its work before the collective, the collective runs, then
   every shard goes on.
 - The collectives are ``all_gather`` and the round-robin ``ppermute``
-  (shard s sends to (s + shift) % D), one helper each. Within a process
-  they move tensors with ``.to(devices[dst])`` (shards on one card share
-  the gathered tensor; a permute there copies nothing). Across processes
+  (shard s sends to (s + shift) % D), one helper each; ``ppermute_start``
+  issues a round and returns at once (the overlapped need-set exchange).
+  Within a process they move tensors with ``.to(devices[dst])`` (shards
+  on one card share the gathered tensor; a permute there copies nothing).
+  Across processes
   (``parallel/multihost.py``) they go through ``torch.distributed``:
   ``all_gather_into_tensor`` (``all_gather`` of a list on gloo) and
   ``batch_isend_irecv``; host metadata moves as CPU tensors over a gloo
@@ -228,17 +230,79 @@ def ppermute(mesh: RowMesh, parts: Dict[int, torch.Tensor], shift: int
              ) -> Dict[int, torch.Tensor]:
     """Shard s's part goes to shard (s + shift) % D (one round of the
     reference's round-robin ``jax.lax.ppermute``)."""
+    rnd = ppermute_start(mesh, parts, shift)
+    return {d: rnd.wait(d) for d in mesh.local}
+
+
+# a copy stream a card, for the permutes that cross cards in one process
+_COPY_STREAMS: Dict[torch.device, "torch.cuda.Stream"] = {}
+
+
+def _copy_stream(dev: torch.device):
+    if dev not in _COPY_STREAMS:
+        _COPY_STREAMS[dev] = torch.cuda.Stream(device=dev)
+    return _COPY_STREAMS[dev]
+
+
+class PermuteRound:
+    """One issued ``ppermute_start`` round: ``wait(d)`` gives shard d's
+    received part once it has landed, ordering the caller's stream after
+    its copy. Only what crosses a card or a process is in flight; a part
+    for a shard on the same device is the sent tensor itself."""
+
+    def __init__(self, mesh: RowMesh, out, events, reqs=None, recv=None,
+                 ops=None):
+        self.mesh, self.out, self.events = mesh, out, events
+        # the P2P ops hold the sent tensors until the round has landed
+        self.reqs, self.recv, self.ops = reqs, recv or {}, ops
+
+    def wait(self, d: int) -> torch.Tensor:
+        if self.reqs:
+            for req in self.reqs:
+                req.wait()
+            self.reqs = self.ops = None
+            for dst, buf in self.recv.items():
+                self.out[dst] = buf.to(self.mesh.devices[dst])
+        ev = self.events.pop(d, None)
+        if ev is not None:
+            stream = torch.cuda.current_stream(self.mesh.devices[d])
+            stream.wait_event(ev)
+            self.out[d].record_stream(stream)
+        return self.out[d]
+
+
+def ppermute_start(mesh: RowMesh, parts: Dict[int, torch.Tensor],
+                   shift: int) -> PermuteRound:
+    """Issue one ppermute round (shard s's part to shard (s + shift) % D)
+    and return without waiting for it. Across processes it is one
+    ``batch_isend_irecv`` whose handles ``wait`` waits on (tags name the
+    round and the source shard, so several rounds may be in flight);
+    across cards of one process the copy runs on a copy stream of each
+    card and ``wait`` waits on its event, so work queued on the cards
+    meanwhile runs beside it."""
     D = mesh.size
-    out = {}
+    out, events = {}, {}
     if mesh.process_count == 1:
         for s in mesh.local:
             dst = (s + shift) % D
-            out[dst] = parts[s].to(mesh.devices[dst])
-        return out
+            src, ddev = parts[s], mesh.devices[dst]
+            if src.device == ddev or "cuda" not in (src.device.type,
+                                                   ddev.type):
+                out[dst] = src.to(ddev)
+                continue
+            s_cs, d_cs = _copy_stream(src.device), _copy_stream(ddev)
+            s_cs.wait_stream(torch.cuda.current_stream(src.device))
+            with torch.cuda.stream(s_cs), torch.cuda.stream(d_cs):
+                out[dst] = src.to(ddev, non_blocking=True)
+            src.record_stream(s_cs)
+            events[dst] = torch.cuda.Event()
+            events[dst].record(d_cs)
+        return PermuteRound(mesh, out, events)
     tdist = _dist()
     L = len(mesh.local)
     gloo = tdist.get_backend() == "gloo"
     ops, recv = [], {}
+    rnd = (shift % D) * D
     for s in mesh.local:
         dst = (s + shift) % D
         if dst in mesh.local:
@@ -246,7 +310,7 @@ def ppermute(mesh: RowMesh, parts: Dict[int, torch.Tensor], shift: int
         else:
             x = parts[s].contiguous()
             ops.append(tdist.P2POp(tdist.isend, x.cpu() if gloo else x,
-                                   dst // L, tag=s))
+                                   dst // L, tag=rnd + s))
     like = parts[mesh.local[0]]
     for dst in mesh.local:
         s = (dst - shift) % D
@@ -254,13 +318,9 @@ def ppermute(mesh: RowMesh, parts: Dict[int, torch.Tensor], shift: int
             buf = torch.empty_like(like, device="cpu" if gloo
                                    else like.device)
             recv[dst] = buf
-            ops.append(tdist.P2POp(tdist.irecv, buf, s // L, tag=s))
-    if ops:
-        for req in tdist.batch_isend_irecv(ops):
-            req.wait()
-    for dst, buf in recv.items():
-        out[dst] = buf.to(mesh.devices[dst])
-    return out
+            ops.append(tdist.P2POp(tdist.irecv, buf, s // L, tag=rnd + s))
+    reqs = tdist.batch_isend_irecv(ops) if ops else None
+    return PermuteRound(mesh, out, events, reqs, recv, ops)
 
 
 def _host_all_gather(x: np.ndarray) -> np.ndarray:

@@ -27,12 +27,20 @@ single-controller loop that stands in for ``shard_map``):
   ``mesh_device_planning=False``, on the host. When the padded plan would
   move more than all_gather, ``mesh_exchange_auto`` falls back to
   all_gather (``mode="allgather(auto)"``).
+- ``exchange="needset_overlap"``: the same plan; every row goes to the
+  last round its columns need, and each round's rows run as their own
+  masked pipeline over the received buffer's prefix of rounds <= r, so a
+  round group waits only for its rounds (``_OverlapStep``).
 
-The routing gates of the reference are here whole (``_mesh_sdia_gate``,
-``_mesh_dense_gate``); the two routes they pick (the mesh diagonal-plane
-route and the mesh dense route) and ``exchange="needset_overlap"`` are not
-ported yet: where the reference would run one of them the port raises
-``NotImplementedError`` naming it.
+Two more routes take the inputs the reference's gates send them:
+
+- the diagonal-plane route (``_mesh_sdia_gate``, ``_mesh_sdia_spgemm``):
+  banded and stencil inputs, whatever the exchange, as per-shard diagonal
+  planes convolved over a ring halo of O(span * planes) moved by two
+  ``ppermute`` rounds;
+- the dense-window route (``_mesh_dense_gate``, ``_mesh_dense_spgemm``):
+  tile-bounded inputs under ``exchange="allgather"``, B gathered whole,
+  each shard's row tiles as densified window products (``ops/dense.py``).
 
 Conventions as in ``ops/stream.py``: int32 everywhere, and every scatter
 the reference writes with ``mode="drop"`` targets a buffer with a
@@ -52,19 +60,23 @@ import torch
 
 from ..formats.csr import HostCSR
 from ..ops.analysis import cumsum1d
+from ..ops.bitonic import by_slot, slot_payload
+from ..ops.contract import stream_contract
+from ..ops.dense import (_densify_scatter, _densify_sorted,
+                         _full_precision_bmm, _gather_rect)
 from ..ops.device_csr import torch_dtype
-from ..ops.esc import pack_csr_arrays
+from ..ops.dia import _rank_compact, dia_planes, sdia_lut
+from ..ops.esc import _sort_rows, pack_csr_arrays
 from ..ops.spgemm import _pow2 as _pow2ceil
 from ..ops.spgemm import _unported, check_knobs
-from ..ops.stream import (Unpacked, _compact_rect, _plan_rows_impl,
-                          _pow2ceil_arr, _sort_cols, build_srec,
-                          stream_chunk, stream_chunk_numeric, stream_emit,
-                          stream_level, tight_total_host)
-from ..ops.contract import stream_contract
+from ..ops.stream import (Unpacked, _compact_rect, _count_le,
+                          _plan_rows_impl, _pow2ceil_arr, _sort_cols,
+                          build_srec, stream_chunk, stream_chunk_numeric,
+                          stream_emit, stream_level, tight_total_host)
 from ..utils.config import SpgemmConfig
 from .dist import (RowMesh, _host_all_gather, _pad_to, _slice_rows,
                    all_gather, assemble, fetch_global, fetch_output, ppermute,
-                   process_count, put, upload)
+                   ppermute_start, process_count, put, upload)
 
 I32 = torch.int32
 
@@ -712,9 +724,11 @@ def _operands(b_payload, ad, sa, src, f64: bool):
 def _stream_pipeline(cfg, G: int, W: int, n_cols: int, ai, ax, ad,
                      b_start, b_len, b_payload, wide_rid, level_args,
                      specs, *, m: int, n_ch: int, rw_max: int,
-                     f64: bool = False, emit_to=None):
+                     row_mask=None, f64: bool = False, emit_to=None):
     """One stream pipeline over one shard's local CSR: plan, chunks, the
-    wide-row ladder.
+    wide-row ladder. ``row_mask`` (m,) restricts it to a subset of rows
+    (their products forced to 0 elsewhere): the overlapped exchange runs
+    one pipeline a round group.
 
     Retained memory is bounded: ladder levels with no final row retain
     nothing; when the staged-chunk set would exceed
@@ -735,6 +749,8 @@ def _stream_pipeline(cfg, G: int, W: int, n_cols: int, ai, ax, ad,
     blen_a = b_len[ax]
     cse = torch.cat([zero1, cumsum1d(blen_a)])
     row_ops = cse[ai[1:]] - cse[ai[:-1]]
+    if row_mask is not None:
+        row_ops = torch.where(row_mask, row_ops, 0)
     stream_mask = row_ops > 0
     no_direct = torch.zeros(m, dtype=torch.bool, device=dev)
     a32 = (torch.zeros(ad.shape, dtype=I32, device=dev) if f64
@@ -869,6 +885,12 @@ class _ShardBody:
     emission. W stays at the configured chunk width regardless of skew: a
     wide row owns whole rectangle rows and the ladder finishes it.
 
+    ``groups``: the row groups, one pipeline each, as dicts of ``round``,
+    ``n_chunks``, ``rw_max`` and ``specs``. The allgather and need-set
+    steps run one group of every row; the overlapped exchange one group a
+    live round, each over its rows (a row mask argument) and the received
+    prefix of its round.
+
     ``run`` is the loop over the local shards that stands in for the
     reference's shard_map: cut at the k-split's all_gather, the one
     collective inside the body."""
@@ -876,27 +898,42 @@ class _ShardBody:
     def __init__(self, cfg: SpgemmConfig, m_loc: int, W: int, G: int,
                  n_chunks: int, out_cap: int, n_cols: int,
                  r_wide_max: int = 0, level_specs=(), ks=None,
-                 f64: bool = False):
+                 f64: bool = False, groups=None):
         self.cfg, self.m_loc, self.W, self.G = cfg, m_loc, W, G
-        self.n_chunks, self.out_cap, self.n_cols = n_chunks, out_cap, n_cols
-        self.r_wide_max, self.level_specs = r_wide_max, list(level_specs)
+        self.out_cap, self.n_cols = out_cap, n_cols
         self.ks, self.f64 = ks, f64
         self.val_dtype = torch.float64 if f64 else torch.float32
+        self.masked = groups is not None
+        self.groups = (list(groups) if self.masked else
+                       [dict(round=None, n_chunks=n_chunks,
+                             rw_max=r_wide_max, specs=list(level_specs))])
 
-    def count(self, ai, ax, ad, b_start, b_len, b_payload, wide_rid,
-              *level_args):
-        """Everything before the k-split's all_gather: the main pipeline
-        and the k-split partial rows (static offsets, row i at i*P)."""
-        n_main = 2 * len(self.level_specs)
-        pipe = _stream_pipeline(
-            self.cfg, self.G, self.W, self.n_cols, ai, ax, ad, b_start,
-            b_len, b_payload, wide_rid, level_args[:n_main],
-            self.level_specs, m=self.m_loc, n_ch=self.n_chunks,
-            rw_max=self.r_wide_max, f64=self.f64)
-        st = dict(pipe=pipe)
+    def count(self, ai, ax, ad, b_start, b_len, b_payload, *extra):
+        """Everything before the k-split's all_gather: the row groups'
+        pipelines and the k-split partial rows (static offsets, row i at
+        i*P). ``b_payload``: B's records, or a function of a round giving
+        the received prefix that round's group reads (the k-split's slots
+        read round 0's). ``extra``: a group's row mask (masked groups
+        only), wide_rid and level maps, group by group, then the k-split's
+        inputs."""
+        payload = b_payload if callable(b_payload) else (lambda r: b_payload)
+        pipes, i = [], 0
+        for g in self.groups:
+            mask = None
+            if self.masked:
+                mask, i = extra[i], i + 1
+            n_lv = 2 * len(g["specs"])
+            pipes.append(_stream_pipeline(
+                self.cfg, self.G, self.W, self.n_cols, ai, ax, ad, b_start,
+                b_len, payload(g["round"]), extra[i],
+                extra[i + 1: i + 1 + n_lv], g["specs"], m=self.m_loc,
+                n_ch=g["n_chunks"], rw_max=g["rw_max"], row_mask=mask,
+                f64=self.f64))
+            i += 1 + n_lv
+        st = dict(pipes=pipes)
         ks = self.ks
         if ks is not None:
-            rest = level_args[n_main:]
+            rest = extra[i:]
             si, sx, sv, spl_tgt, spl_emit, spl_wrid = rest[:6]
             n_rows, P = ks["n_rows"], ks["P"]
             dev = ai.device
@@ -905,9 +942,10 @@ class _ShardBody:
                                 device=dev)
             p_vals = torch.zeros(n_rows * P + 1, dtype=self.val_dtype,
                                  device=dev)
+            # k-split slots are self-owned: their records are in round 0
             _, p_cols, p_vals = _stream_pipeline(
                 self.cfg, self.G, self.W, self.n_cols, si, sx, sv, b_start,
-                b_len, b_payload, spl_wrid, rest[6:], ks["specs"],
+                b_len, payload(0), spl_wrid, rest[6:], ks["specs"],
                 m=n_rows, n_ch=ks["n_chunks"], rw_max=ks["rw_max"],
                 f64=self.f64, emit_to=(offs_p, p_cols, p_vals))
             st.update(p_cols=p_cols[: n_rows * P].reshape(ks["n_split"],
@@ -921,8 +959,11 @@ class _ShardBody:
         """The k-split merge (given the gathered partials), offsets and
         emission. Returns (nnz_row (m_loc,), cols (out_cap,), vals
         (out_cap,))."""
-        pipe = st["pipe"]
-        nnz_row = pipe[0]
+        pipes = st["pipes"]
+        # a row counts in its own group only (0 in every other)
+        nnz_row = pipes[0][0]
+        for pipe in pipes[1:]:
+            nnz_row = nnz_row + pipe[0]
         merged = None
         if self.ks is not None:
             nnz_row, merged = _ksplit_merge(
@@ -934,9 +975,10 @@ class _ShardBody:
                           cumsum1d(nnz_row[:m_loc])])
         c_cols = torch.zeros(out_cap + 1, dtype=I32, device=dev)
         c_vals = torch.zeros(out_cap + 1, dtype=self.val_dtype, device=dev)
-        c_cols, c_vals = _emit_pipeline(self.cfg, self.G, self.W,
-                                        self.n_cols, pipe, offs, c_cols,
-                                        c_vals)
+        for pipe in pipes:
+            c_cols, c_vals = _emit_pipeline(self.cfg, self.G, self.W,
+                                            self.n_cols, pipe, offs, c_cols,
+                                            c_vals)
         if merged is not None:
             col_m, val_m, cnt_m = merged
             rid_e = st["spl_emit"][:, None].expand(col_m.shape)
@@ -966,9 +1008,7 @@ class _ShardBody:
 
 
 # ---------------------------------------------------------------------------
-# The routing gates of the mesh diagonal-plane and dense routes (the
-# routes themselves are not ported: where a gate picks one, the port
-# raises)
+# The routing gates of the mesh diagonal-plane and dense routes
 # ---------------------------------------------------------------------------
 
 
@@ -1181,6 +1221,325 @@ def _pack_payload(bx, bd, f64: bool):
     return pack_csr_arrays(bx, bd)
 
 
+# ---------------------------------------------------------------------------
+# The mesh diagonal-plane route: banded and stencil inputs (square, equal
+# row blocks) as per-shard diagonal planes, the B planes widened by a ring
+# halo of the neighbours' edge rows, then the list-offset convolution of
+# ops/dia.py. Plain torch, as the reference's route is plain jnp.
+# ---------------------------------------------------------------------------
+
+
+def _shard_planes(ip, cx, cd, r0, lut, *, dmin: int, nd: int, m_loc: int):
+    """One shard's value and float32 hit planes (nd, m_loc): the nonzero
+    at local row i, global column c sits in plane lut[c - (r0 + i) -
+    dmin]. The padding nonzeros go to ``dia_planes``' drop slot; the
+    planes are zero everywhere else."""
+    t = torch.arange(cx.shape[0], dtype=I32, device=cx.device)
+    live = t < ip[-1]
+    rid = _count_le(ip[1:], t)
+    dd = torch.clamp(cx - (rid + r0) - dmin, 0, lut.shape[0] - 1)
+    slot = torch.where(live, lut[dd] * m_loc + rid, nd * m_loc)
+    return dia_planes(slot, cd, span=nd, rows=m_loc)
+
+
+class _SdiaStep:
+    """The diagonal-plane step: planes, the ring halo (two ppermute rounds
+    a plane kind: the left halo from shard d-1, the right from d+1), the
+    convolution, the rank compaction and the emission."""
+
+    def __init__(self, sd: dict, m_loc: int, n_cols: int, out_cap: int,
+                 same: bool):
+        self.m_loc, self.n_cols, self.out_cap = m_loc, n_cols, out_cap
+        self.same = same
+        self.off_a, self.off_b = sd["off_a"], sd["off_b"]
+        self.off_c = sd["off_c"]
+        self.dmin_a, self.dmin_b = sd["dmin_a"], sd["dmin_b"]
+        self.lut_a = sdia_lut(self.off_a, sd["dmin_a"], sd["span_a"])
+        self.lut_b = sdia_lut(self.off_b, sd["dmin_b"], sd["span_b"])
+        self.halo_l = max(0, -min(self.off_a))
+        self.halo_r = max(0, max(self.off_a))
+        oc_index = {dd: i for i, dd in enumerate(self.off_c)}
+        # output plane -> [(ia, da, ib)], in the reference's order
+        self.groups: dict = {}
+        for ia, da in enumerate(self.off_a):
+            for ib, db in enumerate(self.off_b):
+                self.groups.setdefault(oc_index[da + db], []).append(
+                    (ia, da, ib))
+
+    def _window(self, mesh, pl):
+        """(nd_b, halo_l + m_loc + halo_r) per shard: the left halo from
+        the ring's previous shard, the right from its next. At the mesh's
+        two ends the halo wraps round and holds rows that only ever meet
+        A-plane entries of zero (no A nonzero lies outside the matrix)."""
+        m_loc, hl, hr = self.m_loc, self.halo_l, self.halo_r
+        left = (ppermute(mesh, {d: pl[d][:, m_loc - hl:] for d in pl}, 1)
+                if hl else None)
+        right = (ppermute(mesh, {d: pl[d][:, :hr] for d in pl}, -1)
+                 if hr else None)
+        out = {}
+        for d in pl:
+            parts = [pl[d]]
+            if left is not None:
+                parts.insert(0, left[d])
+            if right is not None:
+                parts.append(right[d])
+            out[d] = torch.cat(parts, dim=1) if len(parts) > 1 else pl[d]
+        return out
+
+    def __call__(self, mesh, ai, ax, ad, bi, bx, bd, r0):
+        m_loc = self.m_loc
+        nd_a, nd_b, nd_c = len(self.off_a), len(self.off_b), len(self.off_c)
+        av, ah, bv, bh = {}, {}, {}, {}
+        for d in mesh.local:
+            dev = mesh.devices[d]
+            lut_a = upload(self.lut_a, dev)
+            av[d], ah[d] = _shard_planes(ai[d], ax[d], ad[d], r0[d][0],
+                                         lut_a, dmin=self.dmin_a, nd=nd_a,
+                                         m_loc=m_loc)
+            if self.same:
+                bv[d], bh[d] = av[d], ah[d]
+            else:
+                bv[d], bh[d] = _shard_planes(
+                    bi[d], bx[d], bd[d], r0[d][0], upload(self.lut_b, dev),
+                    dmin=self.dmin_b, nd=nd_b, m_loc=m_loc)
+        bw_v, bw_h = self._window(mesh, bv), self._window(mesh, bh)
+        del bv, bh
+        nnz_row, cols, vals = {}, {}, {}
+        for d in mesh.local:
+            dev = mesh.devices[d]
+            # each output plane sums its pairs from zero in the
+            # reference's group order, one multiply-add over the shard's
+            # rows a pair (the reference's row blocks only bound XLA's
+            # temporaries; they change no element's order of adds)
+            c_val = torch.zeros((nd_c, m_loc), dtype=av[d].dtype, device=dev)
+            c_cnt = torch.zeros((nd_c, m_loc), dtype=torch.float32,
+                                device=dev)
+            # the planes' rows as views made once (a view a pair costs the
+            # host more than the pair's add costs the card)
+            cv, cc = c_val.unbind(0), c_cnt.unbind(0)
+            a_v, a_h = av[d].unbind(0), ah[d].unbind(0)
+            b_v, b_h = bw_v[d].unbind(0), bw_h[d].unbind(0)
+            for oc in range(nd_c):
+                for ia, da, ib in self.groups.get(oc, ()):
+                    s0 = self.halo_l + da
+                    cv[oc].addcmul_(a_v[ia], b_v[ib][s0: s0 + m_loc])
+                    cc[oc].addcmul_(a_h[ia], b_h[ib][s0: s0 + m_loc])
+            del cv, cc, a_v, a_h, b_v, b_h
+            # rows first for the compaction (its rank scan runs along the
+            # rows, row-major); exact: fp32 counts of 1.0 adds
+            present = (c_cnt > 0.5).t().contiguous()
+            del c_cnt
+            counts = torch.sum(present, dim=1, dtype=I32)
+            # the column is the global row plus the plane's diagonal; the
+            # compaction adds the local row, so the offsets shift by r0
+            doffs = upload(np.asarray(self.off_c, np.int32), dev) + r0[d][0]
+            cols_s, vals_s = _rank_compact(
+                c_val.t().contiguous(), present, sc=nd_c, m=m_loc,
+                n_cols=self.n_cols, base_c=0, doffs=doffs)
+            del c_val, present
+            nnz_row[d], cols[d], vals[d] = _emit_rows(
+                counts, cols_s, vals_s, self.out_cap)
+        return _assembled(mesh, (nnz_row, cols, vals))
+
+
+def _emit_rows(counts, cols_s, vals_s, out_cap: int):
+    """Each row's first counts[i] staged entries at its CSR offset in the
+    padded (out_cap,) output. Returns (counts, cols, vals)."""
+    dev = counts.device
+    offs = torch.cat([torch.zeros(1, dtype=I32, device=dev),
+                      cumsum1d(counts)])
+    j = torch.arange(cols_s.shape[1], dtype=I32, device=dev)[None, :]
+    flat = torch.where(j < counts[:, None], offs[:-1][:, None] + j, out_cap)
+    c_cols = torch.zeros(out_cap + 1, dtype=I32, device=dev)
+    c_cols[flat] = cols_s.to(I32)
+    c_vals = torch.zeros(out_cap + 1, dtype=vals_s.dtype, device=dev)
+    c_vals[flat] = vals_s
+    return counts, c_cols[:out_cap], c_vals[:out_cap]
+
+
+def _mesh_sdia_spgemm(ash: RowShards, bsh: RowShards, mesh: RowMesh,
+                      cfg: SpgemmConfig, sd: dict, tdt, b_nnz: int):
+    """The mesh diagonal-plane route (see the section comment). Output as
+    the stream mesh's ((nnz_row, cols, vals, meta),
+    ``mesh_stream_to_host_csr``)."""
+    D = mesh.size
+    m, n = ash.m, bsh.n
+    m_loc = max(1, -(-m // D))
+    np_dtype = np.float64 if tdt == torch.float64 else np.float32
+    same = bsh is ash
+    ai_h, ax_h, ad_h, a_ranges = _stack_shards(ash, np_dtype)
+    bi_h, bx_h, bd_h, _ = ((ai_h, ax_h, ad_h, a_ranges) if same
+                           else _stack_shards(bsh, np_dtype))
+    r0s = np.array([r0 for r0, _ in a_ranges], np.int32).reshape(D, 1)
+    nd_b, nd_c = len(sd["off_b"]), len(sd["off_c"])
+    out_cap = _pow2ceil(max(m_loc * nd_c, 1))
+    a_live, b_live = ai_h[:, -1], bi_h[:, -1]
+    args_ = (put(mesh, ai_h), put(mesh, ax_h, a_live),
+             put(mesh, ad_h, a_live), put(mesh, bi_h),
+             put(mesh, bx_h, b_live), put(mesh, bd_h, b_live),
+             put(mesh, r0s))
+    # the reference's key also holds its row block, a function of m_loc
+    key = ("sdia", mesh.key(), cfg, str(tdt), m, n, m_loc, sd["off_a"],
+           sd["off_b"], sd["off_c"], sd["dmin_a"], sd["dmin_b"], out_cap,
+           same, _argsig(args_, D))
+    step, reused = _cached_step(key, lambda: _SdiaStep(sd, m_loc, n,
+                                                       out_cap, same))
+    _set_last_exec(step, (mesh,) + args_)
+    nnz_row, cols, vals = step(mesh, *args_)
+    itemsize = 8 if tdt == torch.float64 else 4
+    halo = max(0, -min(sd["off_a"])) + max(0, max(sd["off_a"]))
+    stats = NeedsetStats(
+        allgather_bytes=b_nnz * (4 + itemsize),
+        needset_bytes=halo * nd_b * 2 * itemsize,
+        pairs_nnz=np.zeros((D, D), np.int64),
+        mode="dia_halo",
+    )
+    meta = {"ranges": a_ranges, "out_cap": out_cap, "m_loc": m_loc,
+            "shape": (m, n), "stats": stats, "ksplit": None,
+            "route": "sdia", "compiled_reused": reused}
+    return nnz_row, cols, vals, meta
+
+
+# ---------------------------------------------------------------------------
+# The mesh dense-window route: B gathered whole, each shard's row tiles as
+# densified window products (ops/dense.dense_tiles, with the local A and
+# the gathered B addressed shard by shard), then a rank-sort compaction
+# (kernel K2).
+# ---------------------------------------------------------------------------
+
+
+class _DenseStep:
+    """The dense-window step: B's indptr, columns and values gathered from
+    every shard, then each shard's K tiles of ``tile_rows`` rows at once:
+    A's (K*tr, la) and B's (K*kw, lb) rectangles from the gate's window
+    bases, densified (``cfg.dense_densify``: two K2 sorts a side, or one
+    scatter), the values by a full-precision ``bmm``, the pattern counts
+    by a bfloat16 ``bmm`` accumulated in float32 (exact: counts <= la),
+    and each row's present entries moved to its front in column order by
+    one K2 sort."""
+
+    def __init__(self, cfg: SpgemmConfig, dn: dict, D: int, m_loc: int,
+                 k_dim: int, n_cols: int, bnnz_max: int, out_cap: int):
+        self.tr, self.D, self.m_loc = cfg.dense_tile_rows, D, m_loc
+        self.K, self.kw, self.cw = dn["K"], dn["kw"], dn["cw"]
+        self.la, self.lb = dn["la"], dn["lb"]
+        self.k_dim, self.n_cols = k_dim, n_cols
+        self.bnnz_max, self.out_cap = bnnz_max, out_cap
+        self.dens = (_densify_scatter if cfg.dense_densify == "scatter"
+                     else _densify_sorted)
+
+    def __call__(self, mesh, ai, ax, ad, bi, bx, bd, kb, cb, rdv):
+        g_indptr = all_gather(mesh, bi)                    # (D, k_loc+1)
+        g_cols = all_gather(mesh, bx)
+        g_vals = all_gather(mesh, bd)
+        out = {}
+        for d in mesh.local:
+            out[d] = self._shard(ai[d], ax[d], ad[d], g_indptr[d],
+                                 g_cols[d].reshape(-1),
+                                 g_vals[d].reshape(-1), kb[d], cb[d],
+                                 rdv[d][0])
+        return _assembled(mesh, ({d: o[0] for d, o in out.items()},
+                                 {d: o[1] for d, o in out.items()},
+                                 {d: o[2] for d, o in out.items()}))
+
+    def _shard(self, ai, ax, ad, gi, g_cols, g_vals, kb, cb, nrows):
+        K, tr, kw, cw = self.K, self.tr, self.kw, self.cw
+        dev = ai.device
+        # global B row q lives in shard q // k_loc at its local offset: the
+        # gathered indptrs give (start, len) with the shards' pad gaps
+        base = torch.arange(self.D, dtype=I32, device=dev)[:, None] \
+            * self.bnnz_max
+        b_start = (gi[:, :-1] + base).reshape(-1)
+        b_len = (gi[:, 1:] - gi[:, :-1]).reshape(-1)
+
+        # A side: (K*tr, la) rectangles into (K*tr, kw) windows
+        rows = torch.arange(K * tr, dtype=I32, device=dev)
+        vrow = rows < nrows
+        acol, aval, alive = _gather_rect(ai, ax, ad, rows, vrow, self.la)
+        kb_row = kb.repeat_interleave(tr)
+        kloc = torch.where(alive, acol - kb_row[:, None], kw).to(I32)
+        A_dense, A_hit = self.dens(kloc, aval, kw)
+
+        # B side: (K*kw, lb) rectangles over the tiles' k-windows; window
+        # rows the shard's A never references meet zero A_dense columns
+        ks = (kb[:, None] + torch.arange(kw, dtype=I32, device=dev)[None, :]
+              ).reshape(-1)
+        vk = ks < self.k_dim
+        kq = torch.where(vk, ks, 0)
+        q0 = b_start[kq]
+        qln = torch.where(vk, b_len[kq], 0)
+        jb = torch.arange(self.lb, dtype=I32, device=dev)[None, :]
+        blive = jb < qln[:, None]
+        bidx = torch.where(blive, q0[:, None] + jb, 0)
+        bcol = torch.where(blive, g_cols[bidx], 0)
+        bval = torch.where(blive, g_vals[bidx], 0.0)
+        cb_k = cb.repeat_interleave(kw)
+        cloc = torch.where(blive, bcol - cb_k[:, None], cw).to(I32)
+        B_dense, B_hit = self.dens(cloc, bval, cw)
+
+        C_vals = _full_precision_bmm(
+            A_dense.reshape(K, tr, kw), B_dense.reshape(K, kw, cw)
+        ).reshape(K * tr, cw)
+        C_cnt = torch.bmm(
+            A_hit.reshape(K, tr, kw).to(torch.bfloat16),
+            B_hit.reshape(K, kw, cw).to(torch.bfloat16)).reshape(K * tr, cw)
+        del A_dense, A_hit, B_dense, B_hit
+
+        cb_row = cb.repeat_interleave(tr)
+        tcw = torch.arange(cw, dtype=I32, device=dev)[None, :]
+        present = ((C_cnt > 0.5) & vrow[:, None]
+                   & ((cb_row[:, None] + tcw) < self.n_cols))
+        # rank-sort compaction: present entries to the row front, in
+        # column order (the keys are distinct within a row)
+        rank = torch.cumsum(present, 1, dtype=I32) - 1
+        key = torch.where(present, rank, cw + tcw).to(I32)
+        cols_g = torch.where(present, cb_row[:, None] + tcw,
+                             self.n_cols).to(I32)
+        _, (cols_c, moved) = _sort_rows(key, [cols_g, slot_payload(C_vals)])
+        vals_c = by_slot(C_vals, moved)
+        m_loc = self.m_loc
+        counts = torch.sum(present[:m_loc], dim=1, dtype=I32)
+        return _emit_rows(counts, cols_c[:m_loc], vals_c[:m_loc],
+                          self.out_cap)
+
+
+def _mesh_dense_spgemm(ash: RowShards, bsh: RowShards, mesh: RowMesh,
+                       cfg: SpgemmConfig, dn: dict, tdt, b_nnz: int):
+    """The mesh dense-window route (see the section comment). Output as
+    the stream mesh's."""
+    D = mesh.size
+    m, n = ash.m, bsh.n
+    k_dim = bsh.m
+    tr, K = cfg.dense_tile_rows, dn["K"]
+    np_dtype = np.float64 if tdt == torch.float64 else np.float32
+    ai_h, ax_h, ad_h, a_ranges = _stack_shards(ash, np_dtype)
+    bi_h, bx_h, bd_h, _ = _stack_shards(bsh, np_dtype)
+    bnnz_max = bx_h.shape[1]
+    m_loc = ai_h.shape[1] - 1
+    rows_d = np.array([[r1 - r0] for r0, r1 in a_ranges], np.int32)
+    out_cap = _pow2ceil(max(1, m_loc * dn["cw"]))
+    a_live, b_live = ai_h[:, -1], bi_h[:, -1]
+    args_ = (put(mesh, ai_h), put(mesh, ax_h, a_live),
+             put(mesh, ad_h, a_live), put(mesh, bi_h),
+             put(mesh, bx_h, b_live), put(mesh, bd_h, b_live),
+             put(mesh, dn["kb"]), put(mesh, dn["cb"]), put(mesh, rows_d))
+    key = ("dense", mesh.key(), cfg, str(tdt), m, n, k_dim, tr, K,
+           dn["kw"], dn["cw"], dn["la"], dn["lb"], m_loc, out_cap, bnnz_max,
+           _argsig(args_, D))
+    step, reused = _cached_step(key, lambda: _DenseStep(
+        cfg, dn, D, m_loc, k_dim, n, bnnz_max, out_cap))
+    _set_last_exec(step, (mesh,) + args_)
+    nnz_row, cols, vals = step(mesh, *args_)
+    rep = b_nnz * (4 + (8 if tdt == torch.float64 else 4))
+    stats = NeedsetStats(allgather_bytes=rep, needset_bytes=rep,
+                         pairs_nnz=np.zeros((D, D), np.int64),
+                         mode="dense_allgather")
+    meta = {"ranges": a_ranges, "out_cap": out_cap, "m_loc": m_loc,
+            "shape": (m, n), "stats": stats, "ksplit": None,
+            "route": "dense", "compiled_reused": reused}
+    return nnz_row, cols, vals, meta
+
+
 def mesh_stream_spgemm(
     a,
     b,
@@ -1200,9 +1559,10 @@ def mesh_stream_spgemm(
     need-set plan is computed on the devices).
 
     ``dtype``: float32 (packed 8-byte B records) or float64 (12-byte
-    records). ``exchange``: "allgather" or "needset"; "needset_overlap"
-    raises ``NotImplementedError``, as do the inputs the reference's gates
-    send to the mesh DIA or dense route."""
+    records). ``exchange``: "allgather", "needset" or "needset_overlap".
+    ``meta["route"]`` names the route the gates took: "sdia" (banded and
+    stencil inputs), "dense" (tile-bounded inputs under allgather) or
+    "stream"."""
     D = mesh.size
     cfg = cfg or SpgemmConfig()
     check_knobs(cfg)
@@ -1263,17 +1623,18 @@ def mesh_stream_spgemm(
         ops_sh[d, : o.shape[0]] = o
     ops_sh = _combine_max(ops_sh)
 
-    # the mesh DIA route: banded and stencil inputs
-    if _mesh_sdia_gate(ash, bsh, cfg, float(ops_sh.sum()), D) is not None:
-        raise _unported("the mesh diagonal-plane route (route 'sdia', "
-                        "the reference's _mesh_sdia_spgemm)")
-    # the mesh dense route: tile-bounded inputs, under allgather only
-    if exchange == "allgather" and _mesh_dense_gate(
-            ash, bsh, b_len_h, cfg, D) is not None:
-        raise _unported("the mesh dense route (route 'dense', the "
-                        "reference's _mesh_dense_spgemm)")
-    if exchange == "needset_overlap":
-        raise _unported("exchange='needset_overlap'")
+    # the mesh diagonal-plane route: banded and stencil inputs take the
+    # convolution with its fixed small halo, whatever the exchange (the
+    # halo is the exchange)
+    sd = _mesh_sdia_gate(ash, bsh, cfg, float(ops_sh.sum()), D)
+    if sd is not None:
+        return _mesh_sdia_spgemm(ash, bsh, mesh, cfg, sd, tdt, b_nnz)
+    # the mesh dense route: tile-bounded inputs. It replicates B, so the
+    # gate is consulted only when the caller chose replication
+    if exchange == "allgather":
+        dn = _mesh_dense_gate(ash, bsh, b_len_h, cfg, D)
+        if dn is not None:
+            return _mesh_dense_spgemm(ash, bsh, mesh, cfg, dn, tdt, b_nnz)
 
     # k-split rows (single-row sharding): removed from their owner's
     # local A, their slots re-dealt by B-row owner (_plan_ksplit_shards)
@@ -1371,25 +1732,30 @@ def mesh_stream_spgemm(
     # A's nonzeros are padded to the widest shard: only the live ones cross
     a_live = ai_h[:, -1]
 
-    def extra_args(spl_cols_arr):
-        """wide_rid + main level maps (+ the split pipeline's inputs;
-        spl_cols_arr is mode-specific: global B row ids under allgather,
-        received-buffer slots under needset)."""
-        args = [put_(wide_rid_h)]
-        for spec in level_specs:
+    def ladder_args(wide_rid, specs):
+        """A pipeline's wide_rid and level maps."""
+        args = [put_(wide_rid)]
+        for spec in specs:
             args.append(put_(spec["in_map"]))
             args.append(put_(spec["final"]))
-        if ksp is not None:
-            args += [put_(ksp["spl_indptr"].astype(np.int32)),
-                     (spl_cols_arr if isinstance(spl_cols_arr, dict)
-                      else put_(np.asarray(spl_cols_arr, np.int32))),
-                     put_(ksp["spl_vals"]),
-                     put_(spl_tgt_h), put_(spl_emit_h),
-                     put_(spl_wide_rid_h)]
-            for spec in ks["specs"]:
-                args.append(put_(spec["in_map"]))
-                args.append(put_(spec["final"]))
         return args
+
+    def ksplit_args(spl_cols_arr):
+        """The split pipeline's inputs (none without a k-split);
+        spl_cols_arr is mode-specific: global B row ids under allgather,
+        received-buffer slots under needset."""
+        if ksp is None:
+            return []
+        return [put_(ksp["spl_indptr"].astype(np.int32)),
+                (spl_cols_arr if isinstance(spl_cols_arr, dict)
+                 else put_(np.asarray(spl_cols_arr, np.int32))),
+                put_(ksp["spl_vals"]), put_(spl_tgt_h), put_(spl_emit_h),
+                *ladder_args(spl_wide_rid_h, ks["specs"])]
+
+    def extra_args(spl_cols_arr):
+        """wide_rid + main level maps (+ the split pipeline's inputs)."""
+        return (ladder_args(wide_rid_h, level_specs)
+                + ksplit_args(spl_cols_arr))
 
     n_ladder = (1 + 2 * len(level_specs)
                 + ((6 + 2 * len(ks["specs"])) if ksp is not None else 0))
@@ -1459,15 +1825,38 @@ def mesh_stream_spgemm(
             bi_h, bx_h, bd_h, _ = _stack_shards(bsh, np_dtype)
             b_live = bi_h[:, -1]
             payload_rounds = [r for r in range(D) if round_nnz[r] > 0]
-            args_ = (put_(ai_h), ax_remap_a, put_(ad_h, a_live),
-                     put_(bx_h, b_live), put_(bd_h, b_live), rb_start_a,
-                     rb_len_a,
-                     *extra_args(spl_cols_remap), *live_sends)
-            key = ("stream_ns", mesh.key(), cfg, str(tdt), body_key,
-                   tuple(int(x) for x in round_nnz), tuple(payload_rounds),
-                   n_ladder, _argsig(args_, D))
-            step, compiled_reused = _cached_step(key, lambda: _NeedsetStep(
-                body, payload_rounds, n_ladder, CH, f64))
+            head = (put_(ai_h), ax_remap_a, put_(ad_h, a_live),
+                    put_(bx_h, b_live), put_(bd_h, b_live), rb_start_a,
+                    rb_len_a)
+            if exchange == "needset_overlap":
+                groups, g_args = _overlap_groups(
+                    ash_eff, ops_sh, a_ranges, m_loc, k_loc, D, W, CP,
+                    cfg, n_cols)
+                g_args = [put_(x) for x in g_args]
+                extras = g_args + ksplit_args(spl_cols_remap)
+                seg_off = [int(x) for x in np.concatenate(
+                    [[0], np.cumsum(round_nnz)])]
+                args_ = (*head, *extras, *live_sends)
+                key = ("stream_ov", mesh.key(), cfg, str(tdt), m_loc, W, G,
+                       out_cap, n_cols, tuple(int(x) for x in round_nnz),
+                       tuple(payload_rounds),
+                       tuple(g["round"] for g in groups), seg_off[-1],
+                       tuple((g["round"], g["n_chunks"], g["rw_max"],
+                              _specs_key(g["specs"])) for g in groups),
+                       ks_key, len(extras), f64, _argsig(args_, D))
+                step, compiled_reused = _cached_step(
+                    key, lambda: _OverlapStep(
+                        _ShardBody(cfg, m_loc, W, G, n_chunks, out_cap,
+                                   n_cols, ks=ks, f64=f64, groups=groups),
+                        payload_rounds, seg_off, len(extras), CH, f64))
+            else:
+                args_ = (*head, *extra_args(spl_cols_remap), *live_sends)
+                key = ("stream_ns", mesh.key(), cfg, str(tdt), body_key,
+                       tuple(int(x) for x in round_nnz),
+                       tuple(payload_rounds), n_ladder, _argsig(args_, D))
+                step, compiled_reused = _cached_step(
+                    key, lambda: _NeedsetStep(body, payload_rounds,
+                                              n_ladder, CH, f64))
             _set_last_exec(step, (mesh,) + args_)
             nnz_row, cols, vals = step(mesh, *args_)
             stats = NeedsetStats(
@@ -1639,6 +2028,106 @@ class _NeedsetStep:
                     wide_rid[d], *[x[d] for x in lv])
 
         return _assembled(mesh, self.body.run(mesh, inputs))
+
+
+def _overlap_groups(ash_eff: RowShards, ops_sh: np.ndarray, a_ranges,
+                    m_loc: int, k_loc: int, D: int, W: int, CP: int,
+                    cfg: SpgemmConfig, n_cols: int):
+    """The overlapped exchange's row groups: every row goes to the LAST
+    exchange round its columns need (max over its nonzeros of (d - B
+    owner) % D), so group r needs only the received rounds <= r and every
+    row is computed once. Only rounds with a row of products are live.
+    Returns (groups, host arrays): a group a live round (its ``round``,
+    ``n_chunks``, ``rw_max`` and ladder ``specs``), and per group its row
+    mask (D, m_loc), wide_rid and level maps, in the step's order."""
+    masks = np.zeros((D, D, m_loc), bool)          # [round, shard, row]
+    for d, sl in ash_eff.local.items():
+        ip = np.asarray(sl.row_offsets, np.int64)
+        rnd = (d - np.asarray(sl.col_ids, np.int64) // k_loc) % D
+        rmax = np.zeros(sl.rows, np.int64)
+        ne = ip[1:] > ip[:-1]
+        if rnd.size:
+            rmax[ne] = np.maximum.reduceat(rnd, ip[:-1][ne])
+        masks[rmax, d, np.arange(sl.rows)] = True
+    masks = _combine_max(masks.astype(np.uint8)).astype(bool)
+    live = [r for r in range(D) if bool((masks[r] & (ops_sh > 0)).any())]
+    groups, arrays = [], []
+    for r in live or [0]:
+        ops_list = [np.where(masks[r, d, : r1 - r0], ops_sh[d, : r1 - r0], 0)
+                    for d, (r0, r1) in enumerate(a_ranges)]
+        tqs = [tight_total_host(o, W, cfg.stream_min_q) for o in ops_list]
+        rw_max, wide_rid, specs = _mesh_wide_plans(
+            ops_list, W, cfg.stream_level_factor, cfg.stream_max_width,
+            n_cols=n_cols)
+        groups.append(dict(round=r, n_chunks=max(1, -(-max(tqs + [1]) // CP)),
+                           rw_max=rw_max, specs=specs))
+        arrays += [masks[r], wide_rid]
+        for spec in specs:
+            arrays += [spec["in_map"], spec["final"]]
+    return groups, arrays
+
+
+class _OverlapStep:
+    """The overlapped need-set step. Every payload round's records are
+    gathered and sent before any shard computes (``ppermute_start``);
+    then, shard by shard, each row group runs once the rounds up to its
+    own have landed. A shard's received buffer is one (RBT, CH) tensor
+    written round by round at the round's offset; group r reads its
+    prefix up to round r's end, which holds exactly the rounds <= r (the
+    reference's chain of updated buffers, without a copy a round)."""
+
+    def __init__(self, body: _ShardBody, payload_rounds, seg_off,
+                 n_extras: int, CH: int, f64: bool):
+        self.body, self.payload_rounds = body, list(payload_rounds)
+        self.seg_off, self.n_extras = list(seg_off), n_extras
+        self.CH, self.f64 = CH, f64
+
+    def __call__(self, mesh, ai, axr, ad, bx, bd, rbs, rbl, *rest):
+        ex = rest[: self.n_extras]
+        sends = rest[self.n_extras:]
+        packed = {d: _pack_payload(bx[d], bd[d], self.f64)
+                  for d in mesh.local}
+        issued = []
+        for i, r in enumerate(self.payload_rounds):
+            sidx, sval = sends[2 * i], sends[2 * i + 1]
+            payload = {}
+            for d in mesh.local:
+                pk = packed[d]
+                p = pk[torch.clamp(sidx[d], 0, pk.shape[0] - 1)]
+                payload[d] = torch.where(sval[d][:, None], p, 0)
+            issued.append((r, ppermute_start(mesh, payload, r) if r
+                           else payload))
+        del packed
+        seg_off = self.seg_off
+
+        def prefix_of(d):
+            """Shard d's received prefix of round r: its rounds <= r
+            written into the buffer (waiting for each as it is first
+            needed)."""
+            buf = torch.zeros((max(seg_off[-1], 1), self.CH), dtype=I32,
+                              device=mesh.devices[d])
+            landed = set()
+
+            def prefix(r):
+                for pr, got in issued:
+                    if pr <= r and pr not in landed:
+                        part = got.wait(d) if pr else got[d]
+                        buf[seg_off[pr]: seg_off[pr] + part.shape[0]] = part
+                        landed.add(pr)
+                return buf[: max(seg_off[r + 1], 1)]
+            return prefix
+
+        def inputs(d):
+            return (ai[d], axr[d], ad[d], rbs[d], rbl[d], prefix_of(d),
+                    *[x[d] for x in ex])
+
+        out = _assembled(mesh, self.body.run(mesh, inputs))
+        # a round no group read still lands before the step returns
+        for pr, got in issued:
+            if pr:
+                for d in mesh.local:
+                    got.wait(d)
+        return out
 
 
 def _assembled(mesh, out):

@@ -703,33 +703,33 @@ def _mesh_input(case):
                  mesh_split_min_ops=900))
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("exchange", ["allgather", "needset"])
-@pytest.mark.parametrize("case", ["powerlaw", "ksplit"])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-def test_mesh_on_card_matches_the_cpu(cuda_device, exchange, case, dtype):
-    """The stream mesh with four shards on one card against the same call
-    with four CPU shards: meta and nnz_row equal, each shard's columns
-    equal within its counts, values within rtol 2e-3 (float32) or 1e-12
-    (float64); every output on the card; K1 and K2 launched."""
+def _mesh_card_vs_cpu(h, cfg, exchange, dtype):
+    """mesh_stream_spgemm with four shards on one card against the same
+    call with four CPU shards: meta and nnz_row equal, each shard's
+    columns equal within its counts, values within rtol 2e-3 (float32) or
+    1e-12 (float64), every output on the card, the result against the
+    oracle. Returns the card's meta and the K1 and K2 launches of the
+    card's call."""
     from speck_tpu_torch.parallel import (make_row_mesh, mesh_stream_spgemm,
                                           mesh_stream_to_host_csr)
     from speck_tpu_torch.parallel.dist import fetch_output
 
-    h, kw = _mesh_input(case)
-    cfg = pt.SpgemmConfig(**kw)
     k1, k2 = contract.LAUNCHES, bitonic.LAUNCHES
     got = mesh_stream_spgemm(h, h, make_row_mesh(4, devices=["cuda:0"]),
                              cfg, exchange=exchange, dtype=dtype)
     torch.cuda.synchronize()
-    assert contract.LAUNCHES > k1 and bitonic.LAUNCHES > k2
+    launches = (contract.LAUNCHES - k1, bitonic.LAUNCHES - k2)
     assert all(x.device.type == "cuda" for x in got[:3])
     want = mesh_stream_spgemm(h, h, make_row_mesh(4, devices=["cpu"]), cfg,
                               exchange=exchange, dtype=dtype)
     gm, wm = got[3], want[3]
     for k in ("ranges", "m_loc", "out_cap", "shape", "route", "ksplit"):
         assert gm[k] == wm[k], k
-    assert (gm["ksplit"] is not None) == (case == "ksplit")
+    gs, ws = gm["stats"], wm["stats"]
+    assert (gs is None) == (ws is None)
+    if gs is not None:
+        assert (gs.mode, gs.needset_bytes, gs.allgather_bytes) == \
+            (ws.mode, ws.needset_bytes, ws.allgather_bytes)
     gn = fetch_output(got[0]).reshape(4, -1)
     np.testing.assert_array_equal(gn, fetch_output(want[0]).reshape(4, -1))
     gc, wc = (fetch_output(x[1]).reshape(4, -1) for x in (got, want))
@@ -744,6 +744,78 @@ def test_mesh_on_card_matches_the_cpu(cuda_device, exchange, case, dtype):
                        compare_data=True,
                        rel_tol=2e-3 if dtype == torch.float32 else 1e-9)
     assert r.ok, r.message
+    return gm, launches
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("exchange", ["allgather", "needset"])
+@pytest.mark.parametrize("case", ["powerlaw", "ksplit"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_mesh_on_card_matches_the_cpu(cuda_device, exchange, case, dtype):
+    """The stream mesh with four shards on one card against the same call
+    with four CPU shards (``_mesh_card_vs_cpu``); K1 and K2 launched."""
+    h, kw = _mesh_input(case)
+    meta, (k1, k2) = _mesh_card_vs_cpu(h, pt.SpgemmConfig(**kw), exchange,
+                                       dtype)
+    assert k1 > 0 and k2 > 0
+    assert (meta["ksplit"] is not None) == (case == "ksplit")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["sdia", "dense", "dense_scatter",
+                                  "overlap", "overlap_ksplit"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_mesh_routes_on_card_match_the_cpu(cuda_device, case, dtype):
+    """The mesh's diagonal-plane route (a band), dense route (a band with
+    the diagonal planes off, under allgather; both densify forms) and
+    overlapped need-set exchange (the power-law input, and the k-split
+    one) with four shards on one card against four CPU shards: the dense
+    and overlapped routes launch K2, the overlapped one K1."""
+    if case == "sdia":
+        h, kw, exchange = make_banded(4096, half_band=8, seed=3), {}, \
+            "needset"
+    elif case.startswith("dense"):
+        h, exchange = make_banded(4096, half_band=16, seed=3), "allgather"
+        kw = dict(enable_sdia=False)
+        if case == "dense_scatter":
+            kw["dense_densify"] = "scatter"
+    else:
+        h, kw = _mesh_input("powerlaw" if case == "overlap" else "ksplit")
+        kw = dict(kw, mesh_exchange_auto=False)
+        exchange = "needset_overlap"
+    meta, (k1, k2) = _mesh_card_vs_cpu(h, pt.SpgemmConfig(**kw), exchange,
+                                       dtype)
+    route = {"sdia": "sdia", "dense": "dense", "dense_scatter": "dense"}
+    assert meta["route"] == route.get(case, "stream")
+    mode = {"sdia": "dia_halo", "dense": "dense_allgather",
+            "dense_scatter": "dense_allgather"}
+    assert meta["stats"].mode == mode.get(case, "needset_overlap")
+    if case == "dense":
+        assert k2 > 0
+    if case.startswith("overlap"):
+        assert k1 > 0 and k2 > 0
+
+
+@pytest.mark.gpu
+def test_ppermute_start_across_cards():
+    """A permute round between two cards of one process runs on the cards'
+    copy streams: wait() gives each shard its neighbour's part, equal to
+    what was sent, after work queued behind it on the receiving card."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards")
+    from speck_tpu_torch.parallel import make_row_mesh
+    from speck_tpu_torch.parallel.dist import ppermute_start
+
+    mesh = make_row_mesh(2, devices=["cuda:0", "cuda:1"])
+    parts = {d: torch.arange(1 << 20, dtype=torch.int32,
+                             device=mesh.devices[d]) * (d + 1)
+             for d in mesh.local}
+    rnd = ppermute_start(mesh, parts, 1)
+    for d in mesh.local:
+        got = rnd.wait(d)
+        assert got.device == mesh.devices[d]
+        src = (d - 1) % 2
+        assert torch.equal(got.cpu(), parts[src].cpu())
 
 
 @pytest.mark.gpu

@@ -9,9 +9,9 @@ each shard's columns equal within its rows' counts, values within rtol
 2e-3 of JAX's in float32 (the reference's own tolerance) and 1e-12 in
 float64 (JAX under ``jax_enable_x64``, restored after), and every result
 within rel_tol 2e-3 (float32) or 1e-9 (float64) of the scipy oracle. The
-cases are those of ``tests/test_parallel.py``; the routes the port does
-not have yet (the mesh DIA and dense routes, ``needset_overlap``) must
-raise exactly where the reference takes them."""
+cases are those of ``tests/test_parallel.py``; those of the mesh's
+diagonal-plane, dense and overlapped routes are in
+``tests/test_torch_mesh_routes.py``."""
 
 import dataclasses
 
@@ -526,55 +526,20 @@ def test_mesh_step_reuse(rng):
         np.testing.assert_array_equal(x.numpy(), y.numpy())
 
 
-# ---------------------------------------------------------------------------
-# the routes that raise
-# ---------------------------------------------------------------------------
-
-
-def _banded(n=512, half_band=2, seed=3):
-    rs = np.random.RandomState(seed)
-    offs = list(range(-half_band, half_band + 1))
-    mat = sp.diags([rs.standard_normal(n - abs(o)) for o in offs], offs,
-                   shape=(n, n), format="csr")
-    return JHostCSR.from_scipy(mat)
-
-
-@pytest.mark.parametrize("case", ["sdia", "dense", "needset_overlap"])
-def test_unported_routes_raise(case):
-    """Where the reference's gates take the mesh DIA route (a band) or the
-    mesh dense route (a tile-bounded input under allgather), and for
-    exchange="needset_overlap", the port raises naming the route; the
-    same inputs on the other exchange or with the route disabled run the
-    stream in both packages."""
-    if case == "sdia":
-        a, exchange, off = _banded(), "needset", dict(enable_sdia=False)
-    elif case == "dense":
-        a, exchange, off = _blockperm(), "allgather", dict(enable_dense=False)
-    else:
-        a, exchange, off = _with_rows(**KSPLIT), "needset_overlap", None
-    jo = jp.mesh_stream_spgemm(a, a, jp.make_row_mesh(8), exchange=exchange)
-    if case != "needset_overlap":
-        assert jo[3]["route"] == case
-    with pytest.raises(NotImplementedError, match=case):
-        tp.mesh_stream_spgemm(_port(a), _port(a), _tmesh(8),
-                              exchange=exchange)
-    if off is not None:
-        _, to = _both(a, a, 8, exchange, off)
-        assert to[3]["route"] == "stream"
-
-
 def test_dryrun_multichip(capsys):
     """The dryrun's numbers of the reference's record on 8 shards:
     need-set 1192 against all_gather 1536 bytes, the block-diagonal
-    product 0 against 2432 (zero communication), k-split n_split=2; and
-    on each of its products (``dryrun_inputs``, the reference dryrun's
+    product 0 against 2432 (zero communication), the dense route and the
+    overlapped exchange, k-split n_split=2, in the reference's summary
+    line word for word; and on each of its products (``dryrun_inputs``, the reference dryrun's
     seeds) the reference's own mesh gives the same meta (need-set stats
     and k-split among them) and the same C."""
     line = dryrun_multichip(8, devices=["cpu"])
     assert capsys.readouterr().out.strip() == line
-    assert ("needset bytes 1192 vs allgather 1536; block-diag needset 0 "
-            "vs 2432 (ZERO-COMM); k-split engaged (n_split=2)") in line
-    assert "nnz(C)=964" in line
+    assert line == (
+        "dryrun_multichip(8): OK, nnz(C)=964, needset bytes 1192 vs "
+        "allgather 1536; block-diag needset 0 vs 2432 (ZERO-COMM); dense "
+        "route OK; overlap OK; k-split engaged (n_split=2)")
     for step, (a, b, cfg, exchange) in dryrun_inputs(8).items():
         kw = {f.name: getattr(cfg, f.name)
               for f in dataclasses.fields(TConfig)
@@ -590,3 +555,5 @@ def test_dryrun_multichip(capsys):
             assert (st.needset_bytes, st.allgather_bytes) == (0, 2432)
         elif step == "k-split":
             assert to[3]["ksplit"]["n_split"] == 2
+        elif step == "dense":
+            assert to[3]["route"] == "dense"

@@ -3,12 +3,17 @@ counterpart of ``tests/test_multihost_mp.py``).
 
 Two OS processes each call ``multihost.initialize`` with gloo and run two
 CPU shards of a 4-shard row mesh; their collectives (the all_gather of B
-and of the k-split partials, the need-set ppermute rounds, the host
-metadata) go through torch.distributed. The workers import only the port
+and of the k-split partials, the need-set ppermute rounds, issued all at
+once under the overlapped exchange, the diagonal-plane route's ring halo,
+the host metadata) go through torch.distributed. The cases take every
+route: the stream under both exchanges and the overlapped one, the dense
+route (the default config under allgather, as the reference's own
+two-process test) and the diagonal-plane route (a band). The workers
+import only the port
 and check against the scipy oracle (rel_tol 2e-3); the test process then
 holds what they wrote against ``speck_tpu``'s ``mesh_stream_spgemm`` on a
 4-device mesh: meta equal, ``nnz_row`` and columns equal, values within
-rtol 2e-3."""
+rtol 2e-3, the route and the exchange's mode and bytes equal."""
 
 import os
 import socket
@@ -31,17 +36,17 @@ from speck_tpu_torch.utils.compare import compare_csr
 from speck_tpu_torch.utils.config import SpgemmConfig
 from speck_tpu_torch.utils.oracle import oracle_spgemm
 sys.path.insert(0, sys.argv[4])
-from test_torch_multihost_mp import matrix, CASES
+from test_torch_multihost_mp import CASES, MATRICES
 
 initialize(f"localhost:{port}", num_processes=2, process_id=pid,
            backend="gloo")
 assert process_count() == 2
 mesh = global_row_mesh(devices=["cpu", "cpu"])
 assert mesh.size == 4 and mesh.local == (2 * pid, 2 * pid + 1), mesh
-a = matrix()
-ref = oracle_spgemm(a, a)
 saved = {}
 for name, exchange, kw in CASES:
+    a = MATRICES[name]()
+    ref = oracle_spgemm(a, a)
     inp = a
     if name == "presharded":
         full = RowShards.from_global(a, 4)
@@ -58,7 +63,9 @@ for name, exchange, kw in CASES:
     saved[f"{name}_ranges"] = np.asarray(meta["ranges"])
     saved[f"{name}_m_loc"] = meta["m_loc"]
     saved[f"{name}_out_cap"] = meta["out_cap"]
+    saved[f"{name}_route"] = meta["route"]
     st = meta["stats"]
+    saved[f"{name}_mode"] = "" if st is None else st.mode
     saved[f"{name}_needset_bytes"] = -1 if st is None else st.needset_bytes
     saved[f"{name}_pairs_nnz"] = (np.zeros((4, 4), np.int64) if st is None
                                   else st.pairs_nnz)
@@ -72,16 +79,23 @@ tdist.destroy_process_group()
 print(f"p{pid} DONE", flush=True)
 """
 
-# (name, exchange, SpgemmConfig keywords); allgather pins the stream with
-# EnableDense=false (the small input is tile-bounded)
+# (name, exchange, SpgemmConfig keywords); the small power-law input is
+# tile-bounded, so allgather takes the dense route under the default
+# config and the stream with EnableDense=false
 CASES = [
     ("needset", "needset", {}),
     ("allgather", "allgather", {"enable_dense": False}),
+    ("dense", "allgather", {}),
+    ("overlap", "needset_overlap", {}),
     ("ksplit", "needset", {"stream_width": 64, "product_budget": 1 << 12,
                            "mesh_split_min_ops": 120,
                            "mesh_exchange_auto": False}),
     ("presharded", "needset", {}),
+    ("banded", "needset", {}),
 ]
+ROUTES = {"dense": "dense", "banded": "sdia"}
+MODES = {"dense": "dense_allgather", "overlap": "needset_overlap",
+         "banded": "dia_halo"}
 
 
 def matrix():
@@ -97,6 +111,22 @@ def matrix():
                       shape=(m, m))
     A.sum_duplicates()
     return HostCSR.from_scipy(A)
+
+
+def banded():
+    """A 96-row band of half-width 3: the diagonal-plane route, whose
+    halo crosses the process boundary between shards 1 and 2."""
+    from speck_tpu_torch.formats.csr import HostCSR
+
+    rs = np.random.RandomState(43)
+    offs = list(range(-3, 4))
+    A = sp.diags([rs.standard_normal(96 - abs(o)) for o in offs], offs,
+                 shape=(96, 96), format="csr")
+    return HostCSR.from_scipy(A)
+
+
+MATRICES = {name: (banded if name == "banded" else matrix)
+            for name, _, _ in CASES}
 
 
 def _free_port() -> int:
@@ -130,7 +160,7 @@ def test_two_process_multihost_spgemm(tmp_path):
     outs = []
     try:
         for p in procs:
-            o, _ = p.communicate(timeout=30)
+            o, _ = p.communicate(timeout=60)
             outs.append(o.decode())
     finally:
         for p in procs:
@@ -143,17 +173,21 @@ def test_two_process_multihost_spgemm(tmp_path):
         assert f"p{pid} DONE" in o, o
 
     got = np.load(out)
-    a = matrix()
-    aj = JHostCSR(rows=a.rows, cols=a.cols, row_offsets=a.row_offsets,
-                  col_ids=a.col_ids, data=a.data)
     mesh = make_row_mesh(4)
     for name, exchange, kw in CASES:
+        a = MATRICES[name]()
+        aj = JHostCSR(rows=a.rows, cols=a.cols, row_offsets=a.row_offsets,
+                      col_ids=a.col_ids, data=a.data)
         inp = aj
         if name == "presharded":
             inp = RowShards.from_global(aj, 4)
         nnz_row, cols, vals, meta = mesh_stream_spgemm(
             inp, inp, mesh, SpgemmConfig(**kw), exchange=exchange)
-        assert meta["route"] == "stream"
+        assert meta["route"] == str(got[f"{name}_route"]) == ROUTES.get(
+            name, "stream")
+        if name in MODES:
+            assert meta["stats"].mode == str(got[f"{name}_mode"]) \
+                == MODES[name]
         assert [tuple(r) for r in meta["ranges"]] == \
             [tuple(r) for r in got[f"{name}_ranges"]]
         assert meta["m_loc"] == int(got[f"{name}_m_loc"])
