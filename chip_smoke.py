@@ -117,11 +117,28 @@ Phases (any failure raises and exits non-zero; nothing falls back):
      build; config 3 written with store_mtx and read back with load_mtx
      and coo_to_csr, natively and by numpy, both equal to config 3, each
      stage's host time;
-  7b. K1 at every shape phases 4, 4b, 7c, 7d, 7e and 7f launched it at (and
-     the shapes of probes/contract_profile.py's table), K2 at every other
-     shape phases 4, 4b, 7, 7c, 7d, 7e and 7f launched it at, checked and timed
-     as in phase 3, each beside its bound, and K3 at the fixed-cap mesh's
-     per-shard shape as in phase 6;
+  7h. (after 7g) the value types and the A/B knobs (TYPE_CELLS): config 3
+     in bfloat16, in float16 and as bfloat16 A times float32 B (float32
+     out); config 1 in bfloat16 through DIA and with enable_dia=False
+     (the dense tiles); config 3 under stream_compact_impl="scatter",
+     stream_expand_impl="decode" and stream_sort_impl="bitonic", each
+     timed in turns with the default call; stencil27 under the scatter
+     compaction; config 3 and the giant row under stream_level_factor=3
+     (K2 at 3 * 8192 and 3 * 65536 slots); esc_fixed on config 1 in
+     bfloat16 and float16 (K3 in 16 bits); the mesh in bfloat16 (config
+     1 on its diagonal-plane route; config 3's stream route must raise
+     TypeError, as the reference's does); spgemm_scipy on config 3. Each
+     cell's route, output type and launches by shape and type asserted,
+     its structure exact against the oracle, float32 values within
+     rel_tol 2e-3, 16-bit values within compare_csr_bound of the oracle of
+     the rounded inputs; the cold call, the median of 3 warm calls,
+     GFLOPS, peak memory and synchronizing calls;
+  7b. K1 at every shape phases 4, 4b, 7c, 7d, 7e, 7f and 7h launched it at
+     (and the shapes of probes/contract_profile.py's table), K2 at every
+     other shape phases 4, 4b, 7, 7c, 7d, 7e, 7f and 7h launched it at
+     (widths that are not powers of two among them), checked and timed as
+     in phase 3, each beside its bound, and K3 at the fixed-cap mesh's
+     per-shard shape and at esc_fixed's in 16 bits as in phase 6;
   8. the gather probes' mains (python -m speck_tpu_torch.probes...) with
      their launch counts, then sublane_gather (N = 2^22, S = 2048) and
      run_copy (G = 512, K = 64, L = 128 over a 2^21 source) against their
@@ -147,9 +164,12 @@ outputs written once) over 3.35 TB/s, the H100 SXM's device memory rate
 (NVIDIA's data sheet); every kernel here is bound by bytes. library_ms is
 one PyTorch call computing the same function, where there is one; the port
 never calls it. Launches in the kernels' line: K1's over phases 4, 4b, 7c
-(config 1b), 7e and 7f, its double variant's over the float64 cells of 7d
-and 7f, K2's over 4, 4b, 7, 7c, 7d, 7e and 7f, K3's over 7 and 7f (the
-fixed cap) and its double variant's over 7d's esc_fixed. The line's ms is the CUDA-event
+(config 1b), 7e, 7f and 7h (float32), its double variant's over the
+float64 cells of 7d and 7f, its 16-bit variants' over 7h's config 3
+cells, K2's over 4, 4b, 7, 7c, 7d, 7e, 7f and 7h (an entry of its own
+for the widths that are not powers of two), K3's over 7 and 7f (the
+fixed cap), its double variant's over 7d's esc_fixed and its 16-bit
+variants' over 7h's esc_fixed. The line's ms is the CUDA-event
 time around one wrapper call, as plain_ms is; device_ms is the device time by
 torch.profiler from phase 9 (K1, K3 and the probes; null for K2): where a
 call is shorter on the card than its wrapper's host time, the event time
@@ -207,9 +227,11 @@ def bits(x):
 
 def contract_case(gen, R, W, kind, dtype="float32", reps=5):
     """K1 against contract_plain at (R, W) with a rid plane or a per-row rid
-    (kind "plane" or "row") and float32 or float64 values: masks equal,
-    sums within atol 1e-6 + rtol 1e-5 (float32) or rtol 1e-12 (float64) of
-    the run prefix's sum of magnitudes (sums in another order), a second
+    (kind "plane" or "row") and float32, float64 or 16-bit values: masks
+    equal, sums within atol 1e-6 + rtol 1e-5 (float32) or rtol 1e-12
+    (float64) of the run prefix's sum of magnitudes (sums in another
+    order; 16-bit sums within that plus a rounding a side,
+    cp.sums_close), a second
     launch bit-identical to the first; then the kernel and the plain
     version timed in turns with CUDA events around one call, medians of
     reps."""
@@ -1643,6 +1665,272 @@ def native_mtx_cell(pt, smi):
     print(line, flush=True)
     return line
 
+# the cells of phase 7h, the value types and the A/B knobs: name, generator
+# call, A's and B's value dtypes, SpgemmConfig keywords, the route the
+# gates take ("stream", "dia" or "dense"); a knob cell (kw) times its
+# default call beside it
+BF16, F16, F32 = torch.bfloat16, torch.float16, torch.float32
+TYPE_CELLS = [
+    ("config 3 bf16", CONFIG3, BF16, BF16, {}, "stream"),
+    ("config 3 f16", CONFIG3, F16, F16, {}, "stream"),
+    ("config 3 bf16 x f32", CONFIG3, BF16, F32, {}, "stream"),
+    ("config 1 bf16", CONFIG1, BF16, BF16, {}, "dia"),
+    ("config 1 bf16 dense", CONFIG1, BF16, BF16, {"enable_dia": False},
+     "dense"),
+    ("config 3 scatter", CONFIG3, F32, F32,
+     {"stream_compact_impl": "scatter"}, "stream"),
+    ("config 3 decode", CONFIG3, F32, F32,
+     {"stream_expand_impl": "decode"}, "stream"),
+    ("config 3 bitonic", CONFIG3, F32, F32, {"stream_sort_impl": "bitonic"},
+     "stream"),
+    ("stencil27 scatter", STENCIL27, F32, F32,
+     {"stream_compact_impl": "scatter"}, "dia"),
+    # merge levels at 3 * 8192 and 3 * 65536 slots: max widths that keep
+    # the first level's factor at 3 and send the widest rows up the ladder
+    ("config 3 level factor 3", CONFIG3, F32, F32,
+     {"stream_level_factor": 3, "stream_max_width": 3 * 8192}, "stream"),
+    ("giant row level factor 3", GIANT, F32, F32,
+     {"stream_level_factor": 3, "stream_max_width": 1 << 20}, "stream"),
+]
+
+
+def rounded_host(pt, h, dtype):
+    """h with its values rounded to dtype (held as float64)."""
+    return pt.HostCSR(rows=h.rows, cols=h.cols, row_offsets=h.row_offsets,
+                      col_ids=h.col_ids, data=torch.as_tensor(
+                          np.asarray(h.data)).to(dtype).double().numpy())
+
+
+def check_typed(pt, name, h, ref, Ch, dta, dtb, dtc):
+    """Ch (host C of dtc values) against the oracle: structure exact;
+    16-bit values within compare_csr_bound of the oracle of the rounded
+    inputs, float32 within rel_tol 2e-3 (of that oracle where an input is
+    16-bit, else of ``ref``)."""
+    from speck_tpu_torch.utils.compare import compare_csr_bound
+
+    check(bool(np.isfinite(Ch.data).all()), f"non-finite values in {name}")
+    ha, hb = rounded_host(pt, h, dta), rounded_host(pt, h, dtb)
+    if dtc in (BF16, F16):
+        r = compare_csr_bound(ha, hb, Ch, dtc)
+    else:
+        if dta != F32 or dtb != F32:
+            ref = pt.oracle_spgemm(ha, hb)
+        r = pt.compare_csr(ref, Ch)
+        check(r.ok, f"{name} structure differs from the oracle: {r.message}")
+        r = pt.compare_csr(ref, Ch, compare_data=True, rel_tol=2e-3)
+    check(r.ok, f"{name} differs from the oracle: {r.message}")
+
+
+def type_cell(pt, smi, name, gen_call, dta, dtb, kw, route):
+    """Phase 7h, one cell: spgemm through the entry points with A in dta
+    and B in dtb under SpgemmConfig(**kw): the route and the output type
+    (the reference's: a float32 A gives float32, else the promoted type)
+    asserted, the kernels the route launches and their dtypes, the result
+    against the oracle (check_typed), the cold call, the median of 3 warm
+    calls (a knob cell in turns with the default call), GFLOPS, peak
+    memory, synchronizing calls, K1's, K2's and K3's launches by shape and
+    type; returns the numbers."""
+    from speck_tpu_torch.ops import bitonic, contract, stream
+
+    h, ref, t_gen, t_ref = host_and_oracle(pt, gen_call)
+    cfg = pt.SpgemmConfig(**kw)
+    A = pt.device_put_csr(h, dta, "cuda")
+    B = A if dtb == dta else pt.device_put_csr(h, dtb, "cuda")
+    dtc = F32 if dta == F32 else torch.promote_types(dta, dtb)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base_mem = torch.cuda.memory_allocated()
+    reset_counts()
+    stream.SORT_RESOLVED.clear()
+    plan = None
+
+    def cold():
+        nonlocal plan
+        plan = pt.plan_spgemm(A, B, cfg)
+        return plan.execute()
+
+    cold_ms, C = timed_ms(cold)
+    peak = torch.cuda.max_memory_allocated()
+    shapes = (dict(contract.LAUNCH_SHAPES), dict(bitonic.LAUNCH_SHAPES),
+              dict(contract.RUNS_LAUNCH_SHAPES))
+    launches = {"stream_contract": contract.LAUNCHES,
+                "row_sort": bitonic.LAUNCHES}
+    resolved = dict(stream.SORT_RESOLVED)
+    check(C.data.dtype == dtc, f"{name}: C holds {C.data.dtype}, not {dtc}")
+    got = ("dia" if plan.dia is not None else
+           "dense" if plan.dense is not None else "stream")
+    check(got == route, f"{name}: took the {got} route")
+    want = {"stream": {"stream_contract", "row_sort"}, "dia": set(),
+            "dense": {"row_sort"}}[route]
+    check({k for k, n in launches.items() if n} == want,
+          f"{name} ({route}): launches {launches}")
+    dname = str(dtc).replace("torch.", "")
+    if route == "stream":
+        check(set(k[3] for k in shapes[0]) == {dname},
+              f"{name}: K1 did not run in {dname} alone: {shapes[0]}")
+    if kw.get("stream_level_factor") == 3:
+        odd = {s: n for s, n in shapes[1].items() if s[1] & (s[1] - 1)}
+        check(odd, f"{name}: no K2 launch at a width that is not a power "
+                   f"of two: {shapes[1]}")
+    if "stream_sort_impl" in kw:
+        check(kw["stream_sort_impl"] in resolved,
+              f"{name}: sorts resolved to {resolved}")
+    if kw.get("stream_expand_impl") == "decode":
+        check(plan.stream.rowend is not None, f"{name}: no rowend")
+    t0 = time.perf_counter()
+    Ch = pt.device_get_csr(C)
+    check_typed(pt, name, h, ref, Ch, dta, dtb, dtc)
+    t_ref += time.perf_counter() - t0
+    nnz = plan.nnz
+    del C, Ch, plan
+    knob = bool(kw) and "enable_dia" not in kw
+    default = pt.SpgemmConfig()
+    runs = {"cell": lambda: pt.spgemm(A, B, cfg)}
+    if knob:
+        runs["default"] = lambda: pt.spgemm(A, B, default)
+    warm = {k: [] for k in runs}
+    for _ in range(3):
+        for k, fn in runs.items():
+            ms, Cw = timed_ms(fn)
+            check(Cw.nnz == nnz, f"{name}: warm call nnz differs")
+            warm[k].append(ms)
+            del Cw
+    warm_ms = statistics.median(warm["cell"])
+    beside = (f"; the default call in turns "
+              f"{statistics.median(warm['default']):.2f} ms (all "
+              f"{[round(w, 2) for w in warm['default']]})" if knob else "")
+    syncs = sync_count(runs["cell"])
+    products = products_of(h)
+    line = (f"{name} A*A {str(dta)[6:]} x {str(dtb)[6:]} -> {dname} {kw} "
+            f"[{smi}]: m={h.rows} nnz(A)={h.nnz} nnz(C)={nnz} "
+            f"products={products}; route {route}; cold {cold_ms:.1f} ms, "
+            f"warm median of 3 {warm_ms:.2f} ms (all "
+            f"{[round(w, 2) for w in warm['cell']]}){beside}, GFLOPS "
+            f"{2 * products / (warm_ms * 1e6):.3f}, peak memory "
+            f"{peak / 2**30:.2f} GiB ({(peak - base_mem) / 2**30:.2f} GiB "
+            f"above the inputs), synchronizing calls {syncs}; launches in "
+            f"the cold call {launches}; K1 by (R, W, rid, dtype) "
+            f"{dict(sorted(shapes[0].items()))}; K2 by (R, W, payloads) "
+            f"{dict(sorted(shapes[1].items()))}; sorts by the reference's "
+            f"name {resolved}; oracle and its checks {t_ref:.2f} s")
+    print(line, flush=True)
+    del A, B
+    torch.cuda.empty_cache()
+    return {"name": name, "warm_ms": warm_ms, "cold_ms": cold_ms,
+            "launches": launches, "shapes": shapes, "dtype": dtc,
+            "line": line}
+
+
+def esc16_cell(pt, smi):
+    """Phase 7h: esc_fixed on config 1 in bfloat16 and in float16 (K3 in
+    16 bits, K2 moving the values by slot): the output type, the result
+    within the 16-bit bound, the cold and warm calls; returns the launch
+    counts and shapes."""
+    from speck_tpu_torch import entry as tentry
+    from speck_tpu_torch.ops import bitonic, contract
+    from speck_tpu_torch.ops.esc import esc_fixed
+    from speck_tpu_torch.parallel import padded_to_host_csr
+
+    h, _, _, _ = host_and_oracle(pt, CONFIG1)
+    cap = tentry.fixed_cap(h, h)
+    launches = {"contract_runs": 0, "row_sort": 0}
+    shapes = ({}, {}, {})
+    for dt in (BF16, F16):
+        args = list(tentry.esc_args(h, h, "cuda", np.dtype("float64")))
+        args[2], args[6] = args[2].to(dt), args[6].to(dt)
+        reset_counts()
+        cold_ms, out = timed_ms(lambda: esc_fixed(*args, cap=cap,
+                                                  n_cols=h.cols))
+        launches["contract_runs"] += contract.RUNS_LAUNCHES
+        launches["row_sort"] += bitonic.LAUNCHES
+        cold_k2 = dict(bitonic.LAUNCH_SHAPES)
+        cold_k3 = dict(contract.RUNS_LAUNCH_SHAPES)
+        shapes[1].update(cold_k2)
+        shapes[2].update(cold_k3)
+        dname = str(dt)[6:]
+        check(contract.RUNS_LAUNCHES > 0 and bitonic.LAUNCHES > 0
+              and contract.LAUNCHES == 0,
+              f"esc_fixed {dname}: launches K3 {contract.RUNS_LAUNCHES}, "
+              f"K2 {bitonic.LAUNCHES}, K1 {contract.LAUNCHES}")
+        check(set(k[2] for k in contract.RUNS_LAUNCH_SHAPES) == {dname},
+              f"K3 did not run in {dname}: {contract.RUNS_LAUNCH_SHAPES}")
+        check(out[2].dtype == dt, f"esc_fixed returned {out[2].dtype}")
+        got = padded_to_host_csr(*out, h.rows, h.cols)
+        check_typed(pt, f"esc_fixed {dname}", h, None, got, dt, dt, dt)
+        del out
+        warm = [timed_ms(lambda: esc_fixed(*args, cap=cap,
+                                           n_cols=h.cols))[0]
+                for _ in range(3)]
+        products = products_of(h)
+        wm = statistics.median(warm)
+        print(f"esc_fixed config 1 A*A {dname} cap {cap} [{smi}]: nnz(C)="
+              f"{got.nnz} products={products} cold {cold_ms:.1f} ms, warm "
+              f"median of 3 {wm:.2f} ms (all {[round(w, 2) for w in warm]}),"
+              f" GFLOPS {2 * products / (wm * 1e6):.3f}; in the cold call "
+              f"K3 by (R, W, dtype) {cold_k3}, K2 by (R, W, payloads) "
+              f"{cold_k2}", flush=True)
+        del args
+        torch.cuda.empty_cache()
+    return {"name": "esc_fixed 16-bit", "launches": launches,
+            "shapes": shapes}
+
+
+def mesh16_cell(pt, smi):
+    """Phase 7h: the mesh in bfloat16, four shards on one card: config 1
+    on the diagonal-plane route (needset) against the 16-bit bound; config
+    3 under needset raises TypeError, as the reference's stream mesh
+    raises (it packs B's values as 32-bit words)."""
+    from speck_tpu_torch.parallel import (make_row_mesh, mesh_stream_spgemm,
+                                          mesh_stream_to_host_csr)
+
+    mesh = make_row_mesh(MESH_SHARDS, devices=["cuda:0"])
+    h, _, _, _ = host_and_oracle(pt, CONFIG1)
+
+    def call():
+        return mesh_stream_spgemm(h, h, mesh, pt.SpgemmConfig(),
+                                  exchange="needset", dtype=BF16)
+
+    cold_ms, out = timed_ms(call)
+    check(out[3]["route"] == "sdia" and out[2].dtype == BF16
+          and out[2].device.type == "cuda",
+          f"mesh config 1 bf16: route {out[3]['route']}, {out[2].dtype}")
+    Ch = mesh_stream_to_host_csr(*out)
+    check_typed(pt, "mesh config 1 bf16", h, None, Ch, BF16, BF16, BF16)
+    del out
+    warm = [timed_ms(call)[0] for _ in range(3)]
+    h3, _, _, _ = host_and_oracle(pt, CONFIG3)
+    try:
+        mesh_stream_spgemm(h3, h3, mesh, pt.SpgemmConfig(),
+                           exchange="needset", dtype=BF16)
+        raised = False
+    except TypeError:
+        raised = True
+    check(raised, "the mesh stream route ran in bfloat16")
+    print(f"mesh config 1 bf16 needset [{smi}; {MESH_SHARDS} shards on one "
+          f"card]: route sdia, nnz(C)={Ch.nnz}, cold {cold_ms:.1f} ms, warm "
+          f"median of 3 {statistics.median(warm):.2f} ms (all "
+          f"{[round(w, 2) for w in warm]}); config 3 bf16 needset raised "
+          "TypeError (the stream mesh packs 32-bit values, as the "
+          "reference)", flush=True)
+    torch.cuda.empty_cache()
+
+
+def scipy_cell(pt, smi):
+    """Phase 7h: spgemm_scipy on config 3 (scipy in and out, float32 on
+    the card) against the oracle."""
+    h, ref, _, _ = host_and_oracle(pt, CONFIG3)
+    a = h.to_scipy()
+    cold_ms, c = timed_ms(lambda: pt.spgemm_scipy(a, a))
+    check(c.dtype == np.float32, f"spgemm_scipy gave {c.dtype}")
+    got = pt.HostCSR.from_scipy(c)
+    r = pt.compare_csr(ref, got, compare_data=True, rel_tol=2e-3)
+    check(r.ok, f"spgemm_scipy differs from the oracle: {r.message}")
+    warm = [timed_ms(lambda: pt.spgemm_scipy(a, a))[0] for _ in range(3)]
+    print(f"spgemm_scipy config 3 float32 [{smi}]: nnz(C)={c.nnz}, cold "
+          f"{cold_ms:.1f} ms, warm median of 3 {statistics.median(warm):.2f}"
+          f" ms (all {[round(w, 2) for w in warm]}), upload and download "
+          "included", flush=True)
+
 
 def main():
     if not torch.cuda.is_available():
@@ -1836,15 +2124,22 @@ def main():
     # 7g. the native host library: config 3 through .mtx and back
     native_mtx_cell(pt, smi)
 
+    phase("7h")
+    # 7h. the value types and the A/B knobs
+    type_cells = [type_cell(pt, smi, *c) for c in TYPE_CELLS]
+    esc16 = esc16_cell(pt, smi)
+    mesh16_cell(pt, smi)
+    scipy_cell(pt, smi)
+
     phase("7b")
-    # 7b. K1 at every shape phases 4, 4b, 7c and 7d launched it at (and the
-    # shapes of the probe's table), K2 at every other shape of 4, 4b, 7, 7c
-    # and 7d
+    # 7b. K1 at every shape phases 4, 4b, 7c, 7d, 7e, 7f and 7h launched it
+    # at (and the shapes of the probe's table), K2 at every other shape of
+    # 4, 4b, 7, 7c, 7d, 7e, 7f and 7h (the widths 3 * 2^k among them)
     k1_all = (set(k1_shapes) | set(giant["k1_shapes"]) | set(cp.SHAPES)
               | set(onebee_k1))
     k2_all = (set(stream_shapes) | set(giant["k2_shapes"]) | set(esc_shapes)
               | set(onebee_k2) | set(esc64_shapes))
-    for cell in gen_cells + slice_cells:
+    for cell in gen_cells + slice_cells + type_cells + [esc16]:
         k1_all |= set(cell["shapes"][0])
         k2_all |= set(cell["shapes"][1])
     # the mesh's own K1 shapes are timed here by events; phase 9 profiles
@@ -1865,9 +2160,10 @@ def main():
             k2[shape] = sort_case(gen, *shape)
             sort_line(*shape, k2[shape], smi, " (main-path shape)")
             torch.cuda.empty_cache()
-    # K3 at the fixed-cap mesh's per-shard shape
-    for shape in sorted(set(mesh["mesh fixed cap config 1"]["shapes"][2])
-                        - set(k3)):
+    # K3 at the fixed-cap mesh's per-shard shape and at esc_fixed's in 16
+    # bits
+    for shape in sorted((set(mesh["mesh fixed cap config 1"]["shapes"][2])
+                         | set(esc16["shapes"][2])) - set(k3)):
         k3[shape] = contract_runs_case(gen, *shape)
         err, ms, pms = k3[shape]
         print(f"K3 contract_runs {shape} (main-path shape): max_abs_err "
@@ -1946,10 +2242,11 @@ def main():
                       + onebee["stream_contract"]
                       + sum(c["launches"]["stream_contract"]
                             for c in slice_cells)
-                      + sum(n for c in mesh_cells
+                      + sum(n for c in mesh_cells + type_cells
                             for k, n in c["shapes"][0].items()
                             if k[3] == "float32")),
-         "max_abs_err": max(v[0] for v in k1.values()),
+         "max_abs_err": max(v[0] for k, v in k1.items()
+                            if k[3] == "float32"),
          "ms": k1[k1_main][1], "device_ms": sum(k1_dev[k1_main].values()),
          "plain_ms": k1[k1_main][2],
          "bound_ms": bound_ms(cp.k1_bytes(*k1_main)), "bound_by": "bytes",
@@ -1972,7 +2269,9 @@ def main():
                       + sum(c["launches"]["row_sort"] for c in gen_cells)
                       + esc64_launches["row_sort"]
                       + sum(c["launches"]["row_sort"] for c in slice_cells)
-                      + sum(c["launches"]["row_sort"] for c in mesh_cells)),
+                      + sum(c["launches"]["row_sort"] for c in mesh_cells)
+                      + sum(c["launches"]["row_sort"]
+                            for c in type_cells + [esc16])),
          "max_abs_err": max(v[0] for v in k2.values()),
          "ms": k2[(512, 8192, 1)][1], "device_ms": None,
          "plain_ms": k2[(512, 8192, 1)][2],
@@ -2000,6 +2299,44 @@ def main():
          "bound_ms": bound_ms(cp.k3_bytes(*k3_main64)), "bound_by": "bytes",
          "library_ms": None},
     ]
+    # the 16-bit variants and K2 at widths that are not powers of two
+    # (phase 7h), each at its widest main-path shape
+    for dname in ("bfloat16", "float16"):
+        kk = max((k for k in k1 if k[3] == dname),
+                 key=lambda k: (k[0] * k[1], k))
+        kernels.append({
+            "name": f"stream_contract ({dname})", "route": "cuda",
+            "source": "speck_tpu_torch/csrc/stream_contract.cu",
+            "replaces": "speck_tpu/ops/pallas_kernels.py:122",
+            "launches": sum(n for c in type_cells
+                            for k, n in c["shapes"][0].items()
+                            if k[3] == dname),
+            "max_abs_err": max(v[0] for k, v in k1.items() if k[3] == dname),
+            "ms": k1[kk][1], "device_ms": sum(k1_dev[kk].values()),
+            "plain_ms": k1[kk][2], "bound_ms": bound_ms(cp.k1_bytes(*kk)),
+            "bound_by": "bytes", "library_ms": None, "shape": list(kk)})
+        kr = (65536, 2048, dname)
+        kernels.append({
+            "name": f"contract_runs ({dname})", "route": "cuda",
+            "source": "speck_tpu_torch/csrc/stream_contract.cu",
+            "replaces": "speck_tpu/ops/pallas_kernels.py:153",
+            "launches": sum(n for k, n in esc16["shapes"][2].items()
+                            if k[2] == dname),
+            "max_abs_err": k3[kr][0], "ms": k3[kr][1],
+            "device_ms": sum(k3_dev[kr].values()), "plain_ms": k3[kr][2],
+            "bound_ms": bound_ms(cp.k3_bytes(*kr)), "bound_by": "bytes",
+            "library_ms": None})
+    odd = {k: n for c in type_cells for k, n in c["shapes"][1].items()
+           if k[1] & (k[1] - 1)}
+    ko = max(odd, key=lambda k: (k[0] * k[1], k))
+    kernels.append({
+        "name": "row_sort (width not a power of two, padded)",
+        "route": "cuda", "source": "speck_tpu_torch/csrc/row_sort.cu",
+        "replaces": "speck_tpu/ops/bitonic.py:172",
+        "launches": sum(odd.values()), "max_abs_err": k2[ko][0],
+        "ms": k2[ko][1], "device_ms": None, "plain_ms": k2[ko][2],
+        "bound_ms": bound_ms(8 * (1 + ko[2]) * ko[0] * ko[1]),
+        "bound_by": "bytes", "library_ms": k2[ko][3], "shape": list(ko)})
     for name, replaces in [
             ("sublane_gather", "scripts/gather_microbench2.py:143"),
             ("run_copy", "scripts/gather_microbench2.py:195 and "
@@ -2027,6 +2364,8 @@ def main():
         print(cell["line"], flush=True)
     for line in mesh_lines:
         print(line, flush=True)
+    for cell in type_cells:
+        print(cell["line"], flush=True)
     phase("end")
     print(json.dumps({"kernels": kernels}))
     print(smi)

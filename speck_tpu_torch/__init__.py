@@ -22,8 +22,10 @@ the mesh's diagonal-plane and dense-window routes),
 ``mesh_spgemm_fixed_cap``, ``distributed_spgemm``, ``multihost_spgemm``
 over torch.distributed and ``entry.dryrun_multichip``, and the native host
 library ``native/`` (the .mtx parser and writer and the COO->CSR convert
-in C++, built with g++ at first use). Only the TPU A/B knobs raise
-``NotImplementedError`` (see ROADMAP.md).
+in C++, built with g++ at first use), with every A/B knob of
+``SpgemmConfig`` and float16, bfloat16, float32 and float64 values, alike
+or mixed. It raises where ``speck_tpu`` raises (TypeError; ROADMAP.md
+Queue 3). ``spgemm_scipy`` is the one-call scipy convenience.
 """
 
 from .formats.csr import HostCOO, HostCSR, coo_to_csr, csr_transpose
@@ -41,11 +43,28 @@ from .utils.timings import Timings
 
 __version__ = "0.1.0"
 
+
+def spgemm_scipy(a, b, dtype=None, cfg=None, device="cuda"):
+    """One call, scipy.sparse in and out: ``a @ b`` through the whole
+    pipeline (analysis, routing, count, numeric) on ``device`` (the card
+    unless the caller passes ``device="cpu"``; without a card the default
+    raises), as a ``scipy.sparse.csr_matrix`` with sorted, deduplicated
+    rows. ``dtype`` (a torch or numpy float type) defaults to float32, as
+    in ``speck_tpu``; bfloat16 values come back as float32 (numpy has no
+    bfloat16)."""
+    import torch
+
+    dtype = dtype or torch.float32
+    A = device_put_csr(HostCSR.from_scipy(a.tocsr()), dtype, device=device)
+    B = device_put_csr(HostCSR.from_scipy(b.tocsr()), dtype, device=device)
+    return device_get_csr(spgemm(A, B, cfg)).to_scipy()
+
 __all__ = [
     "HostCSR", "HostCOO", "coo_to_csr", "csr_transpose",
     "load_mtx", "load_hicsr", "store_hicsr", "DataLoader", "load_matrix",
     "DeviceCSR", "device_put_csr", "device_get_csr",
     "spgemm", "SpgemmPlan", "plan_spgemm", "ProductOverflow", "transpose",
+    "spgemm_scipy",
     "Config", "SpgemmConfig", "Timings", "compare_csr", "oracle_spgemm",
     "DeviceInfo", "device_info",
 ]

@@ -17,12 +17,23 @@
 // table (1 MB) sits in L2 after its first read.
 //
 // What the designs do about it:
-// - sublane_gather: the 1 MB table exceeds a block's 227 KB of shared
-//   memory, so a block stages the table's columns for a slice of 16 lanes
-//   (S x 16 x 4 B = 128 KB at S = 2048) and walks many index rows of that
-//   slice with a grid stride; the random reads hit shared memory, and
-//   index and output move through device memory once. A read past the
-//   table (idx outside [0, S)) gives 0 instead of faulting.
+// - sublane_gather (the third design): each block stages the table's
+//   columns for a slice of 8 lanes in shared memory (S x 8 x 4 B = 64 KB
+//   at S = 2048, by 16-byte loads: the table is read whole from L2 once
+//   a block), so three 512-thread blocks share an SM (75% occupancy);
+//   16 slices x 24 row blocks = 384 blocks, all resident at once. A
+//   thread then takes four neighbouring lanes of one row at a time: one
+//   16-byte index load, four shared-memory reads, one 16-byte store; two
+//   threads cover a row's slice, so a warp's loads and stores are full
+//   32-byte sectors. A read past the table (idx outside [0, S)) gives 0
+//   instead of faulting.
+//   The first design staged 16-lane slices (128 KB: one 512-thread block
+//   an SM, 25% occupancy) with 4-byte index loads and stores: 0.0292 ms
+//   of device time at N = 2^22, S = 2048, against a bound of 0.0103. The
+//   second read the table from L2 without staging, four 4-byte reads a
+//   thread: each read takes a 32-byte L2 sector of its own, 134 MB of L2
+//   traffic for 4.19M outputs, and it took 0.0337 ms (NVIDIA H100 80GB
+//   HBM3, 700 W; PERF.md).
 // - run_copy: one warp per run, 16-byte vector loads and stores. A run's
 //   start is any element, so each lane loads the aligned float4 at its
 //   place and the next lane's, by a shuffle, supplies the rest; lane 31
@@ -35,32 +46,43 @@
 namespace {
 
 constexpr int kLanes = 128;        // lanes of a table row
-constexpr int kSliceLanes = 16;    // lanes staged by one block
+constexpr int kSliceLanes = 8;     // lanes staged by one block
 constexpr int kGatherThreads = 512;
-constexpr int kRowBlocks = 16;     // blocks per lane slice
+constexpr int kRowBlocks = 24;     // blocks per lane slice (3 an SM)
 constexpr int kCopyThreads = 256;  // 8 warps, one run each
 constexpr unsigned kFull = 0xffffffffu;
 
+// One staged value of slice lane k, 0 past the table.
+__device__ __forceinline__ float tab_at(const float* s_tab, int s, int k,
+                                        int S) {
+  return (unsigned)s < (unsigned)S ? s_tab[s * kSliceLanes + k] : 0.f;
+}
+
 __global__ void __launch_bounds__(kGatherThreads)
-sublane_gather_kernel(const int* __restrict__ idx,
-                      const float* __restrict__ tab,
-                      float* __restrict__ out, long long rows, int S) {
-  extern __shared__ float s_tab[];  // [S][kSliceLanes]
+sublane_gather_kernel(const int4* __restrict__ idx,
+                      const float4* __restrict__ tab,
+                      float4* __restrict__ out, long long rows, int S) {
+  extern __shared__ float4 s_tab4[];  // [S][kSliceLanes / 4]
   const int lane0 = blockIdx.x * kSliceLanes;
-  for (int x = threadIdx.x; x < S * kSliceLanes; x += blockDim.x) {
-    const int s = x / kSliceLanes, l = x % kSliceLanes;
-    s_tab[x] = tab[(long long)s * kLanes + lane0 + l];
+  // the slice's columns, 16 bytes a load: row s, quad h of the slice
+  for (int x = threadIdx.x; x < S * 2; x += blockDim.x) {
+    s_tab4[x] = __ldg(tab + (long long)(x >> 1) * (kLanes / 4) +
+                      lane0 / 4 + (x & 1));
   }
   __syncthreads();
+  const float* s_tab = reinterpret_cast<const float*>(s_tab4);
 
-  const int l = threadIdx.x % kSliceLanes;
-  const int r0 = threadIdx.x / kSliceLanes;
-  const int rows_per_step = blockDim.x / kSliceLanes;
-  for (long long i = (long long)blockIdx.y * rows_per_step + r0; i < rows;
-       i += (long long)gridDim.y * rows_per_step) {
-    const long long g = i * kLanes + lane0 + l;
-    const unsigned s = (unsigned)idx[g];
-    out[g] = s < (unsigned)S ? s_tab[s * kSliceLanes + l] : 0.f;
+  // quad j of the slice: row j / 2, lanes lane0 + 4 (j % 2) .. + 3
+  const long long quads = rows * 2;
+  for (long long j = (long long)blockIdx.y * blockDim.x + threadIdx.x;
+       j < quads; j += (long long)gridDim.y * blockDim.x) {
+    const int h = (int)(j & 1) * 4;
+    const long long q = (j >> 1) * (kLanes / 4) + (lane0 + h) / 4;
+    const int4 s = __ldg(idx + q);
+    out[q] = make_float4(tab_at(s_tab, s.x, h, S),
+                         tab_at(s_tab, s.y, h + 1, S),
+                         tab_at(s_tab, s.z, h + 2, S),
+                         tab_at(s_tab, s.w, h + 3, S));
   }
 }
 
@@ -115,10 +137,13 @@ extern "C" int speck_sublane_gather(const void* idx, const void* tab,
         (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  const dim3 grid(kLanes / kSliceLanes, kRowBlocks);
+  // as many row blocks as the rows fill, at most kRowBlocks
+  const long long per = (rows * 2 + kGatherThreads - 1) / kGatherThreads;
+  const dim3 grid(kLanes / kSliceLanes,
+                  (unsigned)(per < kRowBlocks ? per : kRowBlocks));
   sublane_gather_kernel<<<grid, kGatherThreads, smem,
                           (cudaStream_t)stream>>>(
-      (const int*)idx, (const float*)tab, (float*)out, rows, S);
+      (const int4*)idx, (const float4*)tab, (float4*)out, rows, S);
   return (int)cudaGetLastError();
 }
 

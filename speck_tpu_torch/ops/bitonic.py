@@ -17,6 +17,14 @@ kernel's keys and payloads equal the plain version's.
 
 ``sort_plan`` is the host side of a launch: the tile width, the number of
 merge passes and the scratch planes the wrapper allocates.
+
+The kernel sorts power-of-two widths. A row of another width (the merge
+levels under a level factor that is not a power of two: 3 * 8192,
+3 * 65536) is padded on the card to the next power of two with INT32_MAX
+keys after its last slot and cut back after the sort: a stable sort keeps
+every real key, INT32_MAX ones included, before the pad, so keys and
+payloads equal the plain sort's. The pad costs the kernel the wider
+row's time (4/3 of the slots at 3 * 2^k) and two copies of the planes.
 """
 
 from __future__ import annotations
@@ -26,6 +34,8 @@ from typing import Dict, NamedTuple, Sequence, Tuple
 import torch
 
 from . import build
+
+INT32_MAX = 2 ** 31 - 1
 
 # launches of the CUDA kernel in this process (the plain version does not
 # count), in all and by (R, W, payloads)
@@ -43,13 +53,20 @@ class SortPlan(NamedTuple):
     scratch_shape: Tuple[int, ...]  # int32 (key, slot) planes, () for none
 
 
+def padded_width(W: int) -> int:
+    """The power-of-two width the kernel sorts a row of W slots at."""
+    return 1 << (W - 1).bit_length() if W > 1 else 1
+
+
 def sort_plan(R: int, W: int, n_payloads: int = 0) -> SortPlan:
-    """The launch of a (R, W) sort. The payloads ride on neither the tiles
-    nor the merges (each moves once at the end), so their number changes
-    nothing here. A single merge pass reads one (key, slot) plane pair and
-    writes the outputs; more passes alternate between two pairs."""
+    """The launch of a (R, W) sort (at ``padded_width(W)``). The payloads
+    ride on neither the tiles nor the merges (each moves once at the end),
+    so their number changes nothing here. A single merge pass reads one
+    (key, slot) plane pair and writes the outputs; more passes alternate
+    between two pairs."""
     if n_payloads > MAX_PAYLOADS:
         raise ValueError(f"row_sort: at most {MAX_PAYLOADS} payloads")
+    W = padded_width(W)
     tile = min(W, TILE)
     passes = (W // tile).bit_length() - 1
     scratch = (min(passes, 2), 2, R, W) if passes else ()
@@ -83,9 +100,8 @@ def _check(key, payloads):
     if key.dim() != 2 or key.dtype != torch.int32 or not key.is_contiguous():
         raise ValueError("row_sort: key must be a contiguous (R, W) int32 "
                          "tensor")
-    W = key.shape[1]
-    if W < 1 or W & (W - 1):
-        raise ValueError(f"row_sort: width {W} is not a power of two")
+    if key.shape[1] < 1:
+        raise ValueError("row_sort: rows must be at least 1 wide")
     if len(payloads) > MAX_PAYLOADS:
         raise ValueError(f"row_sort: at most {MAX_PAYLOADS} payloads")
     for p in payloads:
@@ -107,11 +123,15 @@ def row_sort(key: torch.Tensor, payloads: Sequence[torch.Tensor] = ()
     if key.device.type != "cuda":
         raise ValueError(f"row_sort: unsupported device {key.device}")
     R, W = key.shape
+    if R == 0:
+        return torch.empty_like(key), tuple(map(torch.empty_like, payloads))
+    Wp = padded_width(W)
+    if Wp != W:
+        key = _pad_cols(key, Wp, INT32_MAX)
+        payloads = tuple(_pad_cols(p, Wp, 0) for p in payloads)
     key_out = torch.empty_like(key)
     outs = tuple(torch.empty_like(p) for p in payloads)
-    if R == 0:
-        return key_out, outs
-    plan = sort_plan(R, W, len(payloads))
+    plan = sort_plan(R, Wp, len(payloads))
     scratch = (torch.empty(plan.scratch_shape, dtype=torch.int32,
                            device=key.device) if plan.merge_passes else None)
     pad = [None] * (MAX_PAYLOADS - len(payloads))
@@ -123,7 +143,7 @@ def row_sort(key: torch.Tensor, payloads: Sequence[torch.Tensor] = ()
     with torch.cuda.device(key.device):
         err = lib.speck_row_sort(
             key.data_ptr(), key_out.data_ptr(), *ins, *ptr_out,
-            len(payloads), R, W, plan.tile,
+            len(payloads), R, Wp, plan.tile,
             None if scratch is None else scratch.data_ptr(),
             torch.cuda.current_stream(key.device).cuda_stream)
     build.check(err, "row_sort launch")
@@ -131,4 +151,14 @@ def row_sort(key: torch.Tensor, payloads: Sequence[torch.Tensor] = ()
     LAUNCHES += 1
     shape = (R, W, len(payloads))
     LAUNCH_SHAPES[shape] = LAUNCH_SHAPES.get(shape, 0) + 1
+    if Wp != W:
+        return (key_out[:, :W].contiguous(),
+                tuple(p[:, :W].contiguous() for p in outs))
     return key_out, outs
+
+
+def _pad_cols(x, Wp: int, fill):
+    """``x`` (R, W) widened to (R, Wp) with ``fill`` after its last slot."""
+    R, W = x.shape
+    return torch.cat([x, torch.full((R, Wp - W), fill, dtype=x.dtype,
+                                    device=x.device)], dim=1)

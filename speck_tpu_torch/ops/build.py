@@ -36,11 +36,13 @@ _SIGNATURES = {
     # (col, val, last, sums, R, W, n_cols, scratch or null, stream)
     "speck_contract_runs": [_P, _P, _P, _P, _I64, _I64, ctypes.c_int, _P,
                             _P],
-    # the same two with double values and sums
-    "speck_stream_contract_f64": [_P, _P, _P, _P, _P, _I64, _I64,
-                                  ctypes.c_int, _P, _P],
-    "speck_contract_runs_f64": [_P, _P, _P, _P, _I64, _I64, ctypes.c_int, _P,
-                                _P],
+    # the same two with double, bfloat16 and half values and sums
+    **{f"speck_stream_contract_{t}": [_P, _P, _P, _P, _P, _I64, _I64,
+                                      ctypes.c_int, _P, _P]
+       for t in ("f64", "bf16", "f16")},
+    **{f"speck_contract_runs_{t}": [_P, _P, _P, _P, _I64, _I64, ctypes.c_int,
+                                    _P, _P]
+       for t in ("f64", "bf16", "f16")},
     # (key_in, key_out, p_in[3], p_out[3], n_payloads, R, W, tile,
     #  scratch, stream)
     "speck_row_sort": [_P, _P, _P, _P, _P, _P, _P, _P, ctypes.c_int, _I64,

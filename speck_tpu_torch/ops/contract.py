@@ -23,10 +23,16 @@ CUDA tensor it launches K3, the no-rid variant of the same CUDA kernel; on a
 CPU tensor it runs ``contract_runs_plain``, bit-identical to the JAX forms.
 Unlike the Pallas kernel it takes any width and any row count.
 
-Both take float32 or float64 values (the reference's ``double``
-instantiation): a float64 plane launches the kernels' ``double`` variant,
-whose look-back publishes each tile's aggregate and prefix in separate
-slots of a three-word record (``_scratch`` sizes it).
+Both take float16, bfloat16, float32 or float64 values. A float64 plane
+launches the kernels' ``double`` variant (the reference's ``double``
+instantiation), whose look-back publishes each tile's aggregate and prefix
+in separate slots of a three-word record (``_scratch`` sizes it). A 16-bit
+plane launches the ``__half`` or ``__nv_bfloat16`` variant: it loads 16
+bits a value, sums in float (float's look-back record) and stores 16 bits
+once. The plain versions do the same: a 16-bit plane is summed in float32
+and rounded once (``_sum_dtype``), which is more accurate than the
+reference's 16-bit doubling sums; both lie within the 16-bit bound of
+``utils/compare.bound16``.
 """
 
 from __future__ import annotations
@@ -45,17 +51,27 @@ LAUNCH_SHAPES: Dict[Tuple[int, int, str, str], int] = {}
 RUNS_LAUNCHES = 0
 RUNS_LAUNCH_SHAPES: Dict[Tuple[int, int, str], int] = {}
 
-VALUE_DTYPES = (torch.float32, torch.float64)
+VALUE_DTYPES = (torch.float16, torch.bfloat16, torch.float32, torch.float64)
+# the C entry points' suffix by value dtype
+_SUFFIX = {torch.float32: "", torch.float64: "_f64", torch.bfloat16: "_bf16",
+           torch.float16: "_f16"}
 
 # slots one CTA takes (kTile in csrc/stream_contract.cu)
 TILE = 4096
 
 
+def _sum_dtype(dtype):
+    """The type a contract sums ``dtype`` values in: float32 for the
+    16-bit types, else the type itself."""
+    return torch.float32 if dtype.itemsize == 2 else dtype
+
+
 def run_sums(val, first):
     """Segmented inclusive sums restarting at every ``first`` slot, by
-    Hillis-Steele doubling in the JAX forms' order."""
+    Hillis-Steele doubling in the JAX forms' order (16-bit values summed
+    in float32 and rounded once)."""
     W = val.shape[1]
-    v, f = val, first
+    v, f = val.to(_sum_dtype(val.dtype)), first
     d = 1
     while d < W:
         v_s = torch.cat([torch.zeros_like(v[:, :d]), v[:, :-d]], dim=1)
@@ -63,7 +79,7 @@ def run_sums(val, first):
         v = torch.where(f, v, v + v_s)
         f = f | f_s
         d <<= 1
-    return v
+    return v.to(val.dtype)
 
 
 def run_boundaries(col, n_cols: int):
@@ -107,8 +123,8 @@ def _check_col_val(col, val, what):
         raise ValueError(f"{what}: rows must be at least 1 wide")
     if (val.shape != col.shape or val.dtype not in VALUE_DTYPES
             or not val.is_contiguous()):
-        raise ValueError(f"{what}: val must be a contiguous (R, W) float32 "
-                         "or float64 tensor")
+        raise ValueError(f"{what}: val must be a contiguous (R, W) float16, "
+                         "bfloat16, float32 or float64 tensor")
     if val.device != col.device:
         raise ValueError(f"{what}: tensors on different devices")
 
@@ -136,13 +152,14 @@ def _check_kernel_inputs(what, *planes):
 
 def _scratch(col, dtype=torch.float32):
     """The kernel's scratch for col's (R, W), which the launcher clears:
-    the tile counter and a tile's status (one word for float32 values, a
-    record of three for float64); None where W divides the tile, since
-    every tile then starts at a row head and needs no carry."""
+    the tile counter and a tile's status (one word for float sums, of
+    float32 and 16-bit values, a record of three for float64); None where
+    W divides the tile, since every tile then starts at a row head and
+    needs no carry."""
     R, W = col.shape
     if TILE % W == 0:
         return None
-    words = 1 if dtype == torch.float32 else 3
+    words = 3 if dtype == torch.float64 else 1
     return torch.empty(1 + words * -(-R * W // TILE), dtype=torch.int64,
                        device=col.device)
 
@@ -168,8 +185,7 @@ def stream_contract(rid, col, val, n_cols: int):
                          *(() if per_row else (rid,)))
     scratch = _scratch(col, val.dtype)
     lib = build.library()
-    fn = (lib.speck_stream_contract if val.dtype == torch.float32
-          else lib.speck_stream_contract_f64)
+    fn = getattr(lib, "speck_stream_contract" + _SUFFIX[val.dtype])
     # the launch runs on the tensors' card (the current device is the
     # launcher's, which a mesh over several cards does not set)
     with torch.cuda.device(col.device):
@@ -202,8 +218,7 @@ def contract_runs(col, val, n_cols: int):
     _check_kernel_inputs("contract_runs", col, val)
     scratch = _scratch(col, val.dtype)
     lib = build.library()
-    fn = (lib.speck_contract_runs if val.dtype == torch.float32
-          else lib.speck_contract_runs_f64)
+    fn = getattr(lib, "speck_contract_runs" + _SUFFIX[val.dtype])
     with torch.cuda.device(col.device):
         err = fn(
             col.data_ptr(), val.data_ptr(), last.data_ptr(),

@@ -18,9 +18,9 @@ and independent of cancellation. A rank sort (kernel K2,
 ``bitonic.row_sort``) moves each row's present entries to its front in
 column order. ``dense_emit`` scatters a batch's staged rows into C;
 ``dense_gather_emit`` gathers them when the tiles cover every row in
-order. Every K2 width here is padded to a power of two with ``INT32_MAX``
-keys and the pad cut off afterwards (``esc._sort_rows``); float64 values
-move by their sorted slot.
+order. K2 pads every width here that is not a power of two with
+``INT32_MAX`` keys and cuts the pad off (``bitonic.row_sort``); float64
+and 16-bit values move by their sorted slot.
 
 Requires canonical A and B, as the reference does; the planner gates on
 it.
@@ -218,11 +218,15 @@ def _densify_sorted(loc, val, width: int):
 
 def _full_precision_bmm(a, b):
     """``torch.bmm`` with TF32 off whatever the process set: the
-    counterpart of the reference's ``Precision.HIGHEST``."""
+    counterpart of the reference's ``Precision.HIGHEST``. Mixed value
+    types multiply in their promoted type, as the reference's einsum
+    does (bfloat16 times float32 is float32); 16-bit products accumulate
+    in float32 and round once."""
+    dt = torch.promote_types(a.dtype, b.dtype)
     prev = torch.get_float32_matmul_precision()
     torch.set_float32_matmul_precision("highest")
     try:
-        return torch.bmm(a, b)
+        return torch.bmm(a.to(dt), b.to(dt))
     finally:
         torch.set_float32_matmul_precision(prev)
 
@@ -308,7 +312,8 @@ def dense_emit(r0s, counts, cols_c, vals_c, row_offsets, c_cols, c_vals, *,
     base = row_offsets[torch.where(vrow, rows, 0)]
     flat = torch.where(live, base[:, None] + t, c_cols.shape[0] - 1)
     c_cols.index_put_((flat,), cols_c.reshape(-1, cw)[:, :ec])
-    c_vals.index_put_((flat,), vals_c.reshape(-1, cw)[:, :ec])
+    c_vals.index_put_((flat,), vals_c.reshape(-1, cw)[:, :ec].to(
+        c_vals.dtype))
     return c_cols, c_vals
 
 

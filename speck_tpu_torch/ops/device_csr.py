@@ -18,8 +18,16 @@ import torch
 from ..formats.csr import HostCSR
 from ..utils.device import resolve_device
 
-_NP_TO_TORCH = {np.dtype(np.float32): torch.float32,
+_NP_TO_TORCH = {np.dtype(np.float16): torch.float16,
+                np.dtype(np.float32): torch.float32,
                 np.dtype(np.float64): torch.float64}
+
+
+def host_numpy(t: torch.Tensor) -> np.ndarray:
+    """A tensor on the host as numpy; bfloat16, which numpy lacks, as the
+    float32 holding the same values."""
+    t = t.detach().cpu()
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
 
 
 def torch_dtype(dtype) -> torch.dtype:
@@ -105,11 +113,12 @@ def device_put_csr(m: HostCSR, dtype=torch.float32, device="cuda",
 
 
 def device_get_csr(m: DeviceCSR) -> HostCSR:
-    """Download a DeviceCSR to a host CSR (one device->host copy each)."""
+    """Download a DeviceCSR to a host CSR (one device->host copy each;
+    bfloat16 values arrive as float32, ``host_numpy``)."""
     return HostCSR(
         rows=m.shape[0],
         cols=m.shape[1],
         row_offsets=m.indptr.cpu().numpy(),
         col_ids=m.indices[: m.nnz].cpu().numpy(),
-        data=m.data[: m.nnz].cpu().numpy(),
+        data=host_numpy(m.data[: m.nnz]),
     )

@@ -29,8 +29,18 @@ canonical input are unique, so the sums are exact and order-free). The
 convolutions are in-place ``addcmul_`` over plane slices in the
 reference's order of summation; only FMA contraction may differ. The rank
 compaction is one scatter of unique indices for both the counting and the
-numeric pass: it equals the reference's rank sort on every present slot
-(absent slots hold col ``n_cols`` and value 0 and are never emitted).
+numeric pass, the reference's ``impl="scatter"`` form: it equals the
+reference's rank sort (``impl="sort"``) on every slot (absent slots hold
+col ``n_cols`` and value 0 and are never emitted), so both settings of
+``stream_compact_impl`` stage the same planes here.
+
+Value types as in the reference: the planes keep each operand's type,
+the contiguous convolution accumulates in A's type and raises TypeError
+where the product's promoted type is wider (the reference's
+``dynamic_update_slice`` refuses it: a 16-bit A times a wider B, or
+float32 times float64), and the sparse convolution's planes take the
+promoted type. 16-bit planes convolve in their own type, as the
+reference's ``jnp`` does.
 Unlike the reference, ``sdia_conv`` runs each pair over all rows at once:
 the row blocking there only bounded XLA's compile-time temporaries.
 """
@@ -150,6 +160,11 @@ def dia_conv(a_val, a_hit, b_val, b_hit, *, sa: int, sb: int, m: int,
     slices in the reference's j1 order. The B planes are first shifted by
     dmin_a (zero pad and slice), so B row i + dmin_a + j1 is column j1 + i.
     Returns (C_val (sc, m), C_cnt (sc, m) or None)."""
+    if torch.promote_types(a_val.dtype, b_val.dtype) != a_val.dtype:
+        raise TypeError(
+            f"the diagonal convolution accumulates in A's {a_val.dtype} "
+            f"and cannot take {b_val.dtype} products (speck_tpu raises "
+            "here too)")
     sc = sa + sb - 1
     wt = m + sa - 1          # shifted-plane width
     pad_l = max(0, -dmin_a)
@@ -238,7 +253,8 @@ def sdia_conv(a_val, a_hit, b_val, b_hit, *, off_a: tuple, off_b: tuple,
                 c[oc].addcmul_(a[ia], bp[ib, s0: s0 + m])
         return c
 
-    c_val = conv(a_val, b_val, a_val.dtype)
+    c_val = conv(a_val, b_val, torch.promote_types(a_val.dtype,
+                                                   b_val.dtype))
     c_cnt = conv(a_hit, b_hit, torch.float32) if with_hit else None
     return c_val, c_cnt
 
@@ -277,7 +293,9 @@ def _rank_compact(cvT, present, *, sc: int, m: int, n_cols: int,
     """Each row's present entries moved to the front in diagonal order
     (ascending column order within a row), as one scatter to i * sc +
     rank; the rest hold col ``n_cols`` and value 0. ``doffs`` (sparse
-    DIA): per-plane diagonal offsets in place of base_c + e."""
+    DIA): per-plane diagonal offsets in place of base_c + e. This is the
+    reference's ``impl="scatter"``; its rank sort (``impl="sort"``)
+    stages the same planes, so every ``stream_compact_impl`` runs it."""
     dev = present.device
     e = torch.arange(sc, dtype=I32, device=dev)[None, :]
     i = torch.arange(m, dtype=I32, device=dev)[:, None]
@@ -347,7 +365,7 @@ def dia_scatter_emit(cvT, present, row_offsets, c_cols, c_vals, *,
     flat = torch.where(present, row_offsets[:-1][:, None] + rank,
                        c_cols.shape[0] - 1).reshape(-1)
     c_cols[flat] = (i + base_c + e).to(I32).reshape(-1)
-    c_vals[flat] = cvT.reshape(-1)
+    c_vals[flat] = cvT.reshape(-1).to(c_vals.dtype)
     return c_cols, c_vals
 
 

@@ -8,18 +8,20 @@ key sort and a doubling forward fill), sort each row by column, contract
 equal-column runs (``_contract``: kernel K3, ``contract.contract_runs``)
 and move the run totals to the front (``_compact_by_rank``). Every row sort
 is kernel K2 (``bitonic.row_sort``, a stable radix sort: equal keys keep
-their slot order, as in the JAX sorts), padded to the next power of two
-with ``INT32_MAX`` keys so that any ``cap`` works.
+their slot order, as in the JAX sorts), which takes any width, so any
+``cap`` works.
 ``direct_chunk`` fills single-A-nonzero rows: C row = valA * B row, already
 sorted, a gather plus a masked scatter with no expansion or sort.
 ``pack_csr_arrays`` interleaves (col id, value bits) into one (nnz, 2)
 int32 record, so each product's B read is one 8-byte gather.
 
-``esc_fixed`` takes float32 or float64 values, as the reference's
-dtype-generic form does. K2 carries 32-bit payloads, so a float64 plane
-moves by its sorted slot (``bitonic.slot_payload``), the owner fill
-carries each product's A index instead of its value bits, and K3 runs its
-``double`` variant.
+``esc_fixed`` takes float16, bfloat16, float32 and float64 values, mixed
+too, as the reference's dtype-generic form does: the products promote
+(bfloat16 times float32 is float32) and C takes their type. K2 carries
+32-bit payloads, so a 16-bit or float64 plane moves by its sorted slot
+(``bitonic.slot_payload``), the owner fill carries each product's A index
+instead of its value bits, and K3 runs its ``__half``, ``__nv_bfloat16``
+or ``double`` variant.
 """
 
 from __future__ import annotations
@@ -27,16 +29,19 @@ from __future__ import annotations
 import torch
 
 from . import bitonic
-from .contract import contract_runs
+from .contract import VALUE_DTYPES, contract_runs
 from .contract import run_boundaries as _run_boundaries  # noqa: F401
 from .contract import run_sums as _run_sums  # noqa: F401
-
-INT32_MAX = 2 ** 31 - 1
 
 
 def pack_csr_arrays(indices: torch.Tensor, data: torch.Tensor
                     ) -> torch.Tensor:
-    """(nnz, 2) int32 record of (col id, float32 value bits)."""
+    """(nnz, 2) int32 record of (col id, float32 value bits). Other value
+    types raise TypeError, where the reference's bitcast to int32 raises
+    (the dense tiles' B of a float32 A, the mesh stream's 16-bit B)."""
+    if data.dtype.itemsize != 4:
+        raise TypeError(f"the packed record holds 32-bit values, not "
+                        f"{data.dtype} (speck_tpu raises here too)")
     return torch.stack([indices.to(torch.int32),
                         data.contiguous().view(torch.int32)], dim=-1)
 
@@ -68,28 +73,16 @@ def direct_chunk(rows_padded, start: int, valid: int, a_indptr, a_indices,
     oob = c_cols.shape[0] - 1
     flat = torch.where(valid_t, row_offsets[r][:, None] + t, oob)
     c_cols.index_put_((flat,), b_indices[src])
-    c_vals.index_put_((flat,), aval[:, None] * b_data[src])
+    c_vals.index_put_((flat,), (aval[:, None] * b_data[src]).to(c_vals.dtype))
     return c_cols, c_vals
 
 
 def _sort_rows(key, payloads):
     """Each row of ``key`` sorted ascending and stably, ``payloads``
-    permuted alike, through K2 at the next power-of-two width
-    (``INT32_MAX`` keys pad the row after its real slots and are cut off
-    after the sort; a stable sort keeps them behind any real key equal to
-    them)."""
-    R, W = key.shape
-    Wp = 1 << (W - 1).bit_length()
-    if Wp != W:
-        pad = (R, Wp - W)
-        key = torch.cat([key, torch.full(pad, INT32_MAX, dtype=key.dtype,
-                                         device=key.device)], dim=1)
-        payloads = [torch.cat([p, torch.zeros(pad, dtype=p.dtype,
-                                              device=p.device)], dim=1)
-                    for p in payloads]
-    key_s, pay_s = bitonic.row_sort(key.contiguous(),
-                                    [p.contiguous() for p in payloads])
-    return key_s[:, :W], tuple(p[:, :W] for p in pay_s)
+    permuted alike, through K2 (which pads a width that is not a power of
+    two with ``INT32_MAX`` keys and cuts the pad off)."""
+    return bitonic.row_sort(key.contiguous(),
+                            [p.contiguous() for p in payloads])
 
 
 def _take(x, idx):
@@ -220,12 +213,9 @@ def esc_fixed(a_indptr, a_indices, a_data, b_start, b_len, b_indices, b_data,
     length.
     """
     for x in (a_data, b_data):
-        if x.dtype not in (torch.float32, torch.float64):
-            raise ValueError(f"esc_fixed: values must be float32 or "
-                             f"float64, not {x.dtype}")
-    if a_data.dtype != b_data.dtype:
-        raise ValueError(f"esc_fixed: mixed value dtypes ({a_data.dtype} "
-                         f"and {b_data.dtype})")
+        if x.dtype not in VALUE_DTYPES:
+            raise TypeError(f"esc_fixed: values must be float16, bfloat16, "
+                            f"float32 or float64, not {x.dtype}")
     m = a_indptr.shape[0] - 1
     dev = a_indptr.device
     rows = torch.arange(m, dtype=torch.int32, device=dev)

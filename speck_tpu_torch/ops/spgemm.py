@@ -32,13 +32,19 @@ early gate, the wide-row totals, the nnz and widest row; on the DIA routes
 the diagonal bitmap and the meta) and adds none: no boolean-mask
 indexing, ``.nonzero()`` or ``.item()`` on the device path.
 
-float32 and float64 values run every route; float64 takes the
-reference's unpacked B gathers on the stream (``stream.Unpacked``). A
-call past ``block_products`` runs as row blocks (``_spgemm_blocked``).
-``check_supported`` raises ``NotImplementedError`` for the TPU A/B knobs
-(the multi-device mesh is a separate entry point, ``parallel/``). The
-contract and the row sorts always run the hand-written kernels on a CUDA
-device (ops/contract.py, ops/bitonic.py).
+Values of float16, bfloat16, float32 and float64, alike or mixed, run
+as in the reference: a float32 A packs B's values as float32 on the
+stream (float32 out); a 16-bit or float64 A takes the unpacked B gathers
+(``stream.Unpacked``) and the products' promoted type (bfloat16 times
+float32 is float32). Where the reference raises, the port raises
+TypeError: the dense tiles of a float32 A times a B of another type (the
+packed record, ``esc.pack_csr_arrays``) and the contiguous diagonal
+convolution of an A narrower than the products (``dia.dia_conv``). A call
+past ``block_products`` runs as row blocks (``_spgemm_blocked``). The
+reference's A/B knobs all run (ops/stream.py); ``check_knobs`` raises
+ValueError only for values the reference does not name. The contract and
+the row sorts always run the hand-written kernels on a CUDA device
+(ops/contract.py, ops/bitonic.py).
 """
 
 from __future__ import annotations
@@ -55,6 +61,7 @@ from ..utils.config import ProductOverflow, SpgemmConfig
 from ..utils.timings import StageTimer, Timings, sync_tensors
 from .analysis import (analyze, cumsum1d, host_analyze, host_band_extremes,
                        host_gate_lite)
+from .contract import VALUE_DTYPES
 from .dense import dense_emit, dense_gather_emit, dense_tiles
 from .device_csr import DeviceCSR, host_of
 from .dia import (
@@ -80,7 +87,10 @@ from .dia import (
 )
 from .esc import direct_chunk, pack_csr_arrays, packable
 from .stream import (
+    COMPACT_IMPLS,
+    EXPAND_IMPLS,
     N_QCLASS,
+    SORT_IMPLS,
     N_WSEG_PACK,
     LevelPlan,
     StreamLayout,
@@ -118,38 +128,29 @@ def _bucket_rows(count: int, full: int) -> int:
     return max(1, min(full, pow4))
 
 
-def _unported(what: str):
-    return NotImplementedError(f"{what} is not ported to speck_tpu_torch "
-                               "yet (see ROADMAP.md)")
-
-
 def check_supported(cfg: SpgemmConfig, A: DeviceCSR, B: DeviceCSR) -> None:
-    """Raise NotImplementedError for inputs and knobs the port does not
-    run, instead of ignoring them: value dtypes other than float32 and
-    float64, mixed dtypes and the TPU A/B knobs."""
+    """Raise TypeError for value types that are not floating point of 16,
+    32 or 64 bits (each operand may have its own), and check the knobs."""
     for X in (A, B):
-        if X.data.dtype not in (torch.float32, torch.float64):
-            raise _unported(f"{X.data.dtype} values")
-    if A.data.dtype != B.data.dtype:
-        raise _unported(f"mixed value dtypes ({A.data.dtype} and "
-                        f"{B.data.dtype})")
+        if X.data.dtype not in VALUE_DTYPES:
+            raise TypeError(f"values must be float16, bfloat16, float32 or "
+                            f"float64, not {X.data.dtype}")
     check_knobs(cfg)
 
 
 def check_knobs(cfg: SpgemmConfig) -> None:
-    """Raise NotImplementedError for the TPU A/B knobs (the port has only
-    their defaults); the mesh checks them too."""
-    if cfg.stream_expand_impl != "fill":
-        raise _unported(f"StreamExpandImpl={cfg.stream_expand_impl!r}")
-    if cfg.stream_compact_impl != "sort":
-        raise _unported(f"StreamCompactImpl={cfg.stream_compact_impl!r}")
-    if cfg.stream_sort_impl != "auto":
-        raise _unported(f"StreamSortImpl={cfg.stream_sort_impl!r} (the port "
-                        "always runs its row-sort kernel)")
-    f = cfg.stream_level_factor
-    if f < 2 or f & (f - 1):
-        raise _unported(f"StreamLevelFactor={f} (merge-level widths must "
-                        "stay powers of two)")
+    """Raise ValueError for an A/B knob value that the reference does not
+    name, or a merge-level factor below 2 (the reference's ladder never
+    ends there); the mesh checks them too."""
+    for name, allowed in (("stream_sort_impl", SORT_IMPLS),
+                          ("stream_compact_impl", COMPACT_IMPLS),
+                          ("stream_expand_impl", EXPAND_IMPLS)):
+        if getattr(cfg, name) not in allowed:
+            raise ValueError(f"{name}={getattr(cfg, name)!r}: one of "
+                             f"{', '.join(allowed)}")
+    if cfg.stream_level_factor < 2:
+        raise ValueError(f"stream_level_factor={cfg.stream_level_factor}: "
+                         "merge levels need a factor of at least 2")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -218,6 +219,10 @@ class StreamState:
     sid_bases: torch.Tensor     # (n_chunks,) A slots with p0 < chunk start
     pack_bits: int
     fused: bool
+    # each sorted row's live product end (-1 for none), for the decode
+    # expand (stream_expand_impl="decode"); None under "fill"
+    rowend: Optional[torch.Tensor] = None
+    rowend2: Optional[torch.Tensor] = None
     staged: Optional[list] = None       # per-chunk (rid, col, val, counts)
     level_bufs: Optional[list] = None   # per-level (rid, col, val, counts)
     wide_rid_in: Optional[torch.Tensor] = None
@@ -385,7 +390,8 @@ class SpgemmPlan:
                             c_vals, c * CP, ss.sid_bases[c],
                             ss.n_accum + lo.n_wide, G=Gc, W=W,
                             n_cols=n, pack_bits=ss.pack_bits,
-                            stage_wide=has_wide, window=CP)
+                            stage_wide=has_wide, window=CP,
+                            rowend=ss.rowend, **_knobs(self.cfg))
                         if stg is not None:
                             wide_staged.append(stg)
                     if reuse_levels:
@@ -393,7 +399,8 @@ class SpgemmPlan:
                     else:
                         level_bufs = _run_wide(
                             ss, wide_staged, None, n, count=False,
-                            max_width=self.cfg.stream_max_width)[1]
+                            max_width=self.cfg.stream_max_width,
+                            **_knobs(self.cfg, expand=False))[1]
                 for rid_out, col_c, val_c, fcnt in level_bufs:
                     rid_b = rid_out[:, None].expand(col_c.shape)
                     c_cols, c_vals = stream_emit(
@@ -403,8 +410,9 @@ class SpgemmPlan:
                 if use_staged and ss.accum_bufs is not None:
                     accum_bufs = ss.accum_bufs
                 else:
-                    accum_bufs = _run_accum(ss, A, B, None, n,
-                                            count=False)[1]
+                    accum_bufs = _run_accum(
+                        ss, A, B, None, n, count=False,
+                        expand_impl=self.cfg.stream_expand_impl)[1]
                 for rid_out, col_c, val_c, fcnt in accum_bufs:
                     rid_b = rid_out[:, None].expand(col_c.shape)
                     c_cols, c_vals = stream_emit(
@@ -510,23 +518,34 @@ class SpgemmPlan:
                          data=c_vals, shape=(m, n), nnz=self.nnz)
 
 
+def _knobs(cfg: SpgemmConfig, expand: bool = True) -> dict:
+    """The stream's A/B knobs as keywords of its chunk (``expand``) and
+    level passes."""
+    kw = dict(sort_impl=cfg.stream_sort_impl,
+              compact_impl=cfg.stream_compact_impl)
+    if expand:
+        kw["expand_impl"] = cfg.stream_expand_impl
+    return kw
+
+
 def _stream_operands(A: DeviceCSR, B: DeviceCSR, src, sa=None):
-    """The expand stage's record channel and B operand: for float32, A's
-    value bits (``sa``, else gathered by the A-source map ``src``) and the
-    packed (col, value bits) B record; for float64, the A-source map
-    itself and the unpacked operands (the reference's branch on
-    ``packable``)."""
+    """The expand stage's record channel and B operand: for a float32 A,
+    A's value bits (``sa``, else gathered by the A-source map ``src``) and
+    the packed (col, value bits) B record with B's values cast to float32,
+    as the reference packs them; for any other A, the A-source map itself
+    and the unpacked operands (the reference's branch on ``packable``)."""
     if packable(A.data):
         if sa is None:
             sa = A.data.contiguous().view(I32)[src]
-        return sa, pack_csr_arrays(B.indices, B.data)
+        return sa, pack_csr_arrays(B.indices, B.data.to(torch.float32))
     return src, Unpacked(A.data, B.indices, B.data)
 
 
 def _dense_operands(A: DeviceCSR, B: DeviceCSR):
     """The dense tiles' packed (col, value bits) records of A and B
-    (shared when B is A), or (None, None) for float64 values, which the
-    tiles gather unpacked."""
+    (shared when B is A), or (None, None) for an A of 16 or 64 bits,
+    whose tiles gather unpacked. A float32 A packs B as it is, so a B of
+    another type raises TypeError there, as in the reference."""
     if not packable(A.data):
         return None, None
     apk = pack_csr_arrays(A.indices, A.data)
@@ -579,7 +598,8 @@ def _finish_classes(totals: np.ndarray, rid_live: np.ndarray, device):
 
 
 def _run_wide(ss: StreamState, wide_staged, nnz_row, n_cols: int,
-              count: bool, max_width: int):
+              count: bool, max_width: int, sort_impl: str = "auto",
+              compact_impl: str = "sort"):
     """Finish the wide rows: merge levels until every remaining row's
     deduplicated entry total fits ``max_width`` (one small readback of
     the totals per level while deciding), then one sort at each row's
@@ -633,7 +653,8 @@ def _run_wide(ss: StreamState, wide_staged, nnz_row, n_cols: int,
                         f["entry_excl"], f["row_total"], f["rid_of_out"],
                         nnz_row, R2=f["R2"], W2=f["W2"],
                         W0=ss.finish["W_in"], E_pad=f["E_pad"],
-                        n_cols=n_cols, count=count)
+                        n_cols=n_cols, count=count, sort_impl=sort_impl,
+                        compact_impl=compact_impl)
                     bufs.append(buf)
             break
         if li >= len(ss.lplans):
@@ -643,7 +664,8 @@ def _run_wide(ss: StreamState, wide_staged, nnz_row, n_cols: int,
             ss.rows_sorted, rid_in, wcol, wval, wcnt,
             torch.as_tensor(lp.in_map, device=dev),
             torch.as_tensor(lp.final_mask, device=dev), nnz_row, F=lp.F,
-            W_in=lp.W_in, n_cols=n_cols, count=count)
+            W_in=lp.W_in, n_cols=n_cols, count=count, sort_impl=sort_impl,
+            compact_impl=compact_impl)
         # the same rid_out on the host, from the host rid_in
         src = np.clip(lp.in_map, 0, max(rid_in_h.shape[0] - 1, 0))
         rid_out_h = np.where(lp.in_map >= 0, rid_in_h[src], -1).max(axis=1)
@@ -716,7 +738,7 @@ def _plan_accum(a_hist: np.ndarray, a_psum: np.ndarray, budget: int):
 
 
 def _run_accum(ss: StreamState, A: DeviceCSR, B: DeviceCSR, nnz_row,
-               n_cols: int, count: bool, sa=None):
+               n_cols: int, count: bool, sa=None, expand_impl: str = "fill"):
     """Drive the accumulator region: per part, every chunk's products
     scatter-add into their rows' span windows (stream_chunk_accum), then
     each span class finalizes into staged compacted rows. ``sa`` is the
@@ -746,7 +768,8 @@ def _run_accum(ss: StreamState, A: DeviceCSR, B: DeviceCSR, nnz_row,
             acc, pres = stream_chunk_accum(
                 ss.e2, ss.p02, ss.su2, sa_ch, ss.pend2, b_rec, ss.abase,
                 ss.cmin_s, acc, pres, c * CP, ss.sid_bases2[c],
-                part["row_lo"], part["row_hi"], G=G, W=W, n_cols=n_cols)
+                part["row_lo"], part["row_hi"], G=G, W=W, n_cols=n_cols,
+                rowend2=ss.rowend2, expand_impl=expand_impl)
         acc = acc.to(A.data.dtype)
         for R_pad, S, off, rid in part["classes"]:
             nnz_row, buf = accum_finalize(
@@ -1299,6 +1322,9 @@ def plan_spgemm(A: DeviceCSR, B: DeviceCSR,
             wide_rid_in_h=wide_rid_h,
             dense_elig=n_elig if use_dense and max_tiles > 0 else None,
             n_accum=n_accum)
+        decode = cfg.stream_expand_impl == "decode"
+        if decode:
+            ss.rowend = torch.where(q_sorted > 0, e + ops_sorted, -1)
         if n_accum and total_p2:
             # the accumulator's chunks take the stream's full budget (a
             # short stream would otherwise cut them to its own size)
@@ -1312,6 +1338,8 @@ def plan_spgemm(A: DeviceCSR, B: DeviceCSR,
             ss.e2, ss.p02, ss.su2, ss.sa2 = e2, p02, su2, sa2
             ss.pend2, ss.src2 = pend2, src2
             ss.sid_bases2 = torch.searchsorted(p02, cks, out_int32=True)
+            if decode:
+                ss.rowend2 = torch.where(q2_sorted > 0, e2 + q2_sorted, -1)
             ss.cmin_s = cmin_sorted
             ss.abase = torch.as_tensor(abase_h, device=dev)
             for part in accum_parts:
@@ -1379,17 +1407,19 @@ def plan_spgemm(A: DeviceCSR, B: DeviceCSR,
                     rows_sorted, e, q_sorted, el, ops_sorted, p0, su, sa_ch,
                     pend, b_rec, nnz_row, c * CP, sid_bases[c], G=Gc,
                     W=W, n_cols=n, pack_bits=pack_bits,
-                    stage=fused or has_wide, stage_raw=stage_raw, window=CP)
+                    stage=fused or has_wide, stage_raw=stage_raw, window=CP,
+                    rowend=ss.rowend, **_knobs(cfg))
                 staged.append(stg)
             nw_chunks = -(-layout.r_wide // G) if layout.r_wide else 0
             nnz_row, level_bufs = _run_wide(
                 ss, staged[:nw_chunks], nnz_row, n, count=True,
-                max_width=cfg.stream_max_width)
+                max_width=cfg.stream_max_width, **_knobs(cfg, expand=False))
             ss.staged = staged if fused else None
             ss.level_bufs = level_bufs
         if ss.accum:
-            nnz_row, ss.accum_bufs = _run_accum(ss, A, B, nnz_row, n,
-                                                count=True, sa=ss.sa2)
+            nnz_row, ss.accum_bufs = _run_accum(
+                ss, A, B, nnz_row, n, count=True, sa=ss.sa2,
+                expand_impl=cfg.stream_expand_impl)
         st.stop(nnz_row)
 
     with StageTimer(timings, "allocC", track):
@@ -1402,8 +1432,9 @@ def plan_spgemm(A: DeviceCSR, B: DeviceCSR,
         if ss.staged is not None and raw_chunks and nnz != sp_exact:
             for c in raw_chunks:
                 rid_r, col_r, val_r, counts_r = ss.staged[c]
-                ss.staged[c] = compact_staged(rid_r, col_r, val_r,
-                                              counts_r, n_cols=n)
+                ss.staged[c] = compact_staged(
+                    rid_r, col_r, val_r, counts_r, n_cols=n,
+                    compact_impl=cfg.stream_compact_impl)
 
     return SpgemmPlan(A=A, B=B, cfg=cfg, row_offsets=row_offsets, nnz=nnz,
                       sum_products=stats.sum_products, stream=ss,

@@ -36,16 +36,40 @@ out-of-range indices and wraps negative ones. The reference's run-length
 decodes (boundary scatter-adds + cumsum) and forward fills are binary
 searches over the sorted boundary arrays here (``torch.searchsorted``):
 the same values, without the scatter-adds that torch serializes on
-repeated indices. Only the default variants are here: the "fill" expand
-semantics and sort-based compaction.
+repeated indices.
 
-float64 values take the reference's unpacked form: the expand gathers B's
-columns and values apart and A's value through the A-source map that rides
-the record channel (``Unpacked``). K2 carries 32-bit payloads, so every
-sort moves a float64 plane by its sorted slot: the slot index rides as the
-payload and the values are gathered after the sort (``bitonic.by_slot``).
-When the packed key would overflow int32 (``pack_bits == 0``), the chunk
-sort is two stable K2 passes, by column and then by row.
+The reference's four A/B knobs (``SpgemmConfig.stream_*``) all run:
+
+  stream_expand_impl   "fill" (default): each slot's A-slot record is the
+                       last record start at or before it, live while t is
+                       below the record's product end; "decode": the same
+                       record by a per-slot decode, live while t is below
+                       the row's end (``rowend``);
+  stream_compact_impl  "sort" (default): one K2 rank sort; "scatter":
+                       three flat scatters to g * W + rank (unique
+                       targets, so deterministic), dead slots filled with
+                       (INT_MAX, INT_MAX, 0);
+  stream_sort_impl     "auto", "xla", "blocked", "bitonic",
+                       "bitonic_pallas": every one computes the same
+                       function (rows sorted by key), which is K2 on the
+                       card (a stable radix sort, the port of both
+                       bitonic.bitonic_sort_pairs_pallas and
+                       blocked_sort_pairs) and the plain stable sort on the
+                       CPU; ``_resolve_sort`` records the name the
+                       reference would resolve (``SORT_RESOLVED``);
+  stream_level_factor  any F >= 2: merge levels at F * W_in, which K2
+                       sorts padded to a power of two where F is not one.
+
+Values: float32 takes the packed (col, value bits) B record. float64 and
+the 16-bit types take the reference's unpacked form: the expand gathers
+B's columns and values apart and A's value through the A-source map that
+rides the record channel (``Unpacked``); products promote as in the
+reference (bfloat16 times float32 is float32). K2 carries 32-bit payloads,
+so every sort moves a non-32-bit plane by its sorted slot: the slot index
+rides as the payload and the values are gathered after the sort
+(``bitonic.by_slot``). When the packed key would overflow int32
+(``pack_bits == 0``), the chunk sort is two stable K2 passes, by column and
+then by row.
 """
 
 from __future__ import annotations
@@ -68,6 +92,17 @@ I32 = torch.int32
 N_QCLASS = 32
 # wide-row segment counts shipped in the planning pack
 N_WSEG_PACK = 512
+
+# the reference's accepted values of the A/B knobs (the first is the
+# default)
+SORT_IMPLS = ("auto", "xla", "blocked", "bitonic", "bitonic_pallas")
+COMPACT_IMPLS = ("sort", "scatter")
+EXPAND_IMPLS = ("fill", "decode")
+# width at which the reference's "auto" resolves to its blocked merge sort
+_BLOCKED_SORT_MIN_W = 1 << 20
+# sorts by the name the reference resolves the knob to at their width
+# (every one runs K2 on the card): {name: count}
+SORT_RESOLVED: dict = {}
 
 
 def _arange(n: int, device) -> torch.Tensor:
@@ -629,9 +664,9 @@ def _decode(boundary_pos, t):
 
 
 class Unpacked(NamedTuple):
-    """float64 operands of the expand stage: A's values (read through the
-    A-source map on the record channel) and B's columns and values,
-    gathered apart (a float64 value does not fit the packed record)."""
+    """float64 and 16-bit operands of the expand stage: A's values (read
+    through the A-source map on the record channel) and B's columns and
+    values, gathered apart (only a float32 A takes the packed record)."""
 
     a_data: torch.Tensor
     b_indices: torch.Tensor
@@ -640,16 +675,23 @@ class Unpacked(NamedTuple):
 
 def _expand_chunk(e, p0, su, sa, pend, b_packed, chunk_start: int,
                   sid_base, G: int, W: int, n_cols: int,
-                  window: Optional[int] = None):
+                  window: Optional[int] = None, rowend=None,
+                  expand_impl: str = "fill"):
     """The expand stage for chunk [chunk_start, chunk_start + G*W): each
     slot's sorted row (the last row start e <= t) and its A-slot record
     (the last record start p0 <= t, which is the reference's forward fill
     from the record starts, the winner among equal starts included), live
     while t < that record's pend; then one packed B-record gather per
     live product. ``b_packed`` is the (nnz, 2) int32 record of float32
-    values with ``sa`` the A value bits, or ``Unpacked`` float64 operands
-    with ``sa`` the A-source map. Returns (rid, col, val); dead slots carry
+    values with ``sa`` the A value bits, or ``Unpacked`` operands with
+    ``sa`` the A-source map. Returns (rid, col, val); dead slots carry
     col = n_cols and val = 0.
+
+    ``expand_impl="decode"`` (the reference's round-2 form) decodes every
+    slot's record from all of ``p0`` and kills slots at t >= rowend[rid]
+    (``rowend``: each sorted row's live product end, -1 for none) instead
+    of at the record's product end; the records and products are the
+    same.
 
     ``window`` (default G * W) is the slots of the plan's full chunk: the
     records are read from a window of window + 2 of them, which holds
@@ -662,18 +704,25 @@ def _expand_chunk(e, p0, su, sa, pend, b_packed, chunk_start: int,
     t = chunk_start + _arange(CP, dev).reshape(G, W)
     rid = _decode(e, t)
     nnzA = su.shape[0]
-    K = min(nnzA, (window or CP) + 2)
-    # window of the records that can intersect this chunk (kept p0 is
-    # strictly increasing) plus the run straddling its start
-    if K < nnzA:
-        widx = torch.clamp(sid_base - 1, 0, nnzA - K) + _arange(K, dev)
-        p0w, uw, aw, pw = p0[widx], su[widx], sa[widx], pend[widx]
+    if expand_impl == "decode":
+        uw, aw = su, sa
+        rec = _decode(p0, t)
+        m = rowend.shape[0]
+        live = (rec >= 0) & (t < rowend[torch.clamp(rid, 0, m - 1)])
+        rec = torch.clamp(rec, 0, nnzA - 1)
     else:
-        p0w, uw, aw, pw = p0, su, sa, pend
-    rec = _decode(p0w, t)
-    has = rec >= 0
-    rec = torch.clamp(rec, min=0)
-    live = has & (t < pw[rec])
+        K = min(nnzA, (window or CP) + 2)
+        # window of the records that can intersect this chunk (kept p0 is
+        # strictly increasing) plus the run straddling its start
+        if K < nnzA:
+            widx = torch.clamp(sid_base - 1, 0, nnzA - K) + _arange(K, dev)
+            p0w, uw, aw, pw = p0[widx], su[widx], sa[widx], pend[widx]
+        else:
+            p0w, uw, aw, pw = p0, su, sa, pend
+        rec = _decode(p0w, t)
+        has = rec >= 0
+        rec = torch.clamp(rec, min=0)
+        live = has & (t < pw[rec])
     dead = ~live | (rid < 0)
     bsrc = torch.where(dead, 0, uw[rec] + t)
     if isinstance(b_packed, Unpacked):
@@ -690,14 +739,30 @@ def _expand_chunk(e, p0, su, sa, pend, b_packed, chunk_start: int,
     return rid, col.to(I32), val
 
 
-def _sort_rect(rid, col, val, n_cols: int, pack_bits: int):
+def _resolve_sort(sort_impl: str, width: int) -> str:
+    """The name the reference resolves ``sort_impl`` to at ``width``
+    ("auto": its blocked merge sort for power-of-two rows of 2^20 and
+    more, else lax.sort), recorded in ``SORT_RESOLVED``. Every name runs
+    the same stable sort here (K2 on the card)."""
+    if sort_impl == "auto":
+        pow2 = width & (width - 1) == 0
+        sort_impl = ("blocked" if width >= _BLOCKED_SORT_MIN_W and pow2
+                     else "xla")
+    SORT_RESOLVED[sort_impl] = SORT_RESOLVED.get(sort_impl, 0) + 1
+    return sort_impl
+
+
+def _sort_rect(rid, col, val, n_cols: int, pack_bits: int,
+               sort_impl: str = "auto"):
     """Sort each rectangle row by (rid, col) with every dead slot
-    (col >= n_cols) last (kernel K2). pack_bits > 0: one sort on the packed
+    (col >= n_cols) last (kernel K2, whatever ``sort_impl`` names).
+    pack_bits > 0: one sort on the packed
     key (rid - rid0) << pack_bits | col; dead slots keep rid0. pack_bits ==
     0 (the packed key would overflow int32): two stable passes, by column
     and then by rid - rid0 with dead slots at W, each key within its own
     small range, which is the reference's two-key sort with dead rids at
     INT_MAX; dead slots carry rid INT_MAX, as there."""
+    _resolve_sort(sort_impl, col.shape[1])
     rid0 = rid[:, :1]
     if pack_bits > 0:
         keyk = ((rid - rid0) << pack_bits) | col
@@ -717,9 +782,11 @@ def _sort_rect(rid, col, val, n_cols: int, pack_bits: int):
     return rid_s.to(I32), col_s, by_slot(val, moved)
 
 
-def _sort_cols(col, val):
-    """Single-key (col, val) row sort (kernel K2); level and finish widths
-    are powers of two."""
+def _sort_cols(col, val, sort_impl: str = "auto"):
+    """Single-key (col, val) row sort (kernel K2, whatever ``sort_impl``
+    names); a level under a factor that is not a power of two has a width
+    that is not one either, which K2 sorts padded."""
+    _resolve_sort(sort_impl, col.shape[1])
     col_s, (moved,) = row_sort(col.contiguous(), [slot_payload(val)])
     return col_s, by_slot(val, moved)
 
@@ -737,13 +804,30 @@ def _row_last(rid_s, col_s, n_cols: int):
     return nxt & (col_s < n_cols)
 
 
-def _compact_rect(last, rid_s, col_s, run_sum):
-    """Move run-last entries to the rectangle-row front, order kept, by one
-    rank sort (kernel K2). ``rid_s`` None skips that payload (rows with a
-    constant rid). Returns (rid_c, col_c, val_c, counts)."""
+def _compact_rect(last, rid_s, col_s, run_sum, compact_impl: str = "sort"):
+    """Move run-last entries to the rectangle-row front, order kept.
+    ``rid_s`` None skips that plane (rows with a constant rid). Returns
+    (rid_c, col_c, val_c, counts).
+
+    compact_impl="sort": one rank sort (kernel K2; the rest follow in slot
+    order). "scatter": each plane scattered to g * W + rank, the exclusive
+    count of run-lasts before the slot in its row; the targets are unique,
+    so the result is deterministic, and the rest hold (INT_MAX, INT_MAX,
+    0). Both are equal on every row's live prefix."""
     G, W = col_s.shape
     rank = torch.cumsum(last, 1, dtype=I32) - 1
     counts = torch.sum(last, 1, dtype=I32)
+    if compact_impl == "scatter":
+        g = _arange(G, col_s.device)[:, None]
+        flat = torch.where(last, g * W + rank, G * W).reshape(-1)
+
+        def sc(x, fill):
+            out = _drop_buf(G * W, fill, x.dtype, x.device)
+            out[flat] = x.reshape(-1)
+            return out[:-1].view(G, W)
+
+        return (None if rid_s is None else sc(rid_s, INT_MAX),
+                sc(col_s, INT_MAX), sc(run_sum, 0), counts)
     t = _arange(W, col_s.device)[None, :]
     key = torch.where(last, rank, W + t).to(I32).contiguous()
     pay = [col_s.contiguous(), slot_payload(run_sum)]
@@ -756,28 +840,34 @@ def _compact_rect(last, rid_s, col_s, run_sum):
     return out[0], out[1], val_c, counts
 
 
-def compact_staged(rid_s, col_s, val_s, counts, *, n_cols: int):
+def compact_staged(rid_s, col_s, val_s, counts, *, n_cols: int,
+                   compact_impl: str = "sort"):
     """Compact a raw staged chunk (sorted planes from
     stream_chunk(stage_raw=True)): run-last flags are recomputed and the
     partial run sums at those slots are already the full sums."""
     return _compact_rect(_row_last(rid_s, col_s, n_cols), rid_s, col_s,
-                         val_s)
+                         val_s, compact_impl)
 
 
 def stream_chunk(rows_sorted, e, q_sorted, el, ops_sorted, p0, su, sa, pend,
                  b_packed, nnz_row, chunk_start: int, sid_base, *,
                  G: int, W: int, n_cols: int, pack_bits: int, stage: bool,
-                 stage_raw: bool = False, window: Optional[int] = None):
+                 stage_raw: bool = False, window: Optional[int] = None,
+                 rowend=None, sort_impl: str = "auto",
+                 compact_impl: str = "sort", expand_impl: str = "fill"):
     """One fused count(+stage) pass over chunk [chunk_start,
     chunk_start + G*W). Every row contained in the chunk gets its exact
     nnz in ``nnz_row`` (padded by one drop slot, updated in place) by an
     O(m) segment difference over per-rectangle-row cumulative run-last
     counts. stage=True also returns the compacted (rid, col, val, counts)
-    rectangle rows; stage_raw returns them sorted but uncompacted."""
+    rectangle rows; stage_raw returns them sorted but uncompacted. The
+    knobs are ``SpgemmConfig``'s (module docstring); ``rowend`` serves the
+    decode expand."""
     rid, col, val = _expand_chunk(e, p0, su, sa, pend, b_packed,
                                   chunk_start, sid_base, G, W, n_cols,
-                                  window)
-    rid_s, col_s, val_s = _sort_rect(rid, col, val, n_cols, pack_bits)
+                                  window, rowend, expand_impl)
+    rid_s, col_s, val_s = _sort_rect(rid, col, val, n_cols, pack_bits,
+                                     sort_impl)
     last, run_sum = stream_contract(rid_s, col_s, val_s, n_cols)
 
     dev = e.device
@@ -805,14 +895,16 @@ def stream_chunk(rows_sorted, e, q_sorted, el, ops_sorted, p0, su, sa, pend,
     if stage_raw:
         counts = torch.sum(last, 1, dtype=I32)
         return nnz_row, (rid_s, col_s, run_sum, counts)
-    return nnz_row, _compact_rect(last, rid_s, col_s, run_sum)
+    return nnz_row, _compact_rect(last, rid_s, col_s, run_sum, compact_impl)
 
 
 def stream_chunk_numeric(rows_sorted, e, p0, su, sa, pend, b_packed,
                          row_offsets, c_cols, c_vals, chunk_start: int,
                          sid_base, n_wide: int, *, G: int, W: int,
                          n_cols: int, pack_bits: int, stage_wide: bool,
-                         window: Optional[int] = None):
+                         window: Optional[int] = None, rowend=None,
+                         sort_impl: str = "auto", compact_impl: str = "sort",
+                         expand_impl: str = "fill"):
     """Two-phase numeric pass over one chunk: the same expand, sort and
     contract, then contained rows' run-last entries scatter straight to
     their offsets in C (padded buffers, updated in place); the first
@@ -821,8 +913,9 @@ def stream_chunk_numeric(rows_sorted, e, p0, su, sa, pend, b_packed,
     levels."""
     rid, col, val = _expand_chunk(e, p0, su, sa, pend, b_packed,
                                   chunk_start, sid_base, G, W, n_cols,
-                                  window)
-    rid_s, col_s, val_s = _sort_rect(rid, col, val, n_cols, pack_bits)
+                                  window, rowend, expand_impl)
+    rid_s, col_s, val_s = _sort_rect(rid, col, val, n_cols, pack_bits,
+                                     sort_impl)
     last, run_sum = stream_contract(rid_s, col_s, val_s, n_cols)
 
     # rank among the row's run-lasts via a segmented exclusive count; the
@@ -836,10 +929,11 @@ def stream_chunk_numeric(rows_sorted, e, p0, su, sa, pend, b_packed,
     live = last & (rid_s >= n_wide)
     flat = torch.where(live, row_offsets[row] + rank, c_cols.shape[0] - 1)
     c_cols.index_put_((flat,), col_s)
-    c_vals.index_put_((flat,), run_sum)
+    c_vals.index_put_((flat,), run_sum.to(c_vals.dtype))
     if not stage_wide:
         return c_cols, c_vals, None
-    return c_cols, c_vals, _compact_rect(last, rid_s, col_s, run_sum)
+    return c_cols, c_vals, _compact_rect(last, rid_s, col_s, run_sum,
+                                         compact_impl)
 
 
 # ---------------------------------------------------------------------------
@@ -849,7 +943,8 @@ def stream_chunk_numeric(rows_sorted, e, p0, su, sa, pend, b_packed,
 
 def stream_chunk_accum(e2, p02, su2, sa2, pend2, b_packed, abase, cmin_s,
                        acc, pres, chunk_start: int, sid_base, row_lo: int,
-                       row_hi: int, *, G: int, W: int, n_cols: int):
+                       row_hi: int, *, G: int, W: int, n_cols: int,
+                       rowend2=None, expand_impl: str = "fill"):
     """One expand and scatter-add pass over chunk [chunk_start,
     chunk_start + G*W) of the accumulator product space: the products of
     sorted rows in the active part [row_lo, row_hi) add into
@@ -863,7 +958,8 @@ def stream_chunk_accum(e2, p02, su2, sa2, pend2, b_packed, abase, cmin_s,
     in which equal columns sum changes from launch to launch: values agree
     to rounding, not to the bit; the int32 presence is exact."""
     rid, col, val = _expand_chunk(e2, p02, su2, sa2, pend2, b_packed,
-                                  chunk_start, sid_base, G, W, n_cols)
+                                  chunk_start, sid_base, G, W, n_cols,
+                                  rowend=rowend2, expand_impl=expand_impl)
     na = abase.shape[0]
     rid_c = torch.clamp(rid, 0, na - 1)
     live = (col < n_cols) & (rid >= row_lo) & (rid < row_hi)
@@ -906,7 +1002,8 @@ def accum_finalize(rows_sorted, acc_slice, pres_slice, cmin_s, rid_of_out,
 
 def stream_level(rows_sorted, rid_in, col_in, val_in, counts_in, in_map,
                  final_mask, nnz_row, *, F: int, W_in: int, n_cols: int,
-                 count: bool = True):
+                 count: bool = True, sort_impl: str = "auto",
+                 compact_impl: str = "sort"):
     """One merge level: each output rectangle row re-sorts F input
     segments (compacted prefixes of width W_in) of one wide row and
     contracts them; rows whose segments all fit here (final_mask) are
@@ -925,7 +1022,7 @@ def stream_level(rows_sorted, rid_in, col_in, val_in, counts_in, in_map,
     rid_out = torch.max(torch.where(okrow, rid_in[src], -1).reshape(R_out, F),
                         dim=1).values.to(I32)
 
-    col_s, val_s = _sort_cols(col.to(I32), val)
+    col_s, val_s = _sort_cols(col.to(I32), val, sort_impl)
     rid_b = rid_out[:, None].expand(R_out, W_out)
     last, run_sum = stream_contract(rid_b, col_s, val_s, n_cols)
     if count:
@@ -937,7 +1034,8 @@ def stream_level(rows_sorted, rid_in, col_in, val_in, counts_in, in_map,
                           m)
         nnz_row.index_add_(0, tgt, torch.where(
             fin, torch.sum(last, 1, dtype=I32), 0))
-    _, col_c, val_c, counts = _compact_rect(last, None, col_s, run_sum)
+    _, col_c, val_c, counts = _compact_rect(last, None, col_s, run_sum,
+                                            compact_impl)
     return nnz_row, (rid_out, col_c, val_c, counts)
 
 
@@ -949,7 +1047,8 @@ def wide_entry_totals(wcnt, wide_rid, *, n_wide: int):
 
 def stream_wide_finish(rows_sorted, wcol_flat, wval_flat, wcnt, entry_excl,
                        row_total, rid_of_out, nnz_row, *, R2: int, W2: int,
-                       W0: int, E_pad: int, n_cols: int, count: bool):
+                       W0: int, E_pad: int, n_cols: int, count: bool,
+                       sort_impl: str = "auto", compact_impl: str = "sort"):
     """Adaptive wide-row finish: gather each wide row's staged entries into
     one (R2, W2) rectangle sized by the true entry totals, then one sort
     and contract completes the row (counts set into ``nnz_row`` in place).
@@ -974,7 +1073,7 @@ def stream_wide_finish(rows_sorted, wcol_flat, wval_flat, wcnt, entry_excl,
     col = torch.where(dead, n_cols, wcol_flat[src]).to(I32)
     val = torch.where(dead, 0.0, wval_flat[src])
 
-    col_s, val_s = _sort_cols(col, val)
+    col_s, val_s = _sort_cols(col, val, sort_impl)
     rid_b = rid_of_out[:, None].expand(R2, W2)
     last, run_sum = stream_contract(rid_b, col_s, val_s, n_cols)
     if count:
@@ -982,7 +1081,8 @@ def stream_wide_finish(rows_sorted, wcol_flat, wval_flat, wcnt, entry_excl,
         tgt = torch.where(rid_of_out >= 0,
                           rows_sorted[torch.clamp(rid_of_out, 0, m - 1)], m)
         nnz_row.index_put_((tgt,), torch.sum(last, 1, dtype=I32))
-    _, col_c, val_c, counts = _compact_rect(last, None, col_s, run_sum)
+    _, col_c, val_c, counts = _compact_rect(last, None, col_s, run_sum,
+                                            compact_impl)
     return nnz_row, (rid_of_out, col_c, val_c, counts)
 
 
@@ -1007,7 +1107,7 @@ def stream_emit(rows_sorted, rid_c, col_c, val_c, counts, row_offsets,
     row = rows_sorted[torch.clamp(rid_c, 0, m - 1)]
     flat = torch.where(live, row_offsets[row] + rank, c_cols.shape[0] - 1)
     c_cols.index_put_((flat,), col_c)
-    c_vals.index_put_((flat,), val_c)
+    c_vals.index_put_((flat,), val_c.to(c_vals.dtype))
     return c_cols, c_vals
 
 

@@ -48,7 +48,7 @@ import torch
 
 from ..formats.csr import HostCSR
 from ..ops.device_csr import (DeviceCSR, device_get_csr, device_put_csr,
-                              torch_dtype)
+                              host_numpy, torch_dtype)
 from ..utils.config import SpgemmConfig
 from ..utils.device import resolve_device
 
@@ -337,7 +337,7 @@ def fetch_global(mesh: RowMesh, parts: Dict[int, torch.Tensor]
     """The (D, ...) host array of per-shard parts: ONE device readback of
     this process's shards (stacked on one device first), then a host
     gather across processes."""
-    local = _by_device(mesh, parts).cpu().numpy()
+    local = host_numpy(_by_device(mesh, parts))
     if mesh.process_count == 1:
         return local
     return _host_all_gather(local).reshape((mesh.size,) + local.shape[1:])
@@ -358,7 +358,7 @@ def assemble(mesh: RowMesh, parts: Dict[int, torch.Tensor]) -> torch.Tensor:
 def fetch_output(x) -> np.ndarray:
     """A global output of ``assemble`` on the host, every process's shards
     summed in (each process holds only its own; the rest are zero)."""
-    h = x.detach().cpu().numpy() if hasattr(x, "detach") else np.asarray(x)
+    h = host_numpy(x) if hasattr(x, "detach") else np.asarray(x)
     if process_count() == 1:
         return h
     return _host_all_gather(h).sum(axis=0).astype(h.dtype)
@@ -491,8 +491,16 @@ def stack_row_shards(a: HostCSR, n_shards: int, dtype=np.float32):
 
 
 def _np_dtype(dtype):
-    """The numpy value dtype of a torch or numpy float dtype."""
-    return np.float64 if torch_dtype(dtype) == torch.float64 else np.float32
+    """The numpy type a host stack holds ``dtype`` values in: float32, or
+    float64 for float64 and the 16-bit types (numpy has no bfloat16; the
+    card rounds them once, ``put_values``)."""
+    return np.float32 if torch_dtype(dtype) == torch.float32 else np.float64
+
+
+def put_values(mesh: RowMesh, x, live, dtype) -> Dict[int, torch.Tensor]:
+    """``put`` of a host value stack (``_np_dtype``), in ``dtype`` on the
+    devices."""
+    return {d: v.to(torch_dtype(dtype)) for d, v in put(mesh, x, live).items()}
 
 
 def mesh_spgemm_fixed_cap(
@@ -537,11 +545,11 @@ def mesh_spgemm_fixed_cap(
     # the nonzeros padded to the widest shard: only the live ones cross
     a_live, b_live = ai[:, -1], bi[:, -1]
     A_i = put(mesh, ai)
-    A_x, A_d = put(mesh, ax, a_live), put(mesh, ad, a_live)
+    A_x, A_d = put(mesh, ax, a_live), put_values(mesh, ad, a_live, dtype)
     # exchange B row shards (the one collective of this path)
     g_indptr = all_gather(mesh, put(mesh, bi))          # (D, k_loc+1)
     g_indices = all_gather(mesh, put(mesh, bx, b_live))
-    g_data = all_gather(mesh, put(mesh, bd, b_live))
+    g_data = all_gather(mesh, put_values(mesh, bd, b_live, dtype))
     counts, cols, vals = {}, {}, {}
     for d in mesh.local:
         gi = g_indptr[d]

@@ -61,22 +61,23 @@ import torch
 from ..formats.csr import HostCSR
 from ..ops.analysis import cumsum1d
 from ..ops.bitonic import by_slot, slot_payload
-from ..ops.contract import stream_contract
+from ..ops.contract import VALUE_DTYPES, stream_contract
 from ..ops.dense import (_densify_scatter, _densify_sorted,
                          _full_precision_bmm, _gather_rect)
 from ..ops.device_csr import torch_dtype
 from ..ops.dia import _rank_compact, dia_planes, sdia_lut
 from ..ops.esc import _sort_rows, pack_csr_arrays
 from ..ops.spgemm import _pow2 as _pow2ceil
-from ..ops.spgemm import _unported, check_knobs
+from ..ops.spgemm import check_knobs
 from ..ops.stream import (Unpacked, _compact_rect, _count_le,
                           _plan_rows_impl, _pow2ceil_arr, _sort_cols,
                           build_srec, stream_chunk, stream_chunk_numeric,
                           stream_emit, stream_level, tight_total_host)
 from ..utils.config import SpgemmConfig
-from .dist import (RowMesh, _host_all_gather, _pad_to, _slice_rows,
-                   all_gather, assemble, fetch_global, fetch_output, ppermute,
-                   ppermute_start, process_count, put, upload)
+from .dist import (RowMesh, _host_all_gather, _np_dtype, _pad_to,
+                   _slice_rows, all_gather, assemble, fetch_global,
+                   fetch_output, ppermute, ppermute_start, process_count, put,
+                   put_values, upload)
 
 I32 = torch.int32
 
@@ -807,7 +808,9 @@ def _stream_pipeline(cfg, G: int, W: int, n_cols: int, ai, ax, ad,
             nnz_row, (rid_out, col_c, val_c, counts) = stream_level(
                 rows_sorted, rid_in, wcol.contiguous(), wval.contiguous(),
                 wcnt, in_map, final, nnz_row, F=spec["F"],
-                W_in=spec["W_buf_in"], n_cols=n_cols, count=True)
+                W_in=spec["W_buf_in"], n_cols=n_cols, count=True,
+                sort_impl=cfg.stream_sort_impl,
+                compact_impl=cfg.stream_compact_impl)
             if spec["W_buf_out"] < col_c.shape[1]:
                 col_c = col_c[:, : spec["W_buf_out"]]
                 val_c = val_c[:, : spec["W_buf_out"]]
@@ -846,7 +849,9 @@ def _emit_pipeline(cfg, G: int, W: int, n_cols: int, pipe, offs, c_cols,
                 rows_sorted, st["e"], st["p0"], st["su"], st["sa_ch"],
                 st["pend"], st["b_rec"], offs, c_cols, c_vals, c * CP,
                 st["sid"][c], st["n_wide_dev"], G=G, W=W, n_cols=n_cols,
-                pack_bits=0, stage_wide=False, window=CP)
+                pack_bits=0, stage_wide=False, window=CP,
+                sort_impl=cfg.stream_sort_impl,
+                compact_impl=cfg.stream_compact_impl)
     for rid_b, col_c, val_c, fcnt in level_out:
         c_cols, c_vals = stream_emit(rows_sorted, rid_b, col_c, val_c, fcnt,
                                      offs, c_cols, c_vals)
@@ -854,7 +859,8 @@ def _emit_pipeline(cfg, G: int, W: int, n_cols: int, pipe, offs, c_cols,
 
 
 def _ksplit_merge(g_c, g_v, spl_tgt, nnz_row, *, n_split: int, Wm: int,
-                  n_cols: int):
+                  n_cols: int, sort_impl: str = "auto",
+                  compact_impl: str = "sort"):
     """Merge the gathered k-split partial rows (D, n_split, PM) with ONE
     sort and contract (all of a row's part-rows across all shards land in
     its Wm-wide merge row); the owner takes the counts (``spl_tgt``: the
@@ -869,11 +875,12 @@ def _ksplit_merge(g_c, g_v, spl_tgt, nnz_row, *, n_split: int, Wm: int,
                                        device=mc.device)], dim=1)
         mv = torch.cat([mv, torch.zeros((n_split, pad), dtype=mv.dtype,
                                         device=mv.device)], dim=1)
-    col_s, val_s = _sort_cols(mc.contiguous(), mv.contiguous())
+    col_s, val_s = _sort_cols(mc.contiguous(), mv.contiguous(), sort_impl)
     rid_bm = torch.arange(n_split, dtype=I32,
                           device=mc.device)[:, None].expand(n_split, Wm)
     last, run_sum = stream_contract(rid_bm, col_s, val_s, n_cols)
-    _, col_m, val_m, cnt_m = _compact_rect(last, None, col_s, run_sum)
+    _, col_m, val_m, cnt_m = _compact_rect(last, None, col_s, run_sum,
+                                           compact_impl)
     nnz_row[spl_tgt] = cnt_m
     return nnz_row, (col_m, val_m, cnt_m)
 
@@ -968,7 +975,9 @@ class _ShardBody:
         if self.ks is not None:
             nnz_row, merged = _ksplit_merge(
                 g_c, g_v, st["spl_tgt"], nnz_row, n_split=self.ks["n_split"],
-                Wm=self.ks["Wm"], n_cols=self.n_cols)
+                Wm=self.ks["Wm"], n_cols=self.n_cols,
+                sort_impl=self.cfg.stream_sort_impl,
+                compact_impl=self.cfg.stream_compact_impl)
         dev = nnz_row.device
         m_loc, out_cap = self.m_loc, self.out_cap
         offs = torch.cat([torch.zeros(1, dtype=I32, device=dev),
@@ -1365,18 +1374,17 @@ def _mesh_sdia_spgemm(ash: RowShards, bsh: RowShards, mesh: RowMesh,
     D = mesh.size
     m, n = ash.m, bsh.n
     m_loc = max(1, -(-m // D))
-    np_dtype = np.float64 if tdt == torch.float64 else np.float32
     same = bsh is ash
-    ai_h, ax_h, ad_h, a_ranges = _stack_shards(ash, np_dtype)
+    ai_h, ax_h, ad_h, a_ranges = _stack_shards(ash, _np_dtype(tdt))
     bi_h, bx_h, bd_h, _ = ((ai_h, ax_h, ad_h, a_ranges) if same
-                           else _stack_shards(bsh, np_dtype))
+                           else _stack_shards(bsh, _np_dtype(tdt)))
     r0s = np.array([r0 for r0, _ in a_ranges], np.int32).reshape(D, 1)
     nd_b, nd_c = len(sd["off_b"]), len(sd["off_c"])
     out_cap = _pow2ceil(max(m_loc * nd_c, 1))
     a_live, b_live = ai_h[:, -1], bi_h[:, -1]
     args_ = (put(mesh, ai_h), put(mesh, ax_h, a_live),
-             put(mesh, ad_h, a_live), put(mesh, bi_h),
-             put(mesh, bx_h, b_live), put(mesh, bd_h, b_live),
+             put_values(mesh, ad_h, a_live, tdt), put(mesh, bi_h),
+             put(mesh, bx_h, b_live), put_values(mesh, bd_h, b_live, tdt),
              put(mesh, r0s))
     # the reference's key also holds its row block, a function of m_loc
     key = ("sdia", mesh.key(), cfg, str(tdt), m, n, m_loc, sd["off_a"],
@@ -1386,7 +1394,7 @@ def _mesh_sdia_spgemm(ash: RowShards, bsh: RowShards, mesh: RowMesh,
                                                        out_cap, same))
     _set_last_exec(step, (mesh,) + args_)
     nnz_row, cols, vals = step(mesh, *args_)
-    itemsize = 8 if tdt == torch.float64 else 4
+    itemsize = tdt.itemsize
     halo = max(0, -min(sd["off_a"])) + max(0, max(sd["off_a"]))
     stats = NeedsetStats(
         allgather_bytes=b_nnz * (4 + itemsize),
@@ -1511,17 +1519,16 @@ def _mesh_dense_spgemm(ash: RowShards, bsh: RowShards, mesh: RowMesh,
     m, n = ash.m, bsh.n
     k_dim = bsh.m
     tr, K = cfg.dense_tile_rows, dn["K"]
-    np_dtype = np.float64 if tdt == torch.float64 else np.float32
-    ai_h, ax_h, ad_h, a_ranges = _stack_shards(ash, np_dtype)
-    bi_h, bx_h, bd_h, _ = _stack_shards(bsh, np_dtype)
+    ai_h, ax_h, ad_h, a_ranges = _stack_shards(ash, _np_dtype(tdt))
+    bi_h, bx_h, bd_h, _ = _stack_shards(bsh, _np_dtype(tdt))
     bnnz_max = bx_h.shape[1]
     m_loc = ai_h.shape[1] - 1
     rows_d = np.array([[r1 - r0] for r0, r1 in a_ranges], np.int32)
     out_cap = _pow2ceil(max(1, m_loc * dn["cw"]))
     a_live, b_live = ai_h[:, -1], bi_h[:, -1]
     args_ = (put(mesh, ai_h), put(mesh, ax_h, a_live),
-             put(mesh, ad_h, a_live), put(mesh, bi_h),
-             put(mesh, bx_h, b_live), put(mesh, bd_h, b_live),
+             put_values(mesh, ad_h, a_live, tdt), put(mesh, bi_h),
+             put(mesh, bx_h, b_live), put_values(mesh, bd_h, b_live, tdt),
              put(mesh, dn["kb"]), put(mesh, dn["cb"]), put(mesh, rows_d))
     key = ("dense", mesh.key(), cfg, str(tdt), m, n, k_dim, tr, K,
            dn["kw"], dn["cw"], dn["la"], dn["lb"], m_loc, out_cap, bnnz_max,
@@ -1530,7 +1537,7 @@ def _mesh_dense_spgemm(ash: RowShards, bsh: RowShards, mesh: RowMesh,
         cfg, dn, D, m_loc, k_dim, n, bnnz_max, out_cap))
     _set_last_exec(step, (mesh,) + args_)
     nnz_row, cols, vals = step(mesh, *args_)
-    rep = b_nnz * (4 + (8 if tdt == torch.float64 else 4))
+    rep = b_nnz * (4 + tdt.itemsize)
     stats = NeedsetStats(allgather_bytes=rep, needset_bytes=rep,
                          pairs_nnz=np.zeros((D, D), np.int64),
                          mode="dense_allgather")
@@ -1567,8 +1574,9 @@ def mesh_stream_spgemm(
     cfg = cfg or SpgemmConfig()
     check_knobs(cfg)
     tdt = torch_dtype(dtype)
-    if tdt not in (torch.float32, torch.float64):
-        raise _unported(f"{tdt} values")
+    if tdt not in VALUE_DTYPES:
+        raise TypeError(f"values must be float16, bfloat16, float32 or "
+                        f"float64, not {tdt}")
     f64 = tdt == torch.float64
     np_dtype = np.float64 if f64 else np.float32
     CH = 3 if f64 else 2           # payload channels: col + value words
@@ -1635,6 +1643,12 @@ def mesh_stream_spgemm(
         dn = _mesh_dense_gate(ash, bsh, b_len_h, cfg, D)
         if dn is not None:
             return _mesh_dense_spgemm(ash, bsh, mesh, cfg, dn, tdt, b_nnz)
+    if tdt.itemsize == 2:
+        # the reference packs B's records as (col, value bits) words for
+        # any type but float64 and its bitcast of a 16-bit value fails
+        raise TypeError(f"the mesh stream route packs 32-bit values, not "
+                        f"{tdt} (speck_tpu raises here too); the diagonal-"
+                        "plane and dense routes take 16-bit values")
 
     # k-split rows (single-row sharding): removed from their owner's
     # local A, their slots re-dealt by B-row owner (_plan_ksplit_shards)

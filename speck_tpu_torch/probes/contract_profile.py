@@ -44,18 +44,22 @@ RUNS_SHAPES = [(65536, 2048, "float32"), (64, 256, "float32"),
                (65536, 2048, "float64")]
 
 
+# bytes a value of each type
+VALUE_BYTES = {"float64": 8, "float32": 4, "bfloat16": 2, "float16": 2}
+
+
 def k1_bytes(R: int, W: int, kind: str, dtype: str = "float32") -> int:
     """Device bytes of one K1 call: rid (a plane only), col and val read,
     last and sums written: 17 and 13 bytes a slot in float32, 25 and 21
-    in float64."""
-    vb = 8 if dtype == "float64" else 4
+    in float64, 13 and 9 in the 16-bit types."""
+    vb = VALUE_BYTES[dtype]
     return ((4 if kind == "plane" else 0) + 4 + 2 * vb + 1) * R * W
 
 
 def k3_bytes(R: int, W: int, dtype: str = "float32") -> int:
     """Device bytes of one K3 call: col and val read, last and sums
-    written (13 bytes a slot in float32, 21 in float64)."""
-    return (5 + 2 * (8 if dtype == "float64" else 4)) * R * W
+    written (13 bytes a slot in float32, 21 in float64, 9 in 16 bits)."""
+    return (5 + 2 * VALUE_BYTES[dtype]) * R * W
 
 
 def contract_inputs(gen, R: int, W: int, kind: str, dtype: str = "float32",
@@ -98,9 +102,22 @@ def runs_inputs(gen, R: int, W: int, dtype: str = "float32",
                             dtype=getattr(torch, dtype))
 
 
+# unit roundoff and half the smallest subnormal of the 16-bit types
+HALF_ROUNDING = {torch.bfloat16: (2.0 ** -8, 2.0 ** -134),
+                 torch.float16: (2.0 ** -11, 2.0 ** -25)}
+
+
 def sums_close(got, want, mag) -> bool:
     """Sums taken in another order: within 1e-6 + 1e-5 of the run prefix's
-    sum of magnitudes in float32, 1e-12 of it in float64."""
+    sum of magnitudes in float32, 1e-12 of it in float64; 16-bit sums are
+    taken in float and rounded once by the kernel and the plain version
+    alike, so within that float32 bound plus a rounding on each side
+    (2 u of the magnitude, and the underflow term)."""
+    if got.dtype in HALF_ROUNDING:
+        u, eta = HALF_ROUNDING[got.dtype]
+        got, want, mag = got.float(), want.float(), mag.float()
+        return bool(((got - want).abs()
+                     <= 1e-6 + (1e-5 + 2 * u) * mag + 2 * eta).all())
     if got.dtype == torch.float64:
         return bool(((got - want).abs() <= 1e-300 + 1e-12 * mag).all())
     return bool(((got - want).abs() <= 1e-6 + 1e-5 * mag).all())

@@ -26,9 +26,9 @@ from ..ops import build
 LAUNCHES = {"sublane_gather": 0, "run_copy": 0}
 
 LANES = 128
-# the kernel stages S x 16 lanes x 4 B of the table in one block's shared
+# the kernel stages S x 8 lanes x 4 B of the table in one block's shared
 # memory (227 KB on Hopper)
-MAX_TABLE_ROWS = 232448 // (16 * 4)
+MAX_TABLE_ROWS = 232448 // (8 * 4)
 
 
 def sublane_gather_plain(idx, tab):
@@ -37,7 +37,8 @@ def sublane_gather_plain(idx, tab):
 
 def sublane_gather(idx, tab):
     """out[i, l] = tab[idx[i, l], l] for idx (rows, 128) int32 and tab
-    (S, 128) float32. On the card an index outside [0, S) gives 0."""
+    (S, 128) float32. On the card an index outside [0, S) gives 0. The
+    kernel needs 16-byte aligned planes (as the allocator gives them)."""
     if (idx.dim() != 2 or idx.shape[1] != LANES or idx.dtype != torch.int32
             or not idx.is_contiguous()):
         raise ValueError("sublane_gather: idx must be a contiguous "
@@ -56,6 +57,9 @@ def sublane_gather(idx, tab):
         return sublane_gather_plain(idx, tab)
     if idx.device.type != "cuda":
         raise ValueError(f"sublane_gather: unsupported device {idx.device}")
+    if idx.data_ptr() % 16 or tab.data_ptr() % 16:
+        raise ValueError("sublane_gather: planes must start on a 16-byte "
+                         "boundary")
     out = torch.empty(idx.shape, dtype=torch.float32, device=idx.device)
     if idx.shape[0] == 0:
         return out

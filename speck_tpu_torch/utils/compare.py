@@ -71,3 +71,80 @@ def compare_csr(reference, result, compare_data: bool = False,
                 False, f"row {row} value mismatch at nnz {pos}:"
                 f" ref={ref_d[pos]} got={res_d[pos]}", row)
     return CompareResult(True)
+
+
+# unit roundoff of each value type (half the spacing of 1.0), and half
+# its smallest subnormal (the absolute error of a rounding that underflows)
+UNIT_ROUNDOFF = {"bfloat16": 2.0 ** -8, "float16": 2.0 ** -11,
+                 "float32": 2.0 ** -24, "float64": 2.0 ** -53}
+UNDERFLOW = {"bfloat16": 2.0 ** -134, "float16": 2.0 ** -25,
+             "float32": 2.0 ** -150, "float64": 2.0 ** -1075}
+
+
+def _on_pattern(P, M) -> np.ndarray:
+    """M's values at the entries of P (sorted CSR; M's entries are a
+    subset of P's, scipy having pruned its zeros), 0 elsewhere."""
+    n64 = np.int64(P.shape[1]) + 1
+    out = np.zeros(P.nnz, np.float64)
+    if M.nnz:
+        rows_p = np.repeat(np.arange(P.shape[0], dtype=np.int64),
+                           np.diff(P.indptr))
+        rows_m = np.repeat(np.arange(M.shape[0], dtype=np.int64),
+                           np.diff(M.indptr))
+        out[np.searchsorted(rows_p * n64 + P.indices,
+                            rows_m * n64 + M.indices)] = M.data
+    return out
+
+
+def compare_csr_bound(a, b, result, dtype) -> CompareResult:
+    """Structure exact, and every value within the rounding bound of a sum
+    of rounded products: |C - C_ref| <= 2 (n_ij + 1) (u (|A| |B|)_ij +
+    eta), with
+    C_ref the float64 product of ``a`` and ``b`` (the inputs as rounded to
+    their value types), n_ij the number of products summed into (i, j), u
+    the unit roundoff of ``dtype`` (C's type; a torch or numpy type or its
+    name) and eta half its smallest subnormal. Twice the textbook bound of
+    a recursive sum of n rounded products, in the standard model with
+    underflow (float16's subnormals start at 2^-14: a product below that
+    is rounded to a fixed absolute spacing, which no relative bound
+    covers), so it holds for 16-bit sums and for sums taken in float and
+    rounded once alike."""
+    import scipy.sparse as sp
+
+    from .oracle import oracle_spgemm
+
+    ref = oracle_spgemm(a, b)
+    r = compare_csr(ref, result)
+    if not r.ok:
+        return r
+    name = str(dtype).replace("torch.", "").split(".")[-1]
+    u, eta = UNIT_ROUNDOFF[name], UNDERFLOW[name]
+
+    def csr(h, data):
+        m = sp.csr_matrix((data, np.asarray(h.col_ids, np.int64),
+                           np.asarray(h.row_offsets, np.int64)),
+                          shape=h.shape)
+        m.sort_indices()
+        return m
+
+    ones_a = csr(a, np.ones(a.nnz))
+    ones_b = csr(b, np.ones(b.nnz))
+    P = ones_a @ ones_b
+    P.sort_indices()
+    M = (csr(a, np.abs(np.asarray(a.data, np.float64)))
+         @ csr(b, np.abs(np.asarray(b.data, np.float64))))
+    M.sort_indices()
+    n, mag = P.data, _on_pattern(P, M)
+    err = np.abs(np.asarray(result.data, np.float64)
+                 - np.asarray(ref.data, np.float64))
+    bound = 2.0 * (n + 1.0) * (u * mag + eta)
+    bad = err > bound
+    if bad.any():
+        pos = int(np.argmax(bad))
+        row = int(np.searchsorted(np.asarray(ref.row_offsets, np.int64), pos,
+                                  side="right")) - 1
+        return CompareResult(
+            False, f"row {row} value past the {dtype} bound at nnz {pos}:"
+            f" ref={ref.data[pos]} got={result.data[pos]}"
+            f" bound={bound[pos]}", row)
+    return CompareResult(True)

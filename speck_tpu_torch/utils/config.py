@@ -1,10 +1,10 @@
 """Runtime configuration: the INI store and the pipeline knobs.
 
 ``SpgemmConfig`` has the same fields and defaults as ``speck_tpu``'s, so
-one configuration drives both packages. The port runs the product-stream,
-direct and diagonal-plane routes; ``check_supported`` and ``plan_spgemm``
-(ops/spgemm.py) raise ``NotImplementedError`` for knobs and inputs that
-select a route or an implementation it does not have yet.
+one configuration drives both packages. The port runs every route and
+every value of the A/B knobs that ``speck_tpu`` names;
+``check_knobs`` (ops/spgemm.py) raises ValueError for a value it does not
+name.
 """
 
 from __future__ import annotations

@@ -206,8 +206,10 @@ def test_entry_on_cpu_matches_graft_entry():
 
 def test_esc_fixed_float64_raises():
     """float64 no longer raises: the entry's matrices in float64 give
-    float64 values within 1e-9 of the oracle; mixed value dtypes raise
-    ValueError."""
+    float64 values within 1e-9 of the oracle. Mixed value dtypes promote,
+    as in the reference (float64 A times float32 B is float64, within
+    1e-9 of the oracle of the rounded B); integer values raise
+    TypeError."""
     a, b = (pt.HostCSR.from_host(x) for x in _entry_ab())
     args = list(tentry.esc_args(a, b, "cpu", np.float64))
     out = tesc.esc_fixed(*args, cap=256, n_cols=b.cols)
@@ -217,7 +219,17 @@ def test_esc_fixed_float64_raises():
                        compare_data=True, rel_tol=1e-9)
     assert r.ok, r.message
     args[6] = args[6].float()
-    with pytest.raises(ValueError, match="mixed"):
+    out = tesc.esc_fixed(*args, cap=256, n_cols=b.cols)
+    assert out[2].dtype == torch.float64
+    b32 = pt.HostCSR(rows=b.rows, cols=b.cols, row_offsets=b.row_offsets,
+                     col_ids=b.col_ids,
+                     data=np.asarray(b.data, np.float32).astype(np.float64))
+    r = pt.compare_csr(pt.oracle_spgemm(a, b32),
+                       padded_to_host_csr(*out, a.rows, b.cols),
+                       compare_data=True, rel_tol=1e-9)
+    assert r.ok, r.message
+    args[6] = args[6].int()
+    with pytest.raises(TypeError, match="float16, bfloat16"):
         tesc.esc_fixed(*args, cap=256, n_cols=b.cols)
 
 
@@ -229,7 +241,7 @@ def test_contract_runs_cpu_does_not_count_and_rejects(rng):
     assert contract.RUNS_LAUNCHES == n
     with pytest.raises(ValueError):
         contract.contract_runs(torch.from_numpy(col),
-                               torch.from_numpy(val).half(), N_COLS)
+                               torch.from_numpy(val).int(), N_COLS)
     with pytest.raises(ValueError):
         contract.contract_runs(torch.from_numpy(col)[:, :32],
                                torch.from_numpy(val), N_COLS)

@@ -8,10 +8,12 @@ also runs on a machine without it:
 Tolerances: masks, keys and structure exact; contract sums within
 1e-6 + 1e-5 * (sum of |val| over the run prefix), the fp32 bound for a
 sum taken in another order (the kernel's segmented scan against the plain
-doubling); the row sort's keys and every payload equal to the plain
-stable sort's, bit for bit (both are stable); the gather probes and
-esc_fixed's structure exact, its values within rel_tol 2e-3 of the scipy
-oracle."""
+doubling); 16-bit contract sums within the 16-bit bound 2 (n + 1)
+(u |terms| + eta) of the plain version's (utils/compare.py); the row
+sort's keys and every payload equal to the plain stable sort's, bit for
+bit (both are stable), at any width; the gather probes exactly equal to
+their plain versions and torch.gather; esc_fixed's structure exact, its
+values within rel_tol 2e-3 of the scipy oracle."""
 
 import numpy as np
 import pytest
@@ -833,4 +835,142 @@ def test_mesh_fixed_cap_on_card(cuda_device):
     C = padded_to_host_csr(*out, h.rows, h.cols)
     r = pt.compare_csr(pt.oracle_spgemm(h, h), C, compare_data=True,
                        rel_tol=2e-3)
+    assert r.ok, r.message
+
+
+# ---------------------------------------------------------------------------
+# 16-bit values, K2 at widths that are not powers of two, the A/B knobs
+# ---------------------------------------------------------------------------
+
+HALF_TYPES = [torch.bfloat16, torch.float16]
+# unit roundoff and half the smallest subnormal (utils/compare.py)
+_U = {torch.bfloat16: (2.0 ** -8, 2.0 ** -134),
+      torch.float16: (2.0 ** -11, 2.0 ** -25)}
+
+
+def _within_half_bound(got, ref, mag, n, dtype):
+    """|got - ref| <= 2 (n + 1) (u mag + eta): the 16-bit bound of
+    utils/compare.compare_csr_bound for sums of n terms of magnitude
+    sum mag."""
+    u, eta = _U[dtype]
+    err = (got.double() - ref.double()).abs()
+    return bool((err <= 2 * (n.double() + 1) * (u * mag.double() + eta)
+                 ).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", HALF_TYPES)
+@pytest.mark.parametrize("R,W,kind", [(16, 8192, False), (2, 65536, True),
+                                      (5, 3000, False), (3, 4097, True),
+                                      (1, 1 << 20, True)])
+def test_contract_kernel_16bit_matches_plain(rs, cuda_device, dtype, R, W,
+                                             kind):
+    """K1 in bfloat16 and float16: masks equal, the sums (taken in float
+    and rounded once, by the kernel and by the plain version alike) within
+    the 16-bit bound of the run's terms."""
+    rid, col, val, per_row = contract_rect(rs, R, W, kind)
+    args = [torch.from_numpy(rid), torch.from_numpy(col),
+            torch.from_numpy(val).to(dtype)]
+    dev_args = [x.to(cuda_device) for x in args]
+    if per_row:
+        dev_args[0] = dev_args[0][:, 0].contiguous().as_strided((R, W),
+                                                                (1, 0))
+    n0 = contract.LAUNCHES
+    last_k, sum_k = contract.stream_contract(*dev_args, N_COLS)
+    torch.cuda.synchronize()
+    assert contract.LAUNCHES == n0 + 1 and sum_k.dtype == dtype
+    last_p, sum_p = contract.contract_plain(*args, N_COLS)
+    assert torch.equal(last_k.cpu(), last_p)
+    mag = contract.contract_plain(args[0], args[1],
+                                  args[2].float().abs(), N_COLS)[1]
+    cnt = contract.contract_plain(args[0], args[1],
+                                  torch.ones(R, W), N_COLS)[1]
+    assert _within_half_bound(sum_k.cpu(), sum_p, mag, cnt, dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", HALF_TYPES)
+@pytest.mark.parametrize("R,W", [(64, 256), (32, 2048), (5, 3000),
+                                 (2, 70000)])
+def test_contract_runs_kernel_16bit_matches_plain(rs, cuda_device, dtype,
+                                                  R, W):
+    """K3 in bfloat16 and float16, as K1's 16-bit test."""
+    col = np.sort(rs.integers(0, N_COLS, (R, W)), 1).astype(np.int32)
+    col[:, W - W // 4:] = N_COLS
+    col, val = torch.from_numpy(col), torch.from_numpy(
+        rs.standard_normal((R, W)).astype(np.float32)).to(dtype)
+    n0 = contract.RUNS_LAUNCHES
+    last_k, sum_k = contract.contract_runs(col.to(cuda_device),
+                                           val.to(cuda_device), N_COLS)
+    torch.cuda.synchronize()
+    assert contract.RUNS_LAUNCHES == n0 + 1 and sum_k.dtype == dtype
+    last_p, sum_p = contract.contract_runs_plain(col, val, N_COLS)
+    assert torch.equal(last_k.cpu(), last_p)
+    mag = contract.contract_runs_plain(col, val.float().abs(), N_COLS)[1]
+    cnt = contract.contract_runs_plain(col, torch.ones(R, W), N_COLS)[1]
+    assert _within_half_bound(sum_k.cpu(), sum_p, mag, cnt, dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("R,W,n_pay", [(4, 3 * 8192, 1), (4, 3 * 8192, 3),
+                                       (1, 3 * 65536, 2), (1, 3 * 65536, 1),
+                                       (3, 1000, 2)])
+def test_sort_kernel_at_widths_not_powers_of_two(rs, cuda_device, R, W,
+                                                 n_pay):
+    """K2 padded to the next power of two: keys and payloads equal to the
+    stable plain sort's, bit for bit, with INT32_MAX keys among the real
+    ones (the pad must stay behind them)."""
+    key = rs.integers(0, 1 << 20, (R, W)).astype(np.int32)
+    key[:, ::7] = bitonic.INT32_MAX
+    pays = [rs.integers(-2 ** 31, 2 ** 31 - 1, (R, W)).astype(np.int32)
+            for _ in range(n_pay)]
+    sort_on_card(cuda_device, key, pays)
+    assert (R, W, n_pay) in bitonic.LAUNCH_SHAPES
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("S,rows", [(2048, 32768), (2048, 3), (5, 1000)])
+def test_sublane_gather_kernel_equals_torch_gather(rs, cuda_device, S, rows):
+    """The redesigned sublane_gather equals torch.gather exactly."""
+    tab = torch.from_numpy(rs.standard_normal((S, 128)).astype(np.float32)
+                           ).to(cuda_device)
+    idx = torch.from_numpy(rs.integers(0, S, (rows, 128)).astype(np.int32)
+                           ).to(cuda_device)
+    got = gm.sublane_gather(idx, tab)
+    assert torch.equal(got, torch.gather(tab, 0, idx.long()))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("knob", [dict(stream_compact_impl="scatter"),
+                                  dict(stream_expand_impl="decode"),
+                                  dict(stream_sort_impl="bitonic"),
+                                  dict(stream_level_factor=3),
+                                  dict(dtype=torch.bfloat16),
+                                  dict(dtype=torch.float16)])
+def test_knobs_and_types_on_card_match_the_cpu(cuda_device, knob):
+    """Each knob's spgemm (wide rows, the ladder at W = 64) and each 16-bit
+    type on the card: structure equal to the CPU's, values within the
+    float32 tolerance or the 16-bit bound of the oracle."""
+    from speck_tpu_torch.utils.compare import compare_csr_bound
+
+    knob = dict(knob)
+    dtype = knob.pop("dtype", torch.float32)
+    h = make_powerlaw(3000, avg=6, seed=3)
+    cfg = pt.SpgemmConfig(stream_width=64, product_budget=1 << 12,
+                          stream_max_width=256, **knob)
+    outs = []
+    for dev in ("cpu", cuda_device):
+        A = pt.device_put_csr(h, dtype, dev)
+        C = pt.spgemm(A, A, cfg)
+        assert C.data.dtype == dtype
+        outs.append(pt.device_get_csr(C))
+    assert pt.compare_csr(outs[0], outs[1]).ok
+    if dtype == torch.float32:
+        r = pt.compare_csr(pt.oracle_spgemm(h, h), outs[1],
+                           compare_data=True, rel_tol=2e-3)
+    else:
+        hr = pt.HostCSR(rows=h.rows, cols=h.cols, row_offsets=h.row_offsets,
+                        col_ids=h.col_ids, data=torch.as_tensor(
+                            h.data).to(dtype).double().numpy())
+        r = compare_csr_bound(hr, hr, outs[1], dtype)
     assert r.ok, r.message

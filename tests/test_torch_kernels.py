@@ -203,7 +203,8 @@ def test_wrappers_reject_what_kernels_do_not_take(case):
     v = torch.zeros((2, 64), dtype=torch.float32)
     with pytest.raises(ValueError):
         if case == "sort_width":
-            bitonic.row_sort(torch.zeros((2, 12), dtype=torch.int32), [])
+            # any width of 1 and more (a power of two or padded to one)
+            bitonic.row_sort(torch.zeros((2, 0), dtype=torch.int32), [])
         elif case == "sort_plan_payloads":
             bitonic.sort_plan(2, 64, 4)
         elif case == "sort_payloads":
@@ -211,8 +212,8 @@ def test_wrappers_reject_what_kernels_do_not_take(case):
         elif case == "sort_dtype":
             bitonic.row_sort(k.long(), [])
         elif case == "contract_dtype":
-            # float32 and float64 values only
-            contract.stream_contract(k, k, v.half(), N_COLS)
+            # floating values of 16, 32 or 64 bits only
+            contract.stream_contract(k, k, v.int(), N_COLS)
         else:
             contract.stream_contract(k[:, :32], k, v, N_COLS)
 

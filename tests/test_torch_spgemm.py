@@ -152,8 +152,9 @@ def test_spgemm_entry_point_and_cli(tmp_path):
 def test_float64_raises():
     """float64 no longer raises: the direct-copy input streams in float64
     (the unpacked B gathers) with float64 values out, equal to JAX's under
-    jax_enable_x64 within rtol 1e-12 and to the oracle within 1e-9. Value
-    dtypes other than float32 and float64 still raise."""
+    jax_enable_x64 within rtol 1e-12 and to the oracle within 1e-9.
+    float16 runs as well (tests/test_torch_dtypes.py holds every type pair
+    to the reference)."""
     import jax
 
     h = pt.HostCSR.from_host(_direct())
@@ -174,10 +175,18 @@ def test_float64_raises():
     r = pt.compare_csr(pt.oracle_spgemm(h, h), Ct, compare_data=True,
                        rel_tol=1e-9)
     assert r.ok, r.message
+    # float16 runs too: float16 out, within the 16-bit bound of the
+    # oracle of the rounded input
+    from speck_tpu_torch.utils.compare import compare_csr_bound
+
     A16 = pt.DeviceCSR(indptr=A.indptr, indices=A.indices,
                        data=A.data.half(), shape=A.shape, nnz=A.nnz)
-    with pytest.raises(NotImplementedError, match="float16"):
-        pt.spgemm(A16, A16, pt.SpgemmConfig(**_BASE))
+    C16 = pt.spgemm(A16, A16, pt.SpgemmConfig(**kw))
+    assert C16.data.dtype == torch.float16
+    h16 = pt.HostCSR(rows=h.rows, cols=h.cols, row_offsets=h.row_offsets,
+                     col_ids=h.col_ids, data=A16.data.double().numpy())
+    r = compare_csr_bound(h16, h16, pt.device_get_csr(C16), torch.float16)
+    assert r.ok, r.message
 
 
 def test_banded_input_raises_where_dia_would_run():
@@ -199,17 +208,6 @@ def test_banded_input_raises_where_dia_would_run():
     Cj = st.device_get_csr(pj.execute())
     Ct = pt.device_get_csr(pt.spgemm(At, At))
     _assert_matches(h, Cj, Ct)
-
-
-@pytest.mark.parametrize("knob", [dict(stream_level_factor=3),
-                                  dict(stream_expand_impl="decode"),
-                                  dict(stream_compact_impl="scatter"),
-                                  dict(stream_sort_impl="bitonic")])
-def test_unported_knobs_raise(knob):
-    h = pt.HostCSR.from_host(_direct())
-    A = pt.device_put_csr(h, device="cpu")
-    with pytest.raises(NotImplementedError):
-        pt.spgemm(A, A, pt.SpgemmConfig(**dict(_BASE, **knob)))
 
 
 def test_port_imports_no_jax():
