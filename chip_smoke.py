@@ -7,8 +7,9 @@ routes of spgemm on bench configs 1, 1b, the 27-point stencil and the fp64
 banded config, the general stream (a 2^20-row graph with the two-key
 chunk sort, float64, row blocks, the dense-tile gate counted on the
 device), the dense tiles, the accumulator, config 4 with the device
-transpose and the Galerkin product, and the gather probes, and check each
-against its reference.
+transpose and the Galerkin product, the gather probes, and the benchmark
+harness (speck_tpu_torch.bench: its headline cell and config 3's stage
+split), and check each against its reference.
 
     python3 chip_smoke.py
 
@@ -144,6 +145,12 @@ Phases (any failure raises and exits non-zero; nothing falls back):
      run_copy (G = 512, K = 64, L = 128 over a 2^21 source) against their
      plain versions, exactly equal; each timed against its library call in
      turns over PROBE_REPS rounds (medians, quartiles and extremes), GB/s;
+  8b. (after 8) the benchmark harness, speck_tpu_torch.bench, through
+     its own functions on the matrices and oracles above: its headline
+     cell (config 1: the cold call, 5 timed iterations, the # line, the
+     headline JSON with bench.py's keys, scipy's median of 3 beside it),
+     then config 3 with its stage split (--stages); each must pass the
+     scipy oracle and config 3 must launch K1 and K2;
   9. every torch.profiler session, after every CUDA-event time above: K1
      and K3 at each shape timed before (K1 but at the shapes only the
      mesh launches), their device time (the kernel and the clear of its
@@ -164,9 +171,9 @@ outputs written once) over 3.35 TB/s, the H100 SXM's device memory rate
 (NVIDIA's data sheet); every kernel here is bound by bytes. library_ms is
 one PyTorch call computing the same function, where there is one; the port
 never calls it. Launches in the kernels' line: K1's over phases 4, 4b, 7c
-(config 1b), 7e, 7f and 7h (float32), its double variant's over the
+(config 1b), 7e, 7f, 7h and 8b (float32), its double variant's over the
 float64 cells of 7d and 7f, its 16-bit variants' over 7h's config 3
-cells, K2's over 4, 4b, 7, 7c, 7d, 7e, 7f and 7h (an entry of its own
+cells, K2's over 4, 4b, 7, 7c, 7d, 7e, 7f, 7h and 8b (an entry of its own
 for the widths that are not powers of two), K3's over 7 and 7f (the
 fixed cap), its double variant's over 7d's esc_fixed and its 16-bit
 variants' over 7h's esc_fixed. The line's ms is the CUDA-event
@@ -1932,6 +1939,38 @@ def scipy_cell(pt, smi):
           "included", flush=True)
 
 
+def bench_phase(pt, smi):
+    """Phase 8b: the benchmark harness (speck_tpu_torch.bench) through its
+    own functions, on the matrices and oracles of the earlier phases: the
+    headline cell (config 1) with its headline line, then config 3 with
+    its stage split. Each must pass its oracle check; the headline must
+    carry bench.py's keys. Returns K1's and K2's launches in this phase."""
+    from speck_tpu_torch import bench
+
+    cells = {c.tag: c for c in bench.CELLS}
+    reset_counts()
+    h1, ref1, _, _ = host_and_oracle(pt, CONFIG1)
+    r1 = bench.run_cell(cells["config1"], h1, None, ref1, "cuda")
+    print(r1.line(), flush=True)
+    check(r1.oracle_ok, f"bench config 1: {r1.oracle_msg}")
+    head = bench.headline(r1, bench.scipy_median_ms(h1))
+    print(json.dumps(head), f"[{smi}]", flush=True)
+    check(list(head) == ["metric", "value", "unit", "vs_baseline"]
+          and head["metric"] == bench.METRIC and head["value"] > 0,
+          f"the bench headline is missing or malformed: {head}")
+    h3, ref3, _, _ = host_and_oracle(pt, CONFIG3)
+    r3 = bench.run_cell(cells["config3"], h3, None, ref3, "cuda",
+                        stages=True)
+    print(r3.line(), flush=True)
+    for line in r3.stage_lines():
+        print(line, flush=True)
+    check(r3.oracle_ok, f"bench config 3: {r3.oracle_msg}")
+    check(r3.stages["complete"] > 0, "bench config 3: no stage split")
+    counts, _ = launch_counts()
+    check(all(counts.values()), f"bench config 3 launched {counts}")
+    return counts
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; "
@@ -2174,6 +2213,12 @@ def main():
     phase("8")
     # 8. the gather probes
     probe_launches, probe_cases, probes = probe_phase(gen, smi)
+    torch.cuda.empty_cache()
+
+    phase("8b")
+    # 8b. the benchmark harness: config 1's headline, config 3's stages
+    bench_launches = bench_phase(pt, smi)
+    torch.cuda.empty_cache()
 
     phase("9")
     # 9. the profiled phase, after every CUDA-event time of the phases
@@ -2238,6 +2283,7 @@ def main():
          "source": "speck_tpu_torch/csrc/stream_contract.cu",
          "replaces": "speck_tpu/ops/pallas_kernels.py:122",
          "launches": (launches["stream_contract"]
+                      + bench_launches["stream_contract"]
                       + giant["launches"]["stream_contract"]
                       + onebee["stream_contract"]
                       + sum(c["launches"]["stream_contract"]
@@ -2264,7 +2310,8 @@ def main():
         {"name": "row_sort", "route": "cuda",
          "source": "speck_tpu_torch/csrc/row_sort.cu",
          "replaces": "speck_tpu/ops/bitonic.py:172",
-         "launches": (launches["row_sort"] + giant["launches"]["row_sort"]
+         "launches": (launches["row_sort"] + bench_launches["row_sort"]
+                      + giant["launches"]["row_sort"]
                       + esc_launches["row_sort"] + onebee["row_sort"]
                       + sum(c["launches"]["row_sort"] for c in gen_cells)
                       + esc64_launches["row_sort"]

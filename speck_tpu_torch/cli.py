@@ -1,11 +1,12 @@
 """The port's runspECK:
 
-    python -m speck_tpu_torch.cli matrix.mtx [config.ini]
+    python -m speck_tpu_torch.cli matrix.mtx [config.ini] [--fp64]
 
 Loads the matrix (B = A if square, else A^T), runs the warmup and the
-measured iterations on the first CUDA card (without one it raises; a
-caller of ``main`` passes ``device="cpu"`` to run on the CPU), and prints
-nnz(C), the mean complete-call time, GFLOPS and nnz(C)/s.
+measured iterations in float32 (in float64 end to end under ``--fp64``,
+as ``runspeck --fp64`` does) on the first CUDA card (without one it
+raises; a caller of ``main`` passes ``device="cpu"`` to run on the CPU),
+and prints nnz(C), the mean complete-call time, GFLOPS and nnz(C)/s.
 Config keys: InputFile, IterationsWarmUp, IterationsExecution,
 TrackIndividualTimes, TrackCompleteTimes, CompareResult, and the
 SpgemmConfig tuning keys.
@@ -14,6 +15,8 @@ SpgemmConfig tuning keys.
 from __future__ import annotations
 
 import sys
+
+import torch
 
 
 def main(argv=None, device=None):
@@ -31,10 +34,11 @@ def main(argv=None, device=None):
     if not path:
         print("Need matrix market file path (.mtx) as first argument\n"
               "Usage: python -m speck_tpu_torch.cli <matrix.mtx> "
-              "[config.ini]", file=sys.stderr)
+              "[config.ini] [--fp64]", file=sys.stderr)
         return 1
+    dtype = torch.float64 if "--fp64" in argv else torch.float32
     print(f"device: {device_info(device).summary()}")
-    result = Executor(path, config=config, device=device).run()
+    result = Executor(path, config=config, dtype=dtype, device=device).run()
     return 0 if result.compared_ok in (None, True) else 2
 
 

@@ -347,7 +347,7 @@ class SpgemmPlan:
             else:
                 # one trailing slot takes the dropped scatter writes
                 c_cols = torch.zeros(total + 1, dtype=I32, device=dev)
-                c_vals = torch.zeros(total + 1, dtype=A.data.dtype,
+                c_vals = torch.zeros(total + 1, dtype=c_value_dtype(A, B),
                                      device=dev)
             if d is not None:
                 staged = use_staged and self.dense_staged is not None
@@ -539,6 +539,18 @@ def _stream_operands(A: DeviceCSR, B: DeviceCSR, src, sa=None):
             sa = A.data.contiguous().view(I32)[src]
         return sa, pack_csr_arrays(B.indices, B.data.to(torch.float32))
     return src, Unpacked(A.data, B.indices, B.data)
+
+
+def c_value_dtype(A: DeviceCSR, B: DeviceCSR) -> torch.dtype:
+    """C's value type on every path: the fused stream's, whose products
+    are float32 for a float32 A (B packed as float32) and of the promoted
+    type for any other A. The reference emits the two-phase and
+    new-value paths in A's type and sums the accumulator in A's type;
+    the port holds them to this one type (ROADMAP.md Queue 3, standing
+    decision 10)."""
+    if packable(A.data):
+        return torch.float32
+    return torch.promote_types(A.data.dtype, B.data.dtype)
 
 
 def _dense_operands(A: DeviceCSR, B: DeviceCSR):
@@ -770,7 +782,7 @@ def _run_accum(ss: StreamState, A: DeviceCSR, B: DeviceCSR, nnz_row,
                 ss.cmin_s, acc, pres, c * CP, ss.sid_bases2[c],
                 part["row_lo"], part["row_hi"], G=G, W=W, n_cols=n_cols,
                 rowend2=ss.rowend2, expand_impl=expand_impl)
-        acc = acc.to(A.data.dtype)
+        acc = acc.to(c_value_dtype(A, B))
         for R_pad, S, off, rid in part["classes"]:
             nnz_row, buf = accum_finalize(
                 ss.rows_sorted, acc[off: off + R_pad * S],
@@ -1521,5 +1533,5 @@ def _spgemm_blocked(A: DeviceCSR, B: DeviceCSR, cfg: SpgemmConfig,
         indices=(torch.cat(c_parts) if c_parts
                  else torch.zeros(0, dtype=I32, device=dev)),
         data=(torch.cat(v_parts) if v_parts
-              else torch.zeros(0, dtype=A.data.dtype, device=dev)),
+              else torch.zeros(0, dtype=c_value_dtype(A, B), device=dev)),
         shape=(m, n), nnz=off, canonical=True)

@@ -717,7 +717,11 @@ def _operands(b_payload, ad, sa, src, f64: bool):
     A-source map (``ops.stream.Unpacked``)."""
     if f64:
         b_ind = b_payload[:, 0].contiguous()
-        b_dat = b_payload[:, 1:3].contiguous().view(torch.float64).reshape(-1)
+        # a fresh copy: with 0 or 1 rows the slice is already contiguous,
+        # at storage offset 1, and would not view as float64
+        b_dat = b_payload[:, 1:3].clone(
+            memory_format=torch.contiguous_format).view(
+                torch.float64).reshape(-1)
         return src, Unpacked(ad, b_ind, b_dat)
     return sa, b_payload
 

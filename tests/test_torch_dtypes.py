@@ -225,3 +225,51 @@ def test_spgemm_scipy_matches_the_reference(dtype):
         if torch.cuda.is_available():
             raise RuntimeError('no card here: device="cpu"')
         pt.spgemm_scipy(a, a)
+
+
+def _one_dense_row(n=160, seed=7):
+    """160 rows at density 0.08 with row 0 dense: row 0 takes the
+    accumulator under ``enable_accum=True``."""
+    import scipy.sparse as sp
+
+    rs = np.random.RandomState(seed)
+    lil = sp.random(n, n, 0.08, format="csr", random_state=rs).tolil()
+    lil[0, :] = rs.standard_normal(n)
+    mat = lil.tocsr()
+    mat.data = rs.standard_normal(mat.nnz)
+    return pt.HostCSR.from_scipy(mat)
+
+
+C_PATHS = {
+    "fused": {},
+    "two_phase": dict(fused_staging_budget=0),
+    "new_values": {},
+    "accum": dict(enable_accum=True, accum_min_ops=512, stream_width=64,
+                  product_budget=1 << 12),
+}
+
+
+@pytest.mark.parametrize("path", list(C_PATHS))
+@pytest.mark.parametrize("pair", [("bf16", "f32"), ("f16", "f64")],
+                         ids=lambda p: "-".join(p))
+def test_c_type_is_the_fused_paths_on_every_path(pair, path):
+    """A 16-bit A times a wider B: C takes the fused path's type (the
+    promoted one) on the two-phase path, with new values
+    (``execute(A, B)``) and through the accumulator too, with values
+    within that type's gate against the oracle of the rounded inputs.
+    The reference emits the first two in A's type and sums the third in
+    A's type (ROADMAP Queue 3 item 8); the port repairs them."""
+    (ta, _), (tb, _) = TYPES[pair[0]], TYPES[pair[1]]
+    h = _one_dense_row() if path == "accum" else make_powerlaw(300, seed=3)
+    A = pt.device_put_csr(h, ta, device="cpu")
+    B = pt.device_put_csr(h, tb, device="cpu")
+    kw = dict(_BASE, **C_PATHS[path])
+    fused = pt.plan_spgemm(A, B, pt.SpgemmConfig(**_BASE)).execute()
+    plan = pt.plan_spgemm(A, B, pt.SpgemmConfig(**kw))
+    C = plan.execute(A, B) if path == "new_values" else plan.execute()
+    assert plan.stream.fused == (path != "two_phase")
+    assert (plan.stream.n_accum > 0) == (path == "accum")
+    assert fused.data.dtype == torch.promote_types(ta, tb)
+    assert C.data.dtype == fused.data.dtype
+    check_values(rounded(h, ta), rounded(h, tb), pt.device_get_csr(C),
+                 C.data.dtype)

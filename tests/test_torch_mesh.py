@@ -450,6 +450,28 @@ def test_mesh_stream_fp64(x64, exchange):
     assert to[3]["ksplit"] is not None
 
 
+def _no_nonzero_b(case):
+    """Queue 3 item 7's inputs: an 8 x 8 matrix with no nonzeros (A = B),
+    and a 32 x 16 random A times a 16 x 24 B with no nonzeros."""
+    if case == "empty_8x8":
+        e = JHostCSR.from_scipy(sp.csr_matrix((8, 8)))
+        return e, e
+    rs = np.random.RandomState(5)
+    a = sp.random(32, 16, 0.2, format="csr", random_state=rs)
+    return (JHostCSR.from_scipy(a),
+            JHostCSR.from_scipy(sp.csr_matrix((16, 24))))
+
+
+@pytest.mark.parametrize("exchange", ["needset", "needset_overlap"])
+@pytest.mark.parametrize("case", ["empty_8x8", "empty_b_32x16x24"])
+def test_mesh_stream_fp64_b_without_nonzeros(x64, case, exchange):
+    """float64 need-set exchanges of a B with no nonzeros: the received
+    payload has no rows, and its value plane still views as float64."""
+    a, b = _no_nonzero_b(case)
+    _, to = _both(a, b, 4, exchange, np_dtype=np.float64)
+    assert int(tdist.fetch_output(to[0]).sum()) == 0
+
+
 def test_mesh_ksplit_caps_at_64_rows():
     rs = np.random.RandomState(51)
     base = sp.random(240, 240, 0.05, format="csr", random_state=rs)

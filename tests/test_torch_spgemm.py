@@ -149,6 +149,43 @@ def test_spgemm_entry_point_and_cli(tmp_path):
     assert main(["cli", path, str(ini)], device="cpu") == 0
 
 
+@pytest.mark.parametrize("flag", [False, True], ids=["f32", "fp64"])
+def test_cli_fp64(tmp_path, monkeypatch, flag):
+    """``--fp64`` runs the CLI in float64 end to end (as runspeck's flag
+    does): every call's C is float64 and within 1e-9 of scipy; without
+    the flag the run stays float32."""
+    from speck_tpu_torch import executor
+    from speck_tpu_torch.cli import main
+    from speck_tpu_torch.formats.csr import HostCOO
+    from speck_tpu_torch.formats.mtx import store_mtx
+
+    h = pt.HostCSR.from_host(_direct())
+    coo = h.to_scipy().tocoo()
+    path = str(tmp_path / "m.mtx")
+    store_mtx(path, HostCOO(h.rows, h.cols, coo.row.astype(np.uint32),
+                            coo.col.astype(np.uint32), coo.data))
+    ini = tmp_path / "c.ini"
+    ini.write_text("IterationsWarmUp=1\nIterationsExecution=1\n")
+    outs = []
+
+    def recording_spgemm(*args, **kw):
+        outs.append(executor_spgemm(*args, **kw))
+        return outs[-1]
+
+    executor_spgemm = executor.spgemm
+    monkeypatch.setattr(executor, "spgemm", recording_spgemm)
+    argv = ["cli", path, str(ini)] + (["--fp64"] if flag else [])
+    assert main(argv, device="cpu") == 0
+    assert len(outs) == 2
+    want = torch.float64 if flag else torch.float32
+    ref = pt.oracle_spgemm(h, h)
+    for C in outs:
+        assert C.data.dtype == want
+        r = pt.compare_csr(ref, pt.device_get_csr(C), compare_data=True,
+                           rel_tol=1e-9 if flag else 2e-3)
+        assert r.ok, r.message
+
+
 def test_float64_raises():
     """float64 no longer raises: the direct-copy input streams in float64
     (the unpacked B gathers) with float64 values out, equal to JAX's under
