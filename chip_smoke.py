@@ -7,9 +7,9 @@ routes of spgemm on bench configs 1, 1b, the 27-point stencil and the fp64
 banded config, the general stream (a 2^20-row graph with the two-key
 chunk sort, float64, row blocks, the dense-tile gate counted on the
 device), the dense tiles, the accumulator, config 4 with the device
-transpose and the Galerkin product, the gather probes, and the benchmark
+transpose and the Galerkin product, the gather probes, the benchmark
 harness (speck_tpu_torch.bench: its headline cell and config 3's stage
-split), and check each against its reference.
+split) and the nine stage probes, and check each against its reference.
 
     python3 chip_smoke.py
 
@@ -151,6 +151,23 @@ Phases (any failure raises and exits non-zero; nothing falls back):
      headline JSON with bench.py's keys, scipy's median of 3 beside it),
      then config 3 with its stage split (--stages); each must pass the
      scipy oracle and config 3 must launch K1 and K2;
+  8c. (after 8b) the nine stage probes (speck_tpu_torch.probes, the ports
+     of scripts/profile_plan.py, mixed_probe.py, rect_probe.py,
+     giant_probe.py, ab_stream.py, dense_probe.py, micro2.py,
+     slice_gather_bench.py and ab_overlap.py), each split once at its
+     script's size (STAGE_REPS repetitions after a warm call; the dense
+     probe on config 4's plan, which has no dense group, then on config 1
+     under enable_dia=False; profile_plan's loadBalanceCounting split on
+     the giant row and stencil27 too), its rows printed with the card, with the
+     checks of their tests: execute() equal to the complete call, the
+     probes' counting chunks and records equal to the plan's (build_srec
+     under each of its four variants), the dense stages composing to
+     dense_tiles's output, micro2's gather variants bit-equal, the slice
+     gathers equal to numpy indexing, the 8-shard mesh's two exchanges
+     giving the same C; config 2's C and the mesh's against the scipy
+     oracle (rel_tol 2e-3); K1 and K2 must launch; the phase's seconds;
+     then K1 and K2 at every shape the phase launched them at and 7b did
+     not hold, checked and timed as in 7b;
   9. every torch.profiler session, after every CUDA-event time above: K1
      and K3 at each shape timed before (K1 but at the shapes only the
      mesh launches), their device time (the kernel and the clear of its
@@ -165,15 +182,16 @@ Phases (any failure raises and exits non-zero; nothing falls back):
      probe's and its library call's device time (medians of 5 profiled
      calls); last, one warm call of the mesh's config 3 needset, config 1
      dense, config 3 overlap, giant row and fixed-cap cells (7f) as those
-     of 7c.
+     of 7c; last, one profiled overlapped step of 8c's mesh (the device
+     order of K2's launches and the exchange's copies, unchecked).
 Bounds (bound_ms): the bytes each function must move (inputs read once,
 outputs written once) over 3.35 TB/s, the H100 SXM's device memory rate
 (NVIDIA's data sheet); every kernel here is bound by bytes. library_ms is
 one PyTorch call computing the same function, where there is one; the port
 never calls it. Launches in the kernels' line: K1's over phases 4, 4b, 7c
-(config 1b), 7e, 7f, 7h and 8b (float32), its double variant's over the
-float64 cells of 7d and 7f, its 16-bit variants' over 7h's config 3
-cells, K2's over 4, 4b, 7, 7c, 7d, 7e, 7f, 7h and 8b (an entry of its own
+(config 1b), 7e, 7f, 7h, 8b and 8c (float32), its double variant's over
+the float64 cells of 7d and 7f, its 16-bit variants' over 7h's config 3
+cells, K2's over 4, 4b, 7, 7c, 7d, 7e, 7f, 7h, 8b and 8c (an entry of its own
 for the widths that are not powers of two), K3's over 7 and 7f (the
 fixed cap), its double variant's over 7d's esc_fixed and its 16-bit
 variants' over 7h's esc_fixed. The line's ms is the CUDA-event
@@ -441,7 +459,10 @@ def timed_ms(fn):
 
 CONFIG1 = ("make_banded", (65536, 16, 3))
 CONFIG1B = ("make_mixed", ())
+CONFIG2 = ("make_powerlaw", (131072, 12, 2.2, 5))
 CONFIG3 = ("make_powerlaw", (262144, 12, 2.2, 7))
+# ab_overlap's matrix (make_powerlaw(65536, avg=8, seed=5))
+OVERLAP = ("make_powerlaw", (65536, 8, 2.2, 5))
 GIANT = ("make_giant_row", ())
 STENCIL27 = ("make_stencil27", (102, 19))
 FP64_BAND = ("make_banded", (16384, 8, 9))
@@ -496,16 +517,22 @@ def products_ab(a, b):
     return int(b_len[np.asarray(a.col_ids, np.int64)].sum())
 
 
-def check_oracle(pt, name, ref, C, dtype, rel_tol):
-    """C (on the card) against the oracle: finite, C's dtype the input's,
-    structure exact, values within rel_tol; returns the host C."""
-    check(C.data.dtype == dtype, f"{name}: C holds {C.data.dtype} values")
-    Ch = pt.device_get_csr(C)
+def check_host(pt, name, ref, Ch, rel_tol):
+    """A host C against the oracle: finite, structure exact, values within
+    rel_tol."""
     check(bool(np.isfinite(Ch.data).all()), f"non-finite values in {name}")
     r = pt.compare_csr(ref, Ch)
     check(r.ok, f"{name} structure differs from the oracle: {r.message}")
     r = pt.compare_csr(ref, Ch, compare_data=True, rel_tol=rel_tol)
     check(r.ok, f"{name} values differ from the oracle: {r.message}")
+
+
+def check_oracle(pt, name, ref, C, dtype, rel_tol):
+    """C (on the card) against the oracle: C's dtype the input's, then
+    check_host; returns the host C."""
+    check(C.data.dtype == dtype, f"{name}: C holds {C.data.dtype} values")
+    Ch = pt.device_get_csr(C)
+    check_host(pt, name, ref, Ch, rel_tol)
     return Ch
 
 
@@ -1971,6 +1998,229 @@ def bench_phase(pt, smi):
     return counts
 
 
+# the stage probes' repetitions in phase 8c (each after one warm call)
+STAGE_REPS = 2
+
+
+def stage_rows(name, rows, smi):
+    from speck_tpu_torch.probes.split import print_rows
+
+    print(f"stage probe {name}:", flush=True)
+    print_rows(rows, smi)
+    return {r[0]: r[3] for r in rows}
+
+
+def csr_equal(X, Y):
+    """Two DeviceCSR results equal in structure and value bits."""
+    return (X.nnz == Y.nnz and torch.equal(X.indptr, Y.indptr)
+            and torch.equal(X.indices[: X.nnz], Y.indices[: Y.nnz])
+            and torch.equal(X.data[: X.nnz], Y.data[: Y.nnz]))
+
+
+def tuple_equal(xs, ys):
+    return len(xs) == len(ys) and all(torch.equal(x, y)
+                                      for x, y in zip(xs, ys))
+
+
+def staged_equal(plan, c, stg, n_products):
+    """A probe's chunk c (stream_chunk as the counting loop calls it)
+    equal to the plan's staged chunk, compacted first where the plan
+    compacted its raw chunks (C has duplicates)."""
+    from speck_tpu_torch.ops.stream import compact_staged
+    from speck_tpu_torch.probes.split import chunk_is_raw
+
+    if chunk_is_raw(plan, c) and plan.nnz != n_products:
+        stg = compact_staged(*stg, n_cols=plan.shape[1])
+    return tuple_equal(stg, plan.stream.staged[c])
+
+
+def stage_probe_phase(pt, smi):
+    """Phase 8c: the nine stage probes (speck_tpu_torch.probes, the ports
+    of scripts/profile_plan.py ... ab_overlap.py), each split once at its
+    script's size with STAGE_REPS repetitions, through the port's own
+    functions, its rows printed with the card; the checks of their tests:
+    execute() and the chunk probes' staged chunks and records equal the
+    plan's, the dense stages compose to dense_tiles's output, micro2's
+    gather variants bit-equal, the slice gathers equal their plain
+    indexing, the mesh's two exchanges give the same C. Returns (K1's and
+    K2's launches in the phase, their shapes, the overlapped mesh step
+    for phase 9's schedule, the seconds)."""
+    from speck_tpu_torch.probes import (ab_overlap, ab_stream, dense_probe,
+                                        giant_probe, micro2, mixed_probe,
+                                        profile_plan, rect_probe,
+                                        slice_gather_bench)
+    from speck_tpu_torch.probes.split import layout_line
+    from speck_tpu_torch.probes.timing import cuda_ms
+    from speck_tpu_torch.utils import generators
+
+    t0 = time.perf_counter()
+    reset_counts()
+    R = STAGE_REPS
+    f32 = torch.float32
+    h1 = host_and_oracle(pt, CONFIG1)[0]
+    A1 = pt.device_put_csr(h1, f32, "cuda")
+
+    by = stage_rows("profile_plan config1",
+                    profile_plan.split(A1, reps=R), smi)
+    check(csr_equal(by["dia execute()"], pt.spgemm(A1, A1)),
+          "profile_plan: execute() differs from spgemm")
+
+    h1b = host_and_oracle(pt, CONFIG1B)[0]
+    A1b = pt.device_put_csr(h1b, f32, "cuda")
+    by = stage_rows("mixed_probe config 1b", mixed_probe.split(A1b, reps=R),
+                    smi)
+    print(mixed_probe.routes_line(by["routes"]), flush=True)
+    check(csr_equal(by["execute (staged)"], by["complete"]),
+          "mixed_probe: execute() differs from the complete call")
+    del A1b
+
+    hp = generators.make_prolongation(65536, 16384)
+    P = pt.device_put_csr(hp, f32, "cuda")
+    by = stage_rows("rect_probe config 4", rect_probe.split(A1, P, reps=R),
+                    smi)
+    plan4 = by["layout"]
+    ss = plan4.stream
+    check(ss is not None and ss.layout.total_q > 0,
+          "rect_probe: config 4 did not take the stream")
+    print(layout_line(plan4), flush=True)
+    n4 = products_ab(h1, hp)
+    check(all(staged_equal(plan4, c, stg, n4)
+              for c, (_, stg) in enumerate(by["counting chunks"])),
+          "rect_probe: a counting chunk differs from the plan's")
+    check(tuple_equal(by["build_srec (compact=True, pack=False)"],
+                      (ss.p0, ss.su, ss.sa, ss.src, ss.pend))
+          and tuple_equal(by["build_srec (compact=True, pack=True)"],
+                          (ss.p0, ss.su, ss.sa, ss.src, ss.pend))
+          and tuple_equal(by["build_srec (compact=False, pack=True)"],
+                          by["build_srec (compact=False, pack=False)"]),
+          "rect_probe: build_srec differs from the plan's records")
+    check(csr_equal(by["execute (staged gather emit)"],
+                    by["spgemm complete"]),
+          "rect_probe: execute() differs from the complete call")
+    print(f"dense_probe config4: {dense_probe.group_line(plan4)}"
+          + ("" if plan4.dense else "; no dense group; counting is "
+             "elsewhere"), flush=True)
+    del P, plan4, ss, by
+
+    planb = pt.plan_spgemm(A1, A1, pt.SpgemmConfig(enable_dia=False))
+    print(f"dense_probe dense_banded: {dense_probe.group_line(planb)}",
+          flush=True)
+    by = stage_rows("dense_probe dense_banded", dense_probe.split(planb, R),
+                    smi)
+    whole = by["dense_tiles whole"][1]
+    check(tuple_equal(by["compaction sort"], whole)
+          and tuple_equal(whole, planb.dense_staged[0]),
+          "dense_probe: the stages do not compose to dense_tiles")
+    del planb, by, whole
+    torch.cuda.empty_cache()
+
+    hg = host_and_oracle(pt, GIANT)[0]
+    AG = pt.device_put_csr(hg, f32, "cuda")
+    by = stage_rows("giant_probe", giant_probe.split(AG, reps=R), smi)
+    plang = by["full plan_spgemm"]
+    print(layout_line(plang), flush=True)
+    check(all(staged_equal(plang, 0, by[f"full chunk (stage, compact)[{s}]"]
+                           [1], 0) for s in giant_probe.CHUNK_SORTS),
+          "giant_probe: chunk 0 differs from the plan's")
+    del plang, by
+    # loadBalanceCounting split on the two cells past host_analysis_max_nnz
+    # (profile_plan giant_row and stencil27), here in an old process
+    for name, A, step in (("giant_row", AG, "plan_device_stream"),
+                          ("stencil27", None,
+                           "_plan_sdia (spGEMMCounting, allocC)")):
+        if A is None:
+            A = pt.device_put_csr(host_and_oracle(pt, STENCIL27)[0], f32,
+                                  "cuda")
+        rows = profile_plan.lbc_split(A, reps=R)
+        by = stage_rows(f"profile_plan {name} (old process)", rows, smi)
+        print(profile_plan.sum_line(rows, smi), flush=True)
+        check(step in by, f"profile_plan {name}: no {step} step")
+        del A, rows, by
+        torch.cuda.empty_cache()
+    del AG
+
+    h2, ref2 = host_and_oracle(pt, CONFIG2)[:2]
+    A2 = pt.device_put_csr(h2, f32, "cuda")
+    by = stage_rows("ab_stream config 2", ab_stream.split(A2, reps=R), smi)
+    plan2 = by["layout"]
+    c = min(1, plan2.stream.layout.n_chunks - 1)
+    check(staged_equal(plan2, c, by["full chunk (stage_raw)"][1],
+                       products_ab(h2, h2)),
+          "ab_stream: the chunk differs from the plan's")
+    check(all(csr_equal(by[f"config2 {n}"], by["execute() fused"])
+              for n, _ in ab_stream.VARIANTS),
+          "ab_stream: a sort variant's C differs")
+    check_oracle(pt, "ab_stream config 2", ref2, by["execute() fused"], f32,
+                 2e-3)
+    del A2, plan2, by
+    torch.cuda.empty_cache()
+
+    cols, vals, src = micro2.gather_inputs("cuda")
+    rows = micro2.gather_split(cols, vals, src, R)
+    (c0, v0), (c1, v1) = rows[0][3], rows[1][3]
+    check(torch.equal(c0, c1) and torch.equal(v0.view(torch.int32),
+                                              v1.view(torch.int32)),
+          "micro2: the gather variants differ")
+    stage_rows("micro2 gathers", rows, smi)
+    for label, fn in micro2.gather_calls(cols, vals, src).items():
+        print(f"  {label}: device {cuda_ms(fn, R):.3f} ms by CUDA events "
+              f"[{smi}]", flush=True)
+    del cols, vals, src, rows, c0, v0, c1, v1
+    stage_rows("micro2 config 1 planning", micro2.plan_split(A1, reps=R),
+               smi)
+
+    M, RW = 1 << 22, 16
+    arrays = slice_gather_bench.inputs(M, RW, "cuda")
+    by = stage_rows("slice_gather_bench", slice_gather_bench.split(
+        *arrays, RW, R), smi)
+    tab, _, idx, st = (x.cpu().numpy() for x in arrays)
+    want = tab[np.clip(st, 0, tab.shape[0] - RW)[:, None] + np.arange(RW)]
+    check(np.array_equal(by["A element gather"].cpu().numpy(), tab[idx])
+          and np.array_equal(by["B slice gather"].cpu().numpy(), want)
+          and np.array_equal(by["E lax.gather slices"].cpu().numpy(), want),
+          "slice_gather_bench: a gather differs from its plain indexing")
+    for label, fn in slice_gather_bench.calls(*arrays, RW).items():
+        print(f"  {label}: device {cuda_ms(fn, R):.4f} ms by CUDA events "
+              f"[{smi}]", flush=True)
+    del arrays, by, tab, idx, st, want
+
+    ha, refa = host_and_oracle(pt, OVERLAP)[:2]
+    mesh = ab_overlap.mesh_of(torch.device("cuda"))
+    rows = ab_overlap.split(ha, mesh, iters=R)
+    ab_overlap.check_equal(rows)
+    check_host(pt, "ab_overlap's 8-shard mesh", refa,
+               ab_overlap.host_c(rows[0]), 2e-3)
+    for label, med, mn, o in rows:
+        print(f"stage probe ab_overlap {label} ({mesh.size} shards on "
+              f"{sorted({str(d) for d in mesh.devices})}): first "
+              f"{o['first_ms']:.1f} ms, warm step median {med:.1f} ms, min "
+              f"{mn:.1f} ms, nnz={o['nnz']} [{smi}]", flush=True)
+    step = rows[1][3]["step"]
+    del rows
+    counts, shapes = launch_counts()
+    seconds = time.perf_counter() - t0
+    print(f"phase 8c: the nine stage probes in {seconds:.1f} s; launches "
+          f"{counts} [{smi}]", flush=True)
+    check(all(counts.values()), f"phase 8c launched {counts}")
+    return counts, shapes, (step, mesh, ha.rows), seconds
+
+
+def overlap_schedule_line(overlap, smi):
+    """The device order of one profiled overlapped step of phase 8c's
+    mesh (ab_overlap.schedule), its reports under build/; no check: after
+    the sessions before it the profiler may record no device event."""
+    from speck_tpu_torch.probes import ab_overlap
+
+    (fn, args), mesh, m = overlap
+    sched = ab_overlap.schedule(fn, args)
+    entries, before, ranges = sched
+    n_k2 = sum(1 for e in entries if e[0] == "K2")
+    return (f"ab_overlap schedule (phase 8c's mesh, m={m}): "
+            f"{len(ranges)} labelled exchange ranges, {n_k2} K2 launches, "
+            f"{len(entries) - n_k2} exchange copies, {before} K2 launches "
+            f"before the first exchange copy [{smi}]")
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; "
@@ -2220,6 +2470,25 @@ def main():
     bench_launches = bench_phase(pt, smi)
     torch.cuda.empty_cache()
 
+    phase("8c")
+    # 8c. the nine stage probes at their scripts' sizes
+    stage_launches, stage_shapes, overlap, _ = stage_probe_phase(pt, smi)
+    shape_histogram("phase 8c", stage_shapes[1])
+    shape_histogram("phase 8c", stage_shapes[0], "K1", "rid, dtype")
+    # K1 and K2 at every shape 8c launched them at that 7b did not hold
+    # against their plain versions (config 2's chunks and wide rows, the
+    # 8-shard mesh's); phase 9 leaves these K1 shapes out, as the mesh's
+    for shape in sorted(set(stage_shapes[0]) - set(k1)):
+        k1[shape] = contract_case(gen, *shape)
+        contract_line(*shape, k1[shape], smi, " (phase 8c shape)")
+        k1_mesh.add(shape)
+        torch.cuda.empty_cache()
+    for shape in sorted(set(stage_shapes[1]) - set(k2)):
+        k2[shape] = sort_case(gen, *shape)
+        sort_line(*shape, k2[shape], smi, " (phase 8c shape)")
+        torch.cuda.empty_cache()
+    torch.cuda.empty_cache()
+
     phase("9")
     # 9. the profiled phase, after every CUDA-event time of the phases
     # above: K1's and K3's device times, the giant row's profiled call, then
@@ -2270,6 +2539,8 @@ def main():
         "mesh config 3 needset", "mesh config 1 dense",
         "mesh config 3 overlap", "mesh giant row needset",
         "mesh fixed cap config 1")]
+    # and phase 8c's overlapped mesh step, the last session
+    overlap_line = overlap_schedule_line(overlap, smi)
 
     k1_main = (512, 8192, "plane", "float32")
     k1_main64 = (512, 8192, "plane", "float64")
@@ -2284,6 +2555,8 @@ def main():
          "replaces": "speck_tpu/ops/pallas_kernels.py:122",
          "launches": (launches["stream_contract"]
                       + bench_launches["stream_contract"]
+                      + sum(n for k, n in stage_shapes[0].items()
+                            if k[3] == "float32")
                       + giant["launches"]["stream_contract"]
                       + onebee["stream_contract"]
                       + sum(c["launches"]["stream_contract"]
@@ -2311,6 +2584,7 @@ def main():
          "source": "speck_tpu_torch/csrc/row_sort.cu",
          "replaces": "speck_tpu/ops/bitonic.py:172",
          "launches": (launches["row_sort"] + bench_launches["row_sort"]
+                      + stage_launches["row_sort"]
                       + giant["launches"]["row_sort"]
                       + esc_launches["row_sort"] + onebee["row_sort"]
                       + sum(c["launches"]["row_sort"] for c in gen_cells)
@@ -2413,6 +2687,7 @@ def main():
         print(line, flush=True)
     for cell in type_cells:
         print(cell["line"], flush=True)
+    print(overlap_line, flush=True)
     phase("end")
     print(json.dumps({"kernels": kernels}))
     print(smi)

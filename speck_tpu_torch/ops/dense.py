@@ -231,6 +231,76 @@ def _full_precision_bmm(a, b):
         torch.set_float32_matmul_precision(prev)
 
 
+def tile_gather_a(r0s, a_indptr, a_indices, a_data, a_packed=None, *,
+                  tile_rows: int, la: int, m: int):
+    """The K tiles' A rows r0 + [0, TR) as one flat (K * TR) batch and
+    their (K * TR, la) rectangle: (rows, rows < m, (col, val, live))."""
+    t_tr = torch.arange(tile_rows, dtype=I32, device=r0s.device)[None, :]
+    rows = (r0s[:, None] + t_tr).reshape(-1)
+    vrow = rows < m
+    return rows, vrow, _gather_rect(
+        a_indptr, a_indices, a_data, torch.clamp(rows, max=m - 1), vrow, la,
+        packed=a_packed)
+
+
+def tile_gather_b(kbases, b_indptr, b_indices, b_data, b_packed=None, *,
+                  kw: int, lb: int, k_dim: int):
+    """The K tiles' B rows kbase + [0, kw) as one flat (K * kw) batch: their
+    (K * kw, lb) rectangle (col, val, live)."""
+    ks = (kbases[:, None]
+          + torch.arange(kw, dtype=I32, device=kbases.device)[None, :]
+          ).reshape(-1)
+    return _gather_rect(b_indptr, b_indices, b_data,
+                        torch.clamp(ks, max=k_dim - 1), ks < k_dim, lb,
+                        packed=b_packed)
+
+
+def tile_densify(col, val, live, bases, rep: int, width: int,
+                 densify: str = "sort"):
+    """A rectangle into its windows: each row's columns made local to its
+    tile's base (``rep`` rows a tile), dead entries at ``width``, then
+    densified (dense values, hit pattern)."""
+    loc = torch.where(live, col - bases.repeat_interleave(rep)[:, None],
+                      width).to(I32)
+    dens = _densify_scatter if densify == "scatter" else _densify_sorted
+    return dens(loc, val, width)
+
+
+def tile_products(A_dense, A_hit, B_dense, B_hit, *, tile_rows: int, kw: int,
+                  cw: int):
+    """The window products as one batched ``bmm`` each: values at full
+    precision and the bfloat16 pattern count, both (K * TR, cw)."""
+    K = A_dense.shape[0] // tile_rows
+    C_vals = _full_precision_bmm(
+        A_dense.reshape(K, tile_rows, kw), B_dense.reshape(K, kw, cw)
+    ).reshape(K * tile_rows, cw)
+    C_cnt = torch.bmm(
+        A_hit.reshape(K, tile_rows, kw).to(torch.bfloat16),
+        B_hit.reshape(K, kw, cw).to(torch.bfloat16)).reshape(K * tile_rows,
+                                                             cw)
+    return C_vals, C_cnt
+
+
+def tile_compact(C_vals, C_cnt, vrow, cbases, *, tile_rows: int, cw: int,
+                 n_cols: int):
+    """The rank compaction (one K2 sort): each tile row's present entries
+    to its front in column order. Returns (counts (K, TR), cols (K, TR,
+    cw), vals (K, TR, cw))."""
+    K = C_vals.shape[0] // tile_rows
+    t_cw = torch.arange(cw, dtype=I32, device=C_vals.device)[None, :]
+    cb_row = cbases.repeat_interleave(tile_rows)
+    present = ((C_cnt > 0.5) & vrow[:, None]
+               & ((cb_row[:, None] + t_cw) < n_cols))
+    counts = torch.sum(present, dim=1, dtype=I32)
+    rank = torch.cumsum(present, 1, dtype=I32) - 1
+    key = torch.where(present, rank, cw + t_cw).to(I32)
+    cols_g = torch.where(present, cb_row[:, None] + t_cw, n_cols).to(I32)
+    _, (cols_c, moved) = _sort_rows(key, [cols_g, slot_payload(C_vals)])
+    vals_c = by_slot(C_vals, moved)
+    return (counts.reshape(K, tile_rows), cols_c.reshape(K, tile_rows, cw),
+            vals_c.reshape(K, tile_rows, cw))
+
+
 def dense_tiles(r0s, kbases, cbases, a_indptr, a_indices, a_data, b_indptr,
                 b_indices, b_data, nnz_row, a_packed=None, b_packed=None, *,
                 tile_rows: int, kw: int, cw: int, la: int, lb: int, m: int,
@@ -244,56 +314,20 @@ def dense_tiles(r0s, kbases, cbases, a_indptr, a_indices, a_data, b_indptr,
     count in ``nnz_row`` (padded by one drop slot, in place) and returns
     (nnz_row, (counts (K, TR), cols (K, TR, cw), vals (K, TR, cw))), the
     staged layout ``dense_emit`` consumes."""
-    K = r0s.shape[0]
-    dev = r0s.device
-    t_tr = torch.arange(tile_rows, dtype=I32, device=dev)[None, :]
-    t_cw = torch.arange(cw, dtype=I32, device=dev)[None, :]
-    dens = _densify_scatter if densify == "scatter" else _densify_sorted
-
-    # A side: (K * TR, la) rectangle into (K * TR, kw) windows
-    rows = (r0s[:, None] + t_tr).reshape(-1)
-    vrow = rows < m
-    acol, aval, alive = _gather_rect(
-        a_indptr, a_indices, a_data, torch.clamp(rows, max=m - 1), vrow, la,
-        packed=a_packed)
-    kb_row = kbases.repeat_interleave(tile_rows)
-    kloc = torch.where(alive, acol - kb_row[:, None], kw).to(I32)
-    A_dense, A_hit = dens(kloc, aval, kw)
-
-    # B side: (K * kw, lb) rectangle into (K * kw, cw) windows
-    ks = (kbases[:, None] + torch.arange(kw, dtype=I32, device=dev)[None, :]
-          ).reshape(-1)
-    vk = ks < k_dim
-    bcol, bval, blive = _gather_rect(
-        b_indptr, b_indices, b_data, torch.clamp(ks, max=k_dim - 1), vk, lb,
-        packed=b_packed)
-    cb_k = cbases.repeat_interleave(kw)
-    cloc = torch.where(blive, bcol - cb_k[:, None], cw).to(I32)
-    B_dense, B_hit = dens(cloc, bval, cw)
-
-    C_vals = _full_precision_bmm(
-        A_dense.reshape(K, tile_rows, kw), B_dense.reshape(K, kw, cw)
-    ).reshape(K * tile_rows, cw)
-    C_cnt = torch.bmm(
-        A_hit.reshape(K, tile_rows, kw).to(torch.bfloat16),
-        B_hit.reshape(K, kw, cw).to(torch.bfloat16)).reshape(K * tile_rows,
-                                                             cw)
-
-    cb_row = cbases.repeat_interleave(tile_rows)
-    present = ((C_cnt > 0.5) & vrow[:, None]
-               & ((cb_row[:, None] + t_cw) < n_cols))
-    counts = torch.sum(present, dim=1, dtype=I32)
-    nnz_row.index_put_((torch.where(vrow, rows, m),), counts)
-
-    # rank compaction: present entries to the row front in column order
-    rank = torch.cumsum(present, 1, dtype=I32) - 1
-    key = torch.where(present, rank, cw + t_cw).to(I32)
-    cols_g = torch.where(present, cb_row[:, None] + t_cw, n_cols).to(I32)
-    _, (cols_c, moved) = _sort_rows(key, [cols_g, slot_payload(C_vals)])
-    vals_c = by_slot(C_vals, moved)
-    return nnz_row, (counts.reshape(K, tile_rows),
-                     cols_c.reshape(K, tile_rows, cw),
-                     vals_c.reshape(K, tile_rows, cw))
+    rows, vrow, (acol, aval, alive) = tile_gather_a(
+        r0s, a_indptr, a_indices, a_data, a_packed, tile_rows=tile_rows,
+        la=la, m=m)
+    A_dense, A_hit = tile_densify(acol, aval, alive, kbases, tile_rows, kw,
+                                  densify)
+    bcol, bval, blive = tile_gather_b(kbases, b_indptr, b_indices, b_data,
+                                      b_packed, kw=kw, lb=lb, k_dim=k_dim)
+    B_dense, B_hit = tile_densify(bcol, bval, blive, cbases, kw, cw, densify)
+    C_vals, C_cnt = tile_products(A_dense, A_hit, B_dense, B_hit,
+                                  tile_rows=tile_rows, kw=kw, cw=cw)
+    staged = tile_compact(C_vals, C_cnt, vrow, cbases, tile_rows=tile_rows,
+                          cw=cw, n_cols=n_cols)
+    nnz_row.index_put_((torch.where(vrow, rows, m),), staged[0].reshape(-1))
+    return nnz_row, staged
 
 
 def dense_emit(r0s, counts, cols_c, vals_c, row_offsets, c_cols, c_vals, *,

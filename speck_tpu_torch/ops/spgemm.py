@@ -249,6 +249,15 @@ class StreamState:
     accum: Optional[dict] = None            # n_chunks2, G, W, parts
     accum_bufs: Optional[list] = None       # staged finalize outputs
 
+    def staged_cat(self):
+        """The staged chunks' columns and values, each concatenated once
+        (the gather emit's input, kept for repeated execute())."""
+        if self.staged_flat is None:
+            self.staged_flat = (
+                torch.cat([s[1].reshape(-1) for s in self.staged]),
+                torch.cat([s[2].reshape(-1) for s in self.staged]))
+        return self.staged_flat
+
 
 @dataclasses.dataclass
 class DiaRowGroup:
@@ -337,12 +346,8 @@ class SpgemmPlan:
             if gather_emit:
                 # contained stream rows by gather over the concatenated
                 # staged buffers; wide and direct rows overwrite theirs
-                if ss.staged_flat is None:
-                    ss.staged_flat = (
-                        torch.cat([s[1].reshape(-1) for s in ss.staged]),
-                        torch.cat([s[2].reshape(-1) for s in ss.staged]))
                 c_cols, c_vals = stream_gather_emit(
-                    ss.rows_sorted, ss.e, self.row_offsets, *ss.staged_flat,
+                    ss.rows_sorted, ss.e, self.row_offsets, *ss.staged_cat(),
                     W=ss.layout.W, nnz=self.nnz)
             else:
                 # one trailing slot takes the dropped scatter writes
@@ -564,6 +569,27 @@ def _dense_operands(A: DeviceCSR, B: DeviceCSR):
     if B.indices is A.indices and B.data is A.data:
         return apk, apk
     return apk, pack_csr_arrays(B.indices, B.data)
+
+
+def count_chunk(ss: StreamState, ops, nnz_row, c: int, n_cols: int,
+                knobs: dict):
+    """Chunk c of the counting loop (``stream_chunk``: expand, K2 sort, K1
+    contract, the rows' counts into ``nnz_row``), staged where the plan
+    keeps it: a chunk with wide rows compacted, every chunk of a fused
+    plan, the contained-only ones raw (sorted, uncompacted; compaction
+    runs only if C has duplicates). ``ops`` is ``_stream_operands``'s
+    (record channel, B operand). Returns (nnz_row, staged)."""
+    lo = ss.layout
+    CP = lo.G * lo.W
+    has_wide = c * lo.G < lo.r_wide
+    sa_ch, b_rec = ops
+    return stream_chunk(
+        ss.rows_sorted, ss.e, ss.q_sorted, ss.el, ss.ops_sorted, ss.p0,
+        ss.su, sa_ch, ss.pend, b_rec, nnz_row, c * CP, ss.sid_bases[c],
+        G=lo.g_last if c == lo.n_chunks - 1 else lo.G, W=lo.W,
+        n_cols=n_cols, pack_bits=ss.pack_bits, stage=ss.fused or has_wide,
+        stage_raw=ss.fused and not has_wide, window=CP, rowend=ss.rowend,
+        **knobs)
 
 
 def _offsets_from_counts(nnz_row: torch.Tensor):
@@ -1061,6 +1087,20 @@ def _check_limits(cfg: SpgemmConfig, sp_sat: int, mxrow_sat: int):
             f"({cfg.block_products})")
 
 
+def lite_band_ok(cfg: SpgemmConfig, ext, ah, bh, m: int):
+    """The lite host gate's band test from the band extremes ``ext``:
+    (the contiguous DIA route possible, the sparse DIA route possible)."""
+    a0, a1, b0, b1 = ext
+    sa_l, sb_l = a1 - a0 + 1, b1 - b0 + 1
+    contig_ok = bool(a0 <= a1 and b0 <= b1 and sa_l <= cfg.dia_span_cap
+                     and sb_l <= cfg.dia_span_cap)
+    sdia_ok = bool(cfg.enable_sdia and a0 <= a1 and b0 <= b1
+                   and sa_l <= cfg.sdia_span_cap
+                   and sb_l <= cfg.sdia_span_cap
+                   and ah.nnz * bh.nnz <= cfg.sdia_pair_cap * m * bh.rows)
+    return contig_ok, sdia_ok
+
+
 def _gate_readback(cfg: SpgemmConfig, A: DeviceCSR, B: DeviceCSR, stats,
                    m: int):
     """The early routing gate: the 7 gate scalars in one small readback
@@ -1078,9 +1118,182 @@ def _gate_readback(cfg: SpgemmConfig, A: DeviceCSR, B: DeviceCSR, stats,
     return None
 
 
+@dataclasses.dataclass(frozen=True)
+class PlanPack:
+    """The planning pack of ``stream.plan_device_stream``, read on the
+    host: the class histograms, the dense-tile scalars (n_eligible, kw,
+    cw, la, lb), the 7 gate scalars, the per-row DIA band and routed row
+    count, the live A slots of the stream and the accumulator, and the
+    tight layout's W, total_q, n_wide, r_wide and wide segments."""
+
+    s_hist: np.ndarray
+    d_hist: np.ndarray
+    a_hist: np.ndarray
+    a_psum: np.ndarray
+    dense: tuple
+    gate: tuple
+    dia_band: tuple
+    n_live: int
+    n_live2: int
+    W: int
+    total_q: int
+    n_wide: int
+    r_wide: int
+    wide_segs: np.ndarray   # the pack's window of N_WSEG_PACK segments
+
+
+def read_pack(pack_h: np.ndarray) -> PlanPack:
+    q = N_QCLASS
+
+    def ints(lo, hi):
+        return tuple(int(x) for x in pack_h[lo: hi])
+
+    tight = pack_h[4 * q + 19:]
+    W, total_q, n_wide, r_wide = (int(x) for x in tight[:4])
+    return PlanPack(
+        s_hist=pack_h[:q], d_hist=pack_h[q: 2 * q],
+        a_hist=pack_h[2 * q: 3 * q], a_psum=pack_h[3 * q: 4 * q],
+        dense=ints(4 * q, 4 * q + 5), gate=ints(4 * q + 5, 4 * q + 12),
+        dia_band=ints(4 * q + 12, 4 * q + 17),
+        n_live=int(pack_h[4 * q + 17]), n_live2=int(pack_h[4 * q + 18]),
+        W=W, total_q=total_q, n_wide=n_wide, r_wide=r_wide,
+        wide_segs=tight[4:])
+
+
+def stream_records(A: DeviceCSR, B: DeviceCSR, a32, rows_sorted, e, q_sorted,
+                   layout: StreamLayout, n_live: int):
+    """The stream's A-slot records (``build_srec``: p0, su, sa, src, pend)
+    for the ``n_live`` live slots, compacted unless one chunk's window
+    sees every record, and each chunk's first record (sid_bases); a plan
+    with no stream products gets one-element placeholders."""
+    dev = A.device
+    if layout.total_q == 0:
+        zero = torch.zeros(1, dtype=I32, device=dev)
+        return (zero,) * 6
+    CP = layout.G * layout.W
+    nl = _pow2(max(n_live, 1))
+    p0, su, sa, src, pend = build_srec(
+        A.indptr, A.indices, a32, B.indptr[:-1], B.indptr[1:] - B.indptr[:-1],
+        rows_sorted, e, q_sorted, m=A.shape[0], nl=nl,
+        compact=min(nl, A.nnz) > CP + 2)
+    cks = torch.arange(max(layout.n_chunks, 1), dtype=I32, device=dev) * CP
+    return p0, su, sa, src, pend, torch.searchsorted(p0, cks, out_int32=True)
+
+
+def host_layout(pk: PlanPack, cfg: SpgemmConfig, ops_sorted):
+    """The host half of planning from the pack: the stream layout, the
+    wide rows' merge levels and the accumulator's parts (``_plan_accum``).
+    Past the pack's window of wide segments, ONE extra fetch of the wide
+    rows' ops. Returns (layout, lplans, _plan_accum's tuple)."""
+    n_accum_h = int(pk.a_hist.sum())
+    if pk.n_wide <= N_WSEG_PACK:
+        wide_segs = pk.wide_segs[: pk.n_wide].astype(np.int64)
+    else:
+        wide_ops = ops_sorted[n_accum_h: n_accum_h + pk.n_wide
+                              ].cpu().numpy().astype(np.int64)
+        wide_segs = -(-wide_ops // pk.W)
+    layout = plan_layout(pk.s_hist, pk.d_hist, pk.W, cfg.product_budget,
+                         total_q=pk.total_q, n_wide=pk.n_wide,
+                         r_wide=pk.r_wide, wide_segs=wide_segs)
+    lplans = plan_levels(layout, F=cfg.stream_level_factor,
+                         max_width=cfg.stream_max_width)
+    # the accumulator region sorts first: every layout-derived row offset
+    # (wide rids, direct class starts) shifts by n_accum
+    return layout, lplans, _plan_accum(pk.a_hist, pk.a_psum,
+                                       cfg.accum_budget)
+
+
 # ---------------------------------------------------------------------------
 # Entry points
 # ---------------------------------------------------------------------------
+
+
+def dia_route_possible(cfg: SpgemmConfig, A: DeviceCSR, B: DeviceCSR) -> bool:
+    return bool(cfg.enable_dia and A.canonical and B.canonical
+                and A.nnz > 0 and B.nnz > 0)
+
+
+def _call(name: str, fn):
+    """Run a planning step as it is: the default ``step`` of ``lite_gate``
+    and ``host_gates`` (a probe passes one that times each step by its
+    name)."""
+    return fn()
+
+
+def lite_gate(cfg: SpgemmConfig, A: DeviceCSR, B: DeviceCSR, ah, bh,
+              step=_call):
+    """The lite host gate of an input past ``host_analysis_max_nnz`` (A's
+    and B's host copies ``ah``, ``bh``): (lite, route, gate), where route
+    is "dia" with the spans as gate, "sdia" with ``_sdia_gate``'s output,
+    or None (the band admits no diagonal route)."""
+    ext = step("host_band_extremes", lambda: host_band_extremes(ah, bh))
+    if not any(lite_band_ok(cfg, ext, ah, bh, A.shape[0])):
+        return None, None, None
+    lite = step("host_gate_lite", lambda: host_gate_lite(ah, bh, ext))
+    spans = step("_dia_spans", lambda: _dia_spans(
+        cfg, A, B, lite.a_dmin, lite.a_dmax, lite.b_dmin, lite.b_dmax,
+        lite.sp_sat))
+    if spans is not None:
+        return lite, "dia", spans
+    sd = step("_sdia_gate", lambda: _sdia_gate(cfg, A, B, ah, bh, lite))
+    return lite, (None if sd is None else "sdia"), sd
+
+
+def host_gates(cfg: SpgemmConfig, A: DeviceCSR, B: DeviceCSR, ah, bh,
+               dia_possible: bool, step=_call):
+    """The planning pass's route gates: (use_dense, use_dia_rows), each
+    confirmed by its host plausibility test where A's host copy ``ah`` is
+    at hand (B's ``bh`` is read by the dense test only up to
+    ``host_analysis_max_nnz``)."""
+    use_dense = bool(cfg.enable_dense and A.canonical and B.canonical
+                     and B.nnz > 0)
+    if use_dense and ah is not None:
+        use_dense = step("_host_dense_plausible", lambda: (
+            _host_dense_plausible(
+                ah, cfg.dense_tile_rows, cfg.dense_kw,
+                bh=bh if A.nnz <= cfg.host_analysis_max_nnz else None,
+                cw_max=cfg.dense_cw)))
+    use_dia_rows = bool(cfg.dia_rows and dia_possible)
+    if use_dia_rows and ah is not None:
+        use_dia_rows = step("_host_dia_rows_plausible",
+                            lambda: _host_dia_rows_plausible(ah, bh, cfg))
+        # a host-confirmed split claims the banded bulk and leaves no
+        # tile dense-eligible
+        use_dense = use_dense and not use_dia_rows
+    return use_dense, use_dia_rows
+
+
+def _max_tiles(cfg: SpgemmConfig) -> int:
+    return max(0, cfg.fused_staging_budget
+               // (cfg.dense_tile_rows * cfg.dense_cw))
+
+
+def record_bits(A: DeviceCSR) -> torch.Tensor:
+    """A's value bits on the stream's record channel: float32 values as
+    int32 words, else zeros (float64 has no value bits there: the A-source
+    map rides it instead, from build_srec's src)."""
+    return (A.data.contiguous().view(I32) if packable(A.data)
+            else torch.zeros_like(A.indices))
+
+
+def plan_stream(A: DeviceCSR, B: DeviceCSR, cfg: SpgemmConfig, stats, *,
+                use_dense: bool, use_dia_rows: bool):
+    """``stream.plan_device_stream`` with the planning pass's arguments,
+    the route gates' decisions given (``host_gates``)."""
+    max_tiles = _max_tiles(cfg)
+    return plan_device_stream(
+        A.indptr, A.indices, record_bits(A), B.indptr, B.indices,
+        stats.row_ops, stats.row_ops_f, stats.a_len, min_q=cfg.stream_min_q,
+        direct_ok=bool(B.canonical) and cfg.enable_direct, m=A.shape[0],
+        w0=cfg.stream_width, w_cap=cfg.stream_width_cap,
+        use_dia_rows=use_dia_rows, dia_span_cap=cfg.dia_span_cap,
+        dia_waste_cap=cfg.dia_waste_cap, dia_mem_budget=cfg.dia_mem_budget,
+        dia_itemsize=A.data.dtype.itemsize,
+        use_dense=use_dense and max_tiles > 0, tile_rows=cfg.dense_tile_rows,
+        kw_max=cfg.dense_kw, cw_max=cfg.dense_cw, la_max=cfg.dense_la,
+        lb_max=cfg.dense_lb, max_tiles=max_tiles,
+        use_accum=bool(cfg.enable_accum and B.canonical),
+        accum_min_ops=cfg.accum_min_ops, accum_span_cap=cfg.accum_span_cap)
 
 
 def plan_spgemm(A: DeviceCSR, B: DeviceCSR,
@@ -1112,8 +1325,7 @@ def plan_spgemm(A: DeviceCSR, B: DeviceCSR,
     if ah is not None and A.nnz <= cfg.host_analysis_max_nnz:
         with StageTimer(timings, "countProducts", track):
             hg = host_analyze(ah, bh_eff)
-    dia_possible = bool(cfg.enable_dia and A.canonical and B.canonical
-                        and A.nnz > 0 and B.nnz > 0)
+    dia_possible = dia_route_possible(cfg, A, B)
     band_plausible = bool(
         A.nnz <= m * cfg.dia_span_cap
         and B.nnz <= max(B.shape[0], 1) * cfg.dia_span_cap)
@@ -1122,27 +1334,13 @@ def plan_spgemm(A: DeviceCSR, B: DeviceCSR,
     if hg is None and ah is not None and dia_possible:
         # lite host gate for inputs past host_analysis_max_nnz
         with StageTimer(timings, "loadBalanceCounting", track):
-            a0, a1, b0, b1 = ext = host_band_extremes(ah, bh_eff)
-            sa_l, sb_l = a1 - a0 + 1, b1 - b0 + 1
-            contig_ok = bool(a0 <= a1 and b0 <= b1
-                             and sa_l <= cfg.dia_span_cap
-                             and sb_l <= cfg.dia_span_cap)
-            sdia_ok = bool(cfg.enable_sdia and a0 <= a1 and b0 <= b1
-                           and sa_l <= cfg.sdia_span_cap
-                           and sb_l <= cfg.sdia_span_cap
-                           and ah.nnz * bh_eff.nnz
-                           <= cfg.sdia_pair_cap * m * bh_eff.rows)
-            if contig_ok or sdia_ok:
-                lite = host_gate_lite(ah, bh_eff, ext)
-                spans = _dia_spans(cfg, A, B, lite.a_dmin, lite.a_dmax,
-                                   lite.b_dmin, lite.b_dmax, lite.sp_sat)
-                if spans is not None:
-                    return _plan_dia(A, B, cfg, timings, lite, lite.a_dmin,
-                                     lite.b_dmin, *spans, track)
-                sd = _sdia_gate(cfg, A, B, ah, bh_eff, lite)
-                if sd is not None:
-                    return _plan_sdia(A, B, cfg, timings, lite, *sd,
-                                      track=track)
+            lite, route, gate = lite_gate(cfg, A, B, ah, bh_eff)
+            if route == "dia":
+                return _plan_dia(A, B, cfg, timings, lite, lite.a_dmin,
+                                 lite.b_dmin, *gate, track)
+            if route == "sdia":
+                return _plan_sdia(A, B, cfg, timings, lite, *gate,
+                                  track=track)
             dia_lite_rejected = True
     if hg is None:
         with StageTimer(timings, "countProducts", track) as st:
@@ -1173,58 +1371,20 @@ def plan_spgemm(A: DeviceCSR, B: DeviceCSR,
                 return _plan_dia(A, B, cfg, timings, stats, *spans, track)
 
     with StageTimer(timings, "loadBalanceCounting", track):
-        direct_ok = bool(B.canonical) and cfg.enable_direct
-        use_dense = bool(cfg.enable_dense and A.canonical and B.canonical
-                         and B.nnz > 0)
-        tr = cfg.dense_tile_rows
-        max_tiles = max(0, cfg.fused_staging_budget // (tr * cfg.dense_cw))
-        if use_dense and ah is not None:
-            use_dense = _host_dense_plausible(
-                ah, tr, cfg.dense_kw,
-                bh=bh_eff if A.nnz <= cfg.host_analysis_max_nnz else None,
-                cw_max=cfg.dense_cw)
-        use_dia_rows = bool(cfg.dia_rows and dia_possible)
-        if use_dia_rows and ah is not None:
-            use_dia_rows = _host_dia_rows_plausible(ah, bh_eff, cfg)
-            # a host-confirmed split claims the banded bulk and leaves no
-            # tile dense-eligible
-            use_dense = use_dense and not use_dia_rows
-        # float64: no value bits on the record channel (the A-source map
-        # rides it instead, from build_srec's src)
-        a32 = (A.data.contiguous().view(I32) if packable(A.data)
-               else torch.zeros_like(A.indices))
-        use_accum = bool(cfg.enable_accum and B.canonical)
+        use_dense, use_dia_rows = host_gates(cfg, A, B, ah, bh_eff,
+                                             dia_possible)
+        tr, max_tiles = cfg.dense_tile_rows, _max_tiles(cfg)
+        a32 = record_bits(A)
         (rows_sorted, e, q_sorted, el, ops_sorted, nnz_init, pack,
          dia_mask, t_r0, t_kb, t_cb, t_valid, e2, q2_sorted,
-         cmin_sorted) = plan_device_stream(
-            A.indptr, A.indices, a32, B.indptr, B.indices, stats.row_ops,
-            stats.row_ops_f, stats.a_len, min_q=cfg.stream_min_q,
-            direct_ok=direct_ok, m=m, w0=cfg.stream_width,
-            w_cap=cfg.stream_width_cap, use_dia_rows=use_dia_rows,
-            dia_span_cap=cfg.dia_span_cap, dia_waste_cap=cfg.dia_waste_cap,
-            dia_mem_budget=cfg.dia_mem_budget,
-            dia_itemsize=A.data.dtype.itemsize,
-            use_dense=use_dense and max_tiles > 0, tile_rows=tr,
-            kw_max=cfg.dense_kw, cw_max=cfg.dense_cw, la_max=cfg.dense_la,
-            lb_max=cfg.dense_lb, max_tiles=max_tiles, use_accum=use_accum,
-            accum_min_ops=cfg.accum_min_ops,
-            accum_span_cap=cfg.accum_span_cap)
-        pack_h = pack.cpu().numpy()  # the ONE planning host sync
-        s_hist = pack_h[:N_QCLASS]
-        d_hist = pack_h[N_QCLASS: 2 * N_QCLASS]
-        a_hist = pack_h[2 * N_QCLASS: 3 * N_QCLASS]
-        a_psum = pack_h[3 * N_QCLASS: 4 * N_QCLASS]
-        n_elig, kw_e, cw_e, la_e, lb_e = (
-            int(x) for x in pack_h[4 * N_QCLASS: 4 * N_QCLASS + 5])
-        (a_dmin, a_dmax, b_dmin, b_dmax, sp_sat, mxrow_sat, sp_exact) = (
-            int(x) for x in pack_h[4 * N_QCLASS + 5: 4 * N_QCLASS + 12])
-        # per-row DIA split: the robust band and the routed row count
-        dr_dlo_a, dr_dhi_a, dr_dlo_b, dr_dhi_b, n_dia = (
-            int(x) for x in pack_h[4 * N_QCLASS + 12: 4 * N_QCLASS + 17])
-        n_live, n_live2 = (
-            int(x) for x in pack_h[4 * N_QCLASS + 17: 4 * N_QCLASS + 19])
-        tight_h = pack_h[4 * N_QCLASS + 19:]
-        W, total_q, n_wide_t, r_wide_t = (int(x) for x in tight_h[:4])
+         cmin_sorted) = plan_stream(A, B, cfg, stats, use_dense=use_dense,
+                                    use_dia_rows=use_dia_rows)
+        pk = read_pack(pack.cpu().numpy())  # the ONE planning host sync
+        n_elig, kw_e, cw_e, la_e, lb_e = pk.dense
+        (a_dmin, a_dmax, b_dmin, b_dmax, sp_sat, mxrow_sat,
+         sp_exact) = pk.gate
+        dr_dlo_a, dr_dhi_a, dr_dlo_b, dr_dhi_b, n_dia = pk.dia_band
+        n_live, n_live2, W = pk.n_live, pk.n_live2, pk.W
         if not gate_done:
             if dia_possible:
                 spans = _dia_spans(cfg, A, B, a_dmin, a_dmax, b_dmin,
@@ -1233,23 +1393,8 @@ def plan_spgemm(A: DeviceCSR, B: DeviceCSR,
                     return _plan_dia(A, B, cfg, timings, stats, a_dmin,
                                      b_dmin, *spans, track)
             _check_limits(cfg, sp_sat, mxrow_sat)
-        n_accum_h = int(a_hist.sum())
-        if n_wide_t <= N_WSEG_PACK:
-            wide_segs = tight_h[4: 4 + n_wide_t].astype(np.int64)
-        else:
-            # past the pack's window: ONE extra fetch of the wide rows' ops
-            wide_ops = ops_sorted[n_accum_h: n_accum_h + n_wide_t
-                                  ].cpu().numpy().astype(np.int64)
-            wide_segs = -(-wide_ops // W)
-        layout = plan_layout(s_hist, d_hist, W, cfg.product_budget,
-                             total_q=total_q, n_wide=n_wide_t,
-                             r_wide=r_wide_t, wide_segs=wide_segs)
-        lplans = plan_levels(layout, F=cfg.stream_level_factor,
-                             max_width=cfg.stream_max_width)
-        # the accumulator region sorts first: every layout-derived row
-        # offset (wide rids, direct class starts) shifts by n_accum
-        n_accum, total_p2, accum_parts, abase_h = _plan_accum(
-            a_hist, a_psum, cfg.accum_budget)
+        (layout, lplans, (n_accum, total_p2, accum_parts,
+                          abase_h)) = host_layout(pk, cfg, ops_sorted)
 
         groups: List[DirectGroup] = []
         max_chunk_rows = 1
@@ -1305,20 +1450,8 @@ def plan_spgemm(A: DeviceCSR, B: DeviceCSR,
             pack_bits = 0
         G = layout.G
         CP = G * W
-        if layout.total_q > 0:
-            nl_eff = min(_pow2(max(n_live, 1)), A.nnz)
-            # one window sees every record: compaction skippable
-            single_win = nl_eff <= G * W + 2
-            p0, su, sa, src, pend = build_srec(
-                A.indptr, A.indices, a32, B.indptr[:-1],
-                B.indptr[1:] - B.indptr[:-1], rows_sorted, e, q_sorted,
-                m=m, nl=_pow2(max(n_live, 1)), compact=not single_win)
-            cks = torch.arange(max(layout.n_chunks, 1), dtype=I32,
-                               device=dev) * CP
-            sid_bases = torch.searchsorted(p0, cks, out_int32=True)
-        else:
-            p0 = su = sa = src = pend = sid_bases = \
-                torch.zeros(1, dtype=I32, device=dev)
+        p0, su, sa, src, pend, sid_bases = stream_records(
+            A, B, a32, rows_sorted, e, q_sorted, layout, n_live)
         # fused staging: 3 int32 planes per stream slot and the dense tiles
         staging = 3 * layout.total_q + (dense_grp.staging_slots
                                         if dense_grp else 0)
@@ -1408,19 +1541,10 @@ def plan_spgemm(A: DeviceCSR, B: DeviceCSR,
             sa_ch, b_rec = _stream_operands(A, B, src, sa)
             staged = []
             for c in range(layout.n_chunks):
-                has_wide = c * G < layout.r_wide
-                Gc = layout.g_last if c == layout.n_chunks - 1 else G
-                # contained-only chunks of a fused plan stage raw (sorted,
-                # uncompacted); compaction runs only if C has duplicates
-                stage_raw = fused and not has_wide
-                if stage_raw:
+                if fused and c * G >= layout.r_wide:
                     raw_chunks.append(c)
-                nnz_row, stg = stream_chunk(
-                    rows_sorted, e, q_sorted, el, ops_sorted, p0, su, sa_ch,
-                    pend, b_rec, nnz_row, c * CP, sid_bases[c], G=Gc,
-                    W=W, n_cols=n, pack_bits=pack_bits,
-                    stage=fused or has_wide, stage_raw=stage_raw, window=CP,
-                    rowend=ss.rowend, **_knobs(cfg))
+                nnz_row, stg = count_chunk(ss, (sa_ch, b_rec), nnz_row, c,
+                                           n, _knobs(cfg))
                 staged.append(stg)
             nw_chunks = -(-layout.r_wide // G) if layout.r_wide else 0
             nnz_row, level_bufs = _run_wide(

@@ -326,21 +326,16 @@ def _pow2ceil_arr(x: np.ndarray) -> np.ndarray:
     return 1 << np.ceil(np.log2(x.astype(np.float64))).astype(np.int64)
 
 
-def build_srec(a_indptr, a_indices, a_data32, b_start, b_len, rows_sorted,
-               e, q_sorted, *, m: int, nl: Optional[int] = None,
-               compact: bool = True):
-    """Per-sorted-A-slot stream records (p0, su, sa, src, pend): each live
-    A slot's stream start p0, u = b_row_start - p0, its value bits, its A
-    index and its product end. ``nl`` bounds the live slots (from the
-    planning pack). ``compact`` drops zero-product slots, so kept p0 is
-    strictly increasing and an INT_MAX tail follows; without it every
-    record stays in place (valid when one chunk sees all records)."""
+def srec_slots(a_indptr, rows_sorted, q_sorted, *, nnz: int, m: int,
+               nl: Optional[int] = None):
+    """The first half of ``build_srec``: each sorted A slot's row, its
+    row's first slot, its A index and whether it is live, over NL slots
+    (``nl`` bounds the live slots, from the planning pack). Returns (NL,
+    rid_s, row_first, src, live_s)."""
     dev = a_indptr.device
-    stream_mask_s = q_sorted > 0
-    nnz = a_indices.shape[0]
     NL = max(nnz if nl is None else min(nl, nnz), 1)
     alen = a_indptr[1:] - a_indptr[:-1]
-    alen_eff = torch.where(stream_mask_s, alen[rows_sorted], 0)
+    alen_eff = torch.where(q_sorted > 0, alen[rows_sorted], 0)
     ca = cumsum1d(alen_eff)
     ca_excl = ca - alen_eff
     # sorted slot s belongs to sorted row rid_s: run-length decode
@@ -348,13 +343,16 @@ def build_srec(a_indptr, a_indices, a_data32, b_start, b_len, rows_sorted,
     rid_s = torch.clamp(_decode(ca_excl, slot), 0, m - 1)
     src = a_indptr[rows_sorted[rid_s]] + (slot - ca_excl[rid_s])
     src = torch.clamp(src, 0, max(nnz - 1, 0))
-    live_s = slot < ca[-1]
-    acol = a_indices[src]
-    a32s = a_data32[src]
-    bst = b_start[acol]
-    blen = torch.where(live_s, b_len[acol], 0)
-    cb = cumsum1d(blen)
     row_first = torch.clamp(ca_excl[rid_s], 0, NL - 1)
+    return NL, rid_s, row_first, src, slot < ca[-1]
+
+
+def srec_finish(e, slots, a32s, bst, blen, *, compact: bool = True):
+    """The second half of ``build_srec``, from ``srec_slots``'s output and
+    each slot's gathered A value bits, B row start and B row length."""
+    NL, rid_s, row_first, src, live_s = slots
+    blen = torch.where(live_s, blen, 0)
+    cb = cumsum1d(blen)
     cb_excl = cb - blen
     cb_rowbase = cb_excl - cb_excl[row_first]
     p0 = torch.where(live_s, e[rid_s] + cb_rowbase, INT_MAX).to(I32)
@@ -368,12 +366,29 @@ def build_srec(a_indptr, a_indices, a_data32, b_start, b_len, rows_sorted,
     tgt = torch.where(keep, rank, NL)
 
     def compact_(x, fill):
-        out = _drop_buf(NL, fill, I32, dev)
+        out = _drop_buf(NL, fill, I32, e.device)
         out.index_put_((tgt,), x.to(I32))
         return out[:NL]
 
     return (compact_(p0, INT_MAX), compact_(u, 0), compact_(a32s, 0),
             compact_(src, 0), compact_(pend, 0))
+
+
+def build_srec(a_indptr, a_indices, a_data32, b_start, b_len, rows_sorted,
+               e, q_sorted, *, m: int, nl: Optional[int] = None,
+               compact: bool = True):
+    """Per-sorted-A-slot stream records (p0, su, sa, src, pend): each live
+    A slot's stream start p0, u = b_row_start - p0, its value bits, its A
+    index and its product end. ``nl`` bounds the live slots (from the
+    planning pack). ``compact`` drops zero-product slots, so kept p0 is
+    strictly increasing and an INT_MAX tail follows; without it every
+    record stays in place (valid when one chunk sees all records)."""
+    slots = srec_slots(a_indptr, rows_sorted, q_sorted,
+                       nnz=a_indices.shape[0], m=m, nl=nl)
+    src = slots[3]
+    acol = a_indices[src]
+    return srec_finish(e, slots, a_data32[src], b_start[acol], b_len[acol],
+                       compact=compact)
 
 
 def _order_stat(x: torch.Tensor, k) -> torch.Tensor:

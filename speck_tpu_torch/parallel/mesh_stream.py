@@ -51,12 +51,14 @@ sharded arrays; ``mesh_stream_to_host_csr`` assembles them.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from collections import OrderedDict
 from typing import List, Optional
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from ..formats.csr import HostCSR
 from ..ops.analysis import cumsum1d
@@ -2085,6 +2087,19 @@ def _overlap_groups(ash_eff: RowShards, ops_sh: np.ndarray, a_ranges,
     return groups, arrays
 
 
+# the prefix of the overlapped exchange's profiler labels
+EXCHANGE_LABEL = "needset_overlap exchange"
+
+
+def _exchange_range(what: str):
+    """A profiler range over a part of the overlapped exchange, which marks
+    its device work in a profile (probes/ab_overlap.py reads them); no
+    range when no profiler is on."""
+    if torch.autograd._profiler_enabled():
+        return record_function(f"{EXCHANGE_LABEL} {what}")
+    return contextlib.nullcontext()
+
+
 class _OverlapStep:
     """The overlapped need-set step. Every payload round's records are
     gathered and sent before any shard computes (``ppermute_start``);
@@ -2109,12 +2124,13 @@ class _OverlapStep:
         for i, r in enumerate(self.payload_rounds):
             sidx, sval = sends[2 * i], sends[2 * i + 1]
             payload = {}
-            for d in mesh.local:
-                pk = packed[d]
-                p = pk[torch.clamp(sidx[d], 0, pk.shape[0] - 1)]
-                payload[d] = torch.where(sval[d][:, None], p, 0)
-            issued.append((r, ppermute_start(mesh, payload, r) if r
-                           else payload))
+            with _exchange_range(f"send round {r}"):
+                for d in mesh.local:
+                    pk = packed[d]
+                    p = pk[torch.clamp(sidx[d], 0, pk.shape[0] - 1)]
+                    payload[d] = torch.where(sval[d][:, None], p, 0)
+                issued.append((r, ppermute_start(mesh, payload, r) if r
+                               else payload))
         del packed
         seg_off = self.seg_off
 
@@ -2129,8 +2145,10 @@ class _OverlapStep:
             def prefix(r):
                 for pr, got in issued:
                     if pr <= r and pr not in landed:
-                        part = got.wait(d) if pr else got[d]
-                        buf[seg_off[pr]: seg_off[pr] + part.shape[0]] = part
+                        with _exchange_range(f"land round {pr}"):
+                            part = got.wait(d) if pr else got[d]
+                            buf[seg_off[pr]: seg_off[pr]
+                                + part.shape[0]] = part
                         landed.add(pr)
                 return buf[: max(seg_off[r + 1], 1)]
             return prefix

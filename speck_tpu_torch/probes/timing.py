@@ -1,5 +1,5 @@
-"""Timing helpers of the probes: CUDA-event medians, a profiled call and
-the card's line."""
+"""Timing helpers of the probes: CUDA-event medians, the host clock of a
+stage (``host_ms``), a profiled call and the card's line."""
 
 from __future__ import annotations
 
@@ -55,6 +55,29 @@ def cuda_ms_turns(fns: Dict[str, Callable], reps: int = 5
             torch.cuda.synchronize()
             times[name].append(start.elapsed_time(end))
     return times
+
+
+def _sync_card() -> None:
+    if torch.cuda.is_available() and torch.cuda.is_initialized():
+        torch.cuda.synchronize()
+
+
+def host_ms(fn, reps: int = 5):
+    """(median ms, min ms, the last call's output) of the host clock around
+    ``reps`` calls of fn after one warm call, each call ending in
+    ``torch.cuda.synchronize()`` when a card is in use. Planning stages are
+    host work, which CUDA events would not see; the synchronize puts the
+    device work a stage queued inside its time."""
+    out = fn()
+    _sync_card()
+    times = []
+    for _ in range(reps):
+        _sync_card()
+        t0 = time.perf_counter()
+        out = fn()
+        _sync_card()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times), min(times), out
 
 
 def device_us(evt) -> float:
