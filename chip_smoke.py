@@ -168,6 +168,20 @@ Phases (any failure raises and exits non-zero; nothing falls back):
      oracle (rel_tol 2e-3); K1 and K2 must launch; the phase's seconds;
      then K1 and K2 at every shape the phase launched them at and 7b did
      not hold, checked and timed as in 7b;
+  8d. (after 8c) the seeded conformance sweep (speck_tpu_torch.probes.
+     conformance: its fixed cases, then seeds 0, 1, ... for SWEEP_SECONDS
+     or SWEEP_CASES cases): every route and entry point of the port at
+     random shapes, value types and knobs, each case twice on the card and
+     once on the CPU; plan fields equal to the CPU's, C's structure bit
+     for bit, values within the sum-order bound and the scipy oracle, the
+     two card runs bit-identical (the accumulator's values apart, ROADMAP.md
+     standing decision 13); 0 failures, at least 200 cases, every route of
+     conformance.ROUTES hit SWEEP_MIN_HITS times; then K1, K2 and K3 at
+     the sweep's adversarial kernel shapes against their plain versions,
+     the device analysis and routing gate past 2^24 products against
+     exact counts (conformance.ANALYSIS_CASES), and K1, K2 and K3 at
+     every (shape, dtype) the sweep launched them at that no phase above
+     held, checked as in 7b with one timed call each;
   9. every torch.profiler session, after every CUDA-event time above: K1
      and K3 at each shape timed before (K1 but at the shapes only the
      mesh launches), their device time (the kernel and the clear of its
@@ -189,10 +203,11 @@ outputs written once) over 3.35 TB/s, the H100 SXM's device memory rate
 (NVIDIA's data sheet); every kernel here is bound by bytes. library_ms is
 one PyTorch call computing the same function, where there is one; the port
 never calls it. Launches in the kernels' line: K1's over phases 4, 4b, 7c
-(config 1b), 7e, 7f, 7h, 8b and 8c (float32), its double variant's over
-the float64 cells of 7d and 7f, its 16-bit variants' over 7h's config 3
-cells, K2's over 4, 4b, 7, 7c, 7d, 7e, 7f, 7h, 8b and 8c (an entry of its own
-for the widths that are not powers of two), K3's over 7 and 7f (the
+(config 1b), 7e, 7f, 7h, 8b, 8c and 8d (float32), its double variant's
+over the float64 cells of 7d and 7f and 8d's, its 16-bit variants' over
+7h's config 3 cells and 8d's, K2's over 4, 4b, 7, 7c, 7d, 7e, 7f, 7h, 8b,
+8c and 8d (an entry of its own for the widths that are not powers of
+two), K3's over 7, 7f and 8d (the
 fixed cap), its double variant's over 7d's esc_fixed and its 16-bit
 variants' over 7h's esc_fixed. The line's ms is the CUDA-event
 time around one wrapper call, as plain_ms is; device_ms is the device time by
@@ -246,8 +261,10 @@ def check(cond, what):
 
 
 def bits(x):
-    """A float tensor's bits, for bit-for-bit comparisons."""
-    return x.view(torch.int64 if x.dtype == torch.float64 else torch.int32)
+    """A float tensor's bits, for bit-for-bit comparisons (an integer view
+    of its element size: a 16-bit row of odd width has no int32 view)."""
+    return x.view({8: torch.int64, 4: torch.int32,
+                   2: torch.int16}[x.element_size()])
 
 
 def contract_case(gen, R, W, kind, dtype="float32", reps=5):
@@ -2205,6 +2222,54 @@ def stage_probe_phase(pt, smi):
     return counts, shapes, (step, mesh, ha.rows), seconds
 
 
+# phase 8d: the conformance sweep's time budget (s) and its most cases; the
+# routes it must hit, each at least SWEEP_MIN_HITS times
+SWEEP_SECONDS = 90
+SWEEP_CASES = 300
+SWEEP_MIN_HITS = 5
+
+
+def conformance_phase(smi):
+    """Phase 8d: the seeded conformance sweep (speck_tpu_torch.probes.
+    conformance) on the card, its fixed cases first, then seeds 0, 1, ...
+    until SWEEP_CASES cases or SWEEP_SECONDS: every case twice on the card
+    and once on the CPU, plan fields equal, C's structure bit for bit,
+    values within the sum-order bound and the oracle, the two card runs
+    bit-identical (the accumulator's values apart: ROADMAP.md standing
+    decision 13). Then the kernels at its adversarial shapes against their
+    plain versions (launches not counted) and its analysis cases. It must
+    end with 0 failures, at least 200 cases and every route of
+    conformance.ROUTES hit SWEEP_MIN_HITS times. Returns the sweep's
+    launch shapes: (K1's, K2's), K3's."""
+    from speck_tpu_torch.ops import contract
+    from speck_tpu_torch.probes import conformance as cf
+
+    reset_counts()
+    report = cf.sweep("cuda", cases=SWEEP_CASES, seconds=SWEEP_SECONDS,
+                      kernels=False)
+    counts, shapes = launch_counts()
+    k3_shapes = dict(contract.RUNS_LAUNCH_SHAPES)
+    print(f"phase 8d: {report.summary()}; launches {counts}, K3 "
+          f"{contract.RUNS_LAUNCHES} [{smi}]", flush=True)
+    check(not report.failures, f"the conformance sweep failed "
+          f"{len(report.failures)} cases: {report.failures[:3]}")
+    check(report.cases >= 200, f"the sweep ran {report.cases} cases")
+    thin = {r: report.routes[r] for r in cf.ROUTES
+            if report.routes[r] < SWEEP_MIN_HITS}
+    check(not thin, f"routes hit fewer than {SWEEP_MIN_HITS} times: {thin}")
+    kernels = cf.Report(device=report.device)
+    t0 = time.perf_counter()
+    cf.sweep_direct("cuda", kernels)
+    print(f"phase 8d: {kernels.kernel_cases} kernel cases at adversarial "
+          f"shapes against their plain versions and analysis cases past "
+          f"2^24 products against exact counts in "
+          f"{time.perf_counter() - t0:.1f} s, {len(kernels.failures)} "
+          f"failures [{smi}]", flush=True)
+    check(not kernels.failures, f"kernel cases failed: "
+          f"{kernels.failures[:3]}")
+    return shapes, k3_shapes
+
+
 def overlap_schedule_line(overlap, smi):
     """The device order of one profiled overlapped step of phase 8c's
     mesh (ab_overlap.schedule), its reports under build/; no check: after
@@ -2489,6 +2554,32 @@ def main():
         torch.cuda.empty_cache()
     torch.cuda.empty_cache()
 
+    phase("8d")
+    # 8d. the seeded conformance sweep, then K1, K2 and K3 at every shape
+    # it launched them at that no phase above held against its plain
+    # version (one timed call each; a line for each kernel)
+    sweep_shapes, sweep_k3 = conformance_phase(smi)
+    new = {"K1": 0, "K2": 0, "K3": 0}
+    for shape in sorted(set(sweep_shapes[0]) - set(k1)):
+        k1[shape] = contract_case(gen, *shape, reps=1)
+        k1_mesh.add(shape)
+        new["K1"] += 1
+    for shape in sorted(set(sweep_shapes[1]) - set(k2)):
+        k2[shape] = sort_case(gen, *shape, reps=1)
+        new["K2"] += 1
+    # K3's shapes apart: phase 9 profiles every shape of k3
+    k3_sweep = {}
+    for shape in sorted(set(sweep_k3) - set(k3)):
+        k3_sweep[shape] = contract_runs_case(gen, *shape)
+        new["K3"] += 1
+    torch.cuda.empty_cache()
+    k1_err = max([v[0] for k, v in k1.items() if k in sweep_shapes[0]]
+                 or [0.0])
+    print(f"phase 8d: {new} new (kernel, shape, dtype) held against their "
+          f"plain versions; max_abs_err K1 {k1_err:.3g}, "
+          f"K3 {max([v[0] for v in k3_sweep.values()] or [0]):.3g} "
+          f"[{smi}]", flush=True)
+
     phase("9")
     # 9. the profiled phase, after every CUDA-event time of the phases
     # above: K1's and K3's device times, the giant row's profiled call, then
@@ -2542,6 +2633,12 @@ def main():
     # and phase 8c's overlapped mesh step, the last session
     overlap_line = overlap_schedule_line(overlap, smi)
 
+    def k1_by(dname):      # phase 8d's K1 launches of one value type
+        return sum(n for k, n in sweep_shapes[0].items() if k[3] == dname)
+
+    def k3_by(dname):      # and its K3 launches
+        return sum(n for k, n in sweep_k3.items() if k[2] == dname)
+
     k1_main = (512, 8192, "plane", "float32")
     k1_main64 = (512, 8192, "plane", "float64")
     k3_main, k3_main64 = (65536, 2048, "float32"), (65536, 2048, "float64")
@@ -2563,7 +2660,8 @@ def main():
                             for c in slice_cells)
                       + sum(n for c in mesh_cells + type_cells
                             for k, n in c["shapes"][0].items()
-                            if k[3] == "float32")),
+                            if k[3] == "float32")
+                      + k1_by("float32")),
          "max_abs_err": max(v[0] for k, v in k1.items()
                             if k[3] == "float32"),
          "ms": k1[k1_main][1], "device_ms": sum(k1_dev[k1_main].values()),
@@ -2573,7 +2671,7 @@ def main():
         {"name": "stream_contract (double)", "route": "cuda",
          "source": "speck_tpu_torch/csrc/stream_contract.cu",
          "replaces": "speck_tpu/ops/pallas_kernels.py:122",
-         "launches": k1_f64_launches,
+         "launches": k1_f64_launches + k1_by("float64"),
          "max_abs_err": max(v[0] for k, v in k1.items()
                             if k[3] == "float64"),
          "ms": k1[k1_main64][1], "device_ms": sum(k1_dev[k1_main64].values()),
@@ -2592,7 +2690,9 @@ def main():
                       + sum(c["launches"]["row_sort"] for c in slice_cells)
                       + sum(c["launches"]["row_sort"] for c in mesh_cells)
                       + sum(c["launches"]["row_sort"]
-                            for c in type_cells + [esc16])),
+                            for c in type_cells + [esc16])
+                      + sum(n for k, n in sweep_shapes[1].items()
+                            if not k[1] & (k[1] - 1))),
          "max_abs_err": max(v[0] for v in k2.values()),
          "ms": k2[(512, 8192, 1)][1], "device_ms": None,
          "plain_ms": k2[(512, 8192, 1)][2],
@@ -2603,8 +2703,8 @@ def main():
          "replaces": "speck_tpu/ops/pallas_kernels.py:153",
          "launches": (esc_launches["contract_runs"]
                       + sum(c["launches"]["contract_runs"]
-                            for c in mesh_cells)),
-         "max_abs_err": max(v[0] for k, v in k3.items()
+                            for c in mesh_cells) + k3_by("float32")),
+         "max_abs_err": max(v[0] for k, v in {**k3, **k3_sweep}.items()
                             if k[2] == "float32"),
          "ms": k3[k3_main][1], "device_ms": sum(k3_dev[k3_main].values()),
          "plain_ms": k3[k3_main][2],
@@ -2613,8 +2713,10 @@ def main():
         {"name": "contract_runs (double)", "route": "cuda",
          "source": "speck_tpu_torch/csrc/stream_contract.cu",
          "replaces": "speck_tpu/ops/pallas_kernels.py:153",
-         "launches": esc64_launches["contract_runs"],
-         "max_abs_err": k3[k3_main64][0], "ms": k3[k3_main64][1],
+         "launches": esc64_launches["contract_runs"] + k3_by("float64"),
+         "max_abs_err": max(v[0] for k, v in {**k3, **k3_sweep}.items()
+                            if k[2] == "float64"),
+         "ms": k3[k3_main64][1],
          "device_ms": sum(k3_dev[k3_main64].values()),
          "plain_ms": k3[k3_main64][2],
          "bound_ms": bound_ms(cp.k3_bytes(*k3_main64)), "bound_by": "bytes",
@@ -2631,7 +2733,7 @@ def main():
             "replaces": "speck_tpu/ops/pallas_kernels.py:122",
             "launches": sum(n for c in type_cells
                             for k, n in c["shapes"][0].items()
-                            if k[3] == dname),
+                            if k[3] == dname) + k1_by(dname),
             "max_abs_err": max(v[0] for k, v in k1.items() if k[3] == dname),
             "ms": k1[kk][1], "device_ms": sum(k1_dev[kk].values()),
             "plain_ms": k1[kk][2], "bound_ms": bound_ms(cp.k1_bytes(*kk)),
@@ -2642,19 +2744,24 @@ def main():
             "source": "speck_tpu_torch/csrc/stream_contract.cu",
             "replaces": "speck_tpu/ops/pallas_kernels.py:153",
             "launches": sum(n for k, n in esc16["shapes"][2].items()
-                            if k[2] == dname),
-            "max_abs_err": k3[kr][0], "ms": k3[kr][1],
+                            if k[2] == dname) + k3_by(dname),
+            "max_abs_err": max(v[0] for k, v in {**k3, **k3_sweep}.items()
+                               if k[2] == dname),
+            "ms": k3[kr][1],
             "device_ms": sum(k3_dev[kr].values()), "plain_ms": k3[kr][2],
             "bound_ms": bound_ms(cp.k3_bytes(*kr)), "bound_by": "bytes",
             "library_ms": None})
     odd = {k: n for c in type_cells for k, n in c["shapes"][1].items()
            if k[1] & (k[1] - 1)}
     ko = max(odd, key=lambda k: (k[0] * k[1], k))
+    odd_sweep = sum(n for k, n in sweep_shapes[1].items()
+                    if k[1] & (k[1] - 1))
     kernels.append({
         "name": "row_sort (width not a power of two, padded)",
         "route": "cuda", "source": "speck_tpu_torch/csrc/row_sort.cu",
         "replaces": "speck_tpu/ops/bitonic.py:172",
-        "launches": sum(odd.values()), "max_abs_err": k2[ko][0],
+        "launches": sum(odd.values()) + odd_sweep,
+        "max_abs_err": k2[ko][0],
         "ms": k2[ko][1], "device_ms": None, "plain_ms": k2[ko][2],
         "bound_ms": bound_ms(8 * (1 + ko[2]) * ko[0] * ko[1]),
         "bound_by": "bytes", "library_ms": k2[ko][3], "shape": list(ko)})

@@ -2,9 +2,9 @@
 
 ``analyze`` is the torch form of ``speck_tpu``'s device analysis: a gather
 of B row lengths at A's column ids, then a cumulative-sum difference at
-row boundaries. The int32 cumulative sum may wrap past 2^31 products; the
-per-row differences stay exact while each row fits int32, and the f32
-twin ``row_ops_f`` detects the rows that do not.
+row boundaries, in int64: exact at any size. The int32 ``row_ops`` stays
+exact while each row fits int32, and the f32 twin ``row_ops_f`` (each
+row's count rounded once) detects the rows that do not.
 
 ``host_analyze``, ``host_gate_lite`` and ``host_band_extremes`` are numpy
 copies of the reference's host forms: with the HostCSR copies attached,
@@ -42,17 +42,23 @@ def cumsum1d(x: torch.Tensor) -> torch.Tensor:
 def _analyze_impl(a_indptr, a_indices, b_indptr, m: int) -> AnalysisResult:
     a_len = a_indptr[1:] - a_indptr[:-1]
     blen = b_indptr[a_indices + 1] - b_indptr[a_indices]
-    zero_i = torch.zeros(1, dtype=torch.int32, device=a_indptr.device)
-    cse = torch.cat([zero_i, cumsum1d(blen)])
-    row_ops = cse[a_indptr[1:]] - cse[a_indptr[:-1]]
-    csef = torch.cat([zero_i.float(), cumsum1d(blen.float())])
-    row_ops_f = csef[a_indptr[1:]] - csef[a_indptr[:-1]]
+    # per-row products as differences of an int64 cumulative sum: exact at
+    # any size, so the decisions taken on them are the same on the CPU and
+    # the card (a float32 cumulative sum rounds past 2^24 products, each
+    # device in its own order). row_ops is their int32 form (wrapped past
+    # 2^31 products a row, as an int32 cumulative sum's differences are),
+    # row_ops_f each row's count rounded once to float32
+    zero = torch.zeros(1, dtype=torch.int64, device=a_indptr.device)
+    cse = torch.cat([zero, torch.cumsum(blen, 0, dtype=torch.int64)])
+    ops = cse[a_indptr[1:]] - cse[a_indptr[:-1]]
+    row_ops = ops.to(torch.int32)
+    row_ops_f = ops.to(torch.float32)
     work = torch.maximum(row_ops, a_len)
     max_work = (work.max() if m > 0 else
                 torch.zeros((), dtype=torch.int32, device=a_indptr.device))
     return AnalysisResult(row_ops=row_ops, a_len=a_len, work=work,
-                          sum_products=row_ops_f.sum(), max_work=max_work,
-                          row_ops_f=row_ops_f)
+                          sum_products=ops.sum().to(torch.float32),
+                          max_work=max_work, row_ops_f=row_ops_f)
 
 
 def analyze(A: DeviceCSR, B: DeviceCSR) -> AnalysisResult:

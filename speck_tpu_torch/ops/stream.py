@@ -441,7 +441,9 @@ def _dia_rows_mask(a_indptr, a_indices, b_indptr, b_indices, row_ops,
     dia_mask = a_in & all_b_in & (row_ops > 0)
     sa_d = dhi_a - dlo_a + 1
     sb_d = dhi_b - dlo_b + 1
-    dia_ops = torch.sum(torch.where(dia_mask, row_ops_f, 0.0))
+    # in float64: an exact sum of the rows' float32 counts in any order, so
+    # the split's waste test is the same on the CPU and the card
+    dia_ops = torch.sum(torch.where(dia_mask, row_ops_f, 0.0).double())
     saf, sbf = sa_d.float(), sb_d.float()
     scf = (sa_d + sb_d - 1).float()
     mf, kf = float(m), float(kb)
@@ -647,7 +649,9 @@ def _gate_scalars(a_indptr, a_indices, b_indptr, b_indices, row_ops,
         b_dmax = torch.max(torch.where(ne_b, b_last, -INT_MAX))
     else:
         b_dmin, b_dmax = big, -big
-    pos_f = torch.clamp(row_ops_f, min=0.0)
+    # the total in float64: an exact sum of the rows' float32 counts in any
+    # order, so the gates on it are the same on the CPU and the card
+    pos_f = torch.clamp(row_ops_f, min=0.0).double()
     sp_sat = torch.clamp(pos_f.sum(), 0.0, 2.0 ** 31 - 2).to(I32)
     mxrow_sat = torch.clamp(pos_f.max() if m > 0 else pos_f.sum(),
                             0.0, 2.0 ** 31 - 2).to(I32)

@@ -25,4 +25,11 @@ limit:
     python -m speck_tpu_torch.probes.micro2
     python -m speck_tpu_torch.probes.slice_gather_bench [M] [RW]
     python -m speck_tpu_torch.probes.ab_overlap [m] [iters] [--out DIR]
+
+``conformance`` is the port's seeded conformance sweep: every route and
+entry point on one device against the port's own CPU path and the scipy
+oracle, each case named by its seed (``--seed S --cases 1`` reruns one):
+
+    python -m speck_tpu_torch.probes.conformance [--device cuda|cpu]
+        [--cases N] [--seed S] [--seconds T]
 """

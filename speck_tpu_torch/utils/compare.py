@@ -96,6 +96,27 @@ def _on_pattern(P, M) -> np.ndarray:
     return out
 
 
+def product_magnitudes(a, b):
+    """(n, mag) on the pattern of A @ B (its entries with a product, in
+    sorted CSR order): n_ij the number of products summed into (i, j) and
+    mag_ij = (|A| |B|)_ij, both float64."""
+    import scipy.sparse as sp
+
+    def csr(h, data):
+        m = sp.csr_matrix((data, np.asarray(h.col_ids, np.int64),
+                           np.asarray(h.row_offsets, np.int64)),
+                          shape=h.shape)
+        m.sort_indices()
+        return m
+
+    P = csr(a, np.ones(a.nnz)) @ csr(b, np.ones(b.nnz))
+    P.sort_indices()
+    M = (csr(a, np.abs(np.asarray(a.data, np.float64)))
+         @ csr(b, np.abs(np.asarray(b.data, np.float64))))
+    M.sort_indices()
+    return P.data, _on_pattern(P, M)
+
+
 def compare_csr_bound(a, b, result, dtype) -> CompareResult:
     """Structure exact, and every value within the rounding bound of a sum
     of rounded products: |C - C_ref| <= 2 (n_ij + 1) (u (|A| |B|)_ij +
@@ -109,8 +130,6 @@ def compare_csr_bound(a, b, result, dtype) -> CompareResult:
     is rounded to a fixed absolute spacing, which no relative bound
     covers), so it holds for 16-bit sums and for sums taken in float and
     rounded once alike."""
-    import scipy.sparse as sp
-
     from .oracle import oracle_spgemm
 
     ref = oracle_spgemm(a, b)
@@ -119,22 +138,7 @@ def compare_csr_bound(a, b, result, dtype) -> CompareResult:
         return r
     name = str(dtype).replace("torch.", "").split(".")[-1]
     u, eta = UNIT_ROUNDOFF[name], UNDERFLOW[name]
-
-    def csr(h, data):
-        m = sp.csr_matrix((data, np.asarray(h.col_ids, np.int64),
-                           np.asarray(h.row_offsets, np.int64)),
-                          shape=h.shape)
-        m.sort_indices()
-        return m
-
-    ones_a = csr(a, np.ones(a.nnz))
-    ones_b = csr(b, np.ones(b.nnz))
-    P = ones_a @ ones_b
-    P.sort_indices()
-    M = (csr(a, np.abs(np.asarray(a.data, np.float64)))
-         @ csr(b, np.abs(np.asarray(b.data, np.float64))))
-    M.sort_indices()
-    n, mag = P.data, _on_pattern(P, M)
+    n, mag = product_magnitudes(a, b)
     err = np.abs(np.asarray(result.data, np.float64)
                  - np.asarray(ref.data, np.float64))
     bound = 2.0 * (n + 1.0) * (u * mag + eta)

@@ -234,3 +234,40 @@ def test_accum_with_wide_and_direct_rows():
         r = pt.compare_csr(ref, pt.device_get_csr(ptp.execute()),
                            compare_data=True, rel_tol=ORACLE_TOL[np.float32])
         assert r.ok, r.message
+
+
+@pytest.mark.parametrize("routes", ["all", "stream_only"])
+@pytest.mark.parametrize("shape", [(130, 7, 257), (5, 3, 9)],
+                         ids=["130x7x257", "5x3x9"])
+def test_accum_with_b_without_nonzeros(shape, routes):
+    """ROADMAP.md standing decision 12: with ``enable_accum=True`` and a B
+    that has no nonzeros, the reference raises a TypeError
+    (``speck_tpu/ops/stream.py:699-701`` gathers ``b_indices`` at
+    ``b_indptr[:-1]`` from an empty ``b_indices``), for any A, with or
+    without the DIA and dense routes. The port returns the empty m x n C:
+    equal to the oracle and to the reference's result with the
+    accumulator off."""
+    m, k, n = shape
+    rs = np.random.RandomState(5)
+    a = sp.random(m, k, 0.4, format="csr", random_state=rs)
+    a.data = rs.standard_normal(a.nnz)
+    ha = st.HostCSR.from_scipy(a)
+    hb = st.HostCSR.from_scipy(sp.csr_matrix((k, n)))
+    kw = dict(enable_accum=True, accum_min_ops=16)
+    if routes == "stream_only":
+        kw.update(enable_dia=False, enable_sdia=False, dia_rows=False,
+                  enable_dense=False)
+    (Aj, At), (Bj, Bt) = _put(ha, np.float32), _put(hb, np.float32)
+    Ct = pt.device_get_csr(pt.spgemm(At, Bt, pt.SpgemmConfig(**kw)))
+    assert Ct.shape == (m, n) and Ct.nnz == 0
+    r = pt.compare_csr(pt.oracle_spgemm(pt.HostCSR.from_host(ha),
+                                        pt.HostCSR.from_host(hb)),
+                       Ct, compare_data=True)
+    assert r.ok, r.message
+    with pytest.raises(TypeError):
+        st.spgemm(Aj, Bj, st.SpgemmConfig(**kw))
+    Cj = st.device_get_csr(st.spgemm(Aj, Bj, st.SpgemmConfig(
+        **dict(kw, enable_accum=False))))
+    _eq(np.asarray(Ct.row_offsets, np.int64),
+        np.asarray(Cj.row_offsets, np.int64), "row offsets")
+    assert Cj.nnz == 0 and Ct.data.dtype == np.float32

@@ -245,3 +245,28 @@ def test_contract_runs_cpu_does_not_count_and_rejects(rng):
     with pytest.raises(ValueError):
         contract.contract_runs(torch.from_numpy(col)[:, :32],
                                torch.from_numpy(val), N_COLS)
+
+
+@pytest.mark.parametrize("empty", ["a", "b", "both"])
+def test_esc_fixed_with_an_operand_without_nonzeros(empty):
+    """ROADMAP.md standing decision 15: with an A or a B that has no
+    nonzeros, the reference's esc_fixed raises a TypeError (``_expand``
+    gathers from an empty ``a_indices`` or ``b_indices``,
+    ``speck_tpu/ops/esc.py:187``); the port returns counts of 0, the empty
+    C of the oracle."""
+    rs = np.random.RandomState(3)
+    a = sp.random(90, 40, 0.0 if empty in ("a", "both") else 0.1,
+                  format="csr", random_state=rs)
+    b = sp.random(40, 70, 0.0 if empty in ("b", "both") else 0.1,
+                  format="csr", random_state=rs)
+    ah, bh = pt.HostCSR.from_scipy(a), pt.HostCSR.from_scipy(b)
+    cap = tentry.fixed_cap(ah, bh)
+    args = tentry.esc_args(ah, bh, "cpu")
+    out = tesc.esc_fixed(*args, cap=cap, n_cols=bh.cols)
+    assert int(out[0].sum()) == 0
+    C = padded_to_host_csr(*out, ah.rows, bh.cols)
+    r = pt.compare_csr(pt.oracle_spgemm(ah, bh), C, compare_data=True)
+    assert r.ok and C.nnz == 0, r.message
+    with pytest.raises(TypeError):
+        jax.jit(partial(jesc.esc_fixed, cap=cap, n_cols=bh.cols))(
+            *(jnp.asarray(x.numpy()) for x in args))

@@ -24,6 +24,7 @@ from speck_tpu_torch import entry as tentry
 from speck_tpu_torch.ops import bitonic, contract
 from speck_tpu_torch.ops.esc import esc_fixed
 from speck_tpu_torch.parallel import padded_to_host_csr
+from speck_tpu_torch.probes import conformance as cf
 from speck_tpu_torch.probes import gather_microbench2 as gm
 from speck_tpu_torch.utils.generators import make_banded, make_powerlaw
 
@@ -974,3 +975,31 @@ def test_knobs_and_types_on_card_match_the_cpu(cuda_device, knob):
                             h.data).to(dtype).double().numpy())
         r = compare_csr_bound(hr, hr, outs[1], dtype)
     assert r.ok, r.message
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", [n for n, _ in cf.ANALYSIS_CASES])
+def test_device_analysis_exact_on_the_card(cuda_device, name):
+    """Past 2^24 products the device analysis and the routing gate are
+    exact on the card as on the CPU: every row's count, the total, the
+    gate's saturated total and widest row (ROADMAP.md Queue 3 item 14: a
+    float32 cumulative sum and float32 totals rounded, each device in its
+    own order; 968 of the band's rows were off on the card)."""
+    h = dict(cf.ANALYSIS_CASES)[name]()
+    assert cf.run_analysis_case(h, cuda_device) is None
+    assert cf.run_analysis_case(h, "cpu") is None
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("seed", range(-len(cf.FIXED), 0))
+def test_conformance_fixed_cases_on_the_card(cuda_device, seed):
+    """Each hand-built case of the conformance sweep (one or more a route)
+    twice on the card and once on the CPU: plan fields equal, structure
+    bit for bit, values within the sum-order bound and the oracle, the two
+    card runs bit-identical but for the accumulator's values (standing
+    decision 13)."""
+    c = cf.case(seed)
+    runs = [cf.run_case(c, cuda_device) for _ in range(2)]
+    v = cf.check(c, runs, cf.run_case(c, "cpu"))
+    assert not v.failures, (c.describe(), v.failures)
+    assert v.deterministic or v.routes & cf.NONDETERMINISTIC_ROUTES
