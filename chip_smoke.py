@@ -7,7 +7,9 @@ routes of spgemm on bench configs 1, 1b, the 27-point stencil and the fp64
 banded config, the general stream (a 2^20-row graph with the two-key
 chunk sort, float64, row blocks, the dense-tile gate counted on the
 device), the dense tiles, the accumulator, config 4 with the device
-transpose and the Galerkin product, the gather probes, the benchmark
+transpose and the Galerkin product, the row mesh in one process and
+multihost_spgemm across worker processes (gloo on one card, NCCL with a
+card a process where there are cards), the gather probes, the benchmark
 harness (speck_tpu_torch.bench: its headline cell and config 3's stage
 split) and the nine stage probes, and check each against its reference.
 
@@ -109,8 +111,9 @@ Phases (any failure raises and exits non-zero; nothing falls back):
      card; each against the oracle (structure exact, values rel_tol 2e-3,
      float64 1e-9); the route, the exchange's mode and the kernels the
      route launches asserted; the cold call, the median of 3
-     warm calls, GFLOPS, peak memory, synchronizing calls (and by the
-     port's line that makes them), the shards' products, K1's, K2's and
+     warm calls (one on the giant row and stencil27: MESH_WARM), GFLOPS,
+     peak memory, synchronizing calls (and by the port's line that makes
+     them), the shards' products, K1's, K2's and
      K3's launches, and the host clock around each stage of one more warm
      call of each mesh_stream_spgemm cell; multihost_spgemm must reuse
      the config 3 needset cell's cached step;
@@ -134,9 +137,32 @@ Phases (any failure raises and exits non-zero; nothing falls back):
      rel_tol 2e-3, 16-bit values within compare_csr_bound of the oracle of
      the rounded inputs; the cold call, the median of 3 warm calls,
      GFLOPS, peak memory and synchronizing calls;
-  7b. K1 at every shape phases 4, 4b, 7c, 7d, 7e, 7f and 7h launched it at
-     (and the shapes of probes/contract_profile.py's table), K2 at every
-     other shape phases 4, 4b, 7, 7c, 7d, 7e, 7f and 7h launched it at
+  7i. (after 7h) multihost_spgemm across worker processes
+     (speck_tpu_torch.probes.multihost_cards: the parent starts them with
+     torchrun's variables, each calls multihost.initialize() and runs its
+     share of four shards): two processes sharing cuda:0 under gloo, then
+     two and four processes with a card each where the machine has the
+     cards (the port's own backend choice, which must be NCCL; with one
+     card "multihost nccl: not run (1 card)"). Seven cases: config 3
+     under needset, allgather (enable_dense=False), needset_overlap and
+     pre-sharded (RowShards.from_local), config 1 on the dense route
+     (allgather, enable_sdia=False) and the diagonal-plane route, the
+     giant row's k-split (row 0 among the split rows). Each worker times a
+     cold call and 2 warm calls, the synchronizing calls of one more, its
+     peak memory and K1's and K2's launches by shape; the parent holds
+     every case against the oracle (structure exact, values rel_tol
+     2e-3) and the one-process mesh of four shards on cuda:0 (ranges,
+     m_loc, out_cap, route, mode, exchange bytes, pair counts, n_split,
+     nnz_row and columns equal, values within rel_tol 2e-3, bit-identity
+     printed), the kernels each route launches in the workers, the
+     overlapped exchange's bytes equal to the need-set's; under NCCL
+     scaling_efficiency(phase 4's warm call, the slowest process's warm
+     median, P). A failed or hung worker (MULTIHOST_TIMEOUT) fails the
+     phase;
+  7b. K1 at every shape phases 4, 4b, 7c, 7d, 7e, 7f, 7h and 7i launched
+     it at (and the shapes of probes/contract_profile.py's table), K2 at
+     every other shape phases 4, 4b, 7, 7c, 7d, 7e, 7f, 7h and 7i
+     launched it at
      (widths that are not powers of two among them), checked and timed as
      in phase 3, each beside its bound, and K3 at the fixed-cap mesh's
      per-shard shape and at esc_fixed's in 16 bits as in phase 6;
@@ -203,11 +229,11 @@ outputs written once) over 3.35 TB/s, the H100 SXM's device memory rate
 (NVIDIA's data sheet); every kernel here is bound by bytes. library_ms is
 one PyTorch call computing the same function, where there is one; the port
 never calls it. Launches in the kernels' line: K1's over phases 4, 4b, 7c
-(config 1b), 7e, 7f, 7h, 8b, 8c and 8d (float32), its double variant's
-over the float64 cells of 7d and 7f and 8d's, its 16-bit variants' over
-7h's config 3 cells and 8d's, K2's over 4, 4b, 7, 7c, 7d, 7e, 7f, 7h, 8b,
-8c and 8d (an entry of its own for the widths that are not powers of
-two), K3's over 7, 7f and 8d (the
+(config 1b), 7e, 7f, 7h, 7i (the workers'), 8b, 8c and 8d (float32), its
+double variant's over the float64 cells of 7d and 7f and 8d's, its 16-bit
+variants' over 7h's config 3 cells and 8d's, K2's over 4, 4b, 7, 7c, 7d,
+7e, 7f, 7h, 7i, 8b, 8c and 8d (an entry of its own for the widths that
+are not powers of two), K3's over 7, 7f and 8d (the
 fixed cap), its double variant's over 7d's esc_fixed and its 16-bit
 variants' over 7h's esc_fixed. The line's ms is the CUDA-event
 time around one wrapper call, as plain_ms is; device_ms is the device time by
@@ -228,7 +254,8 @@ import torch
 
 from speck_tpu_torch.probes import contract_profile as cp
 from speck_tpu_torch.probes.timing import (card, cuda_ms, cuda_ms_turns,
-                                           device_us, profile_call)
+                                           device_us, profile_call,
+                                           sync_sites)
 
 
 HBM_BYTES_PER_MS = 3.35e12 / 1e3
@@ -426,38 +453,6 @@ def host_and_oracle(pt, gen_call):
         ref = pt.oracle_spgemm(h, h)
         _HOST[gen_call] = (h, ref, t1 - t0, time.perf_counter() - t1)
     return _HOST[gen_call]
-
-
-def sync_sites(fn):
-    """Synchronizing calls (readbacks and pageable copies) in one call of
-    fn, as torch.cuda's sync debug mode reports them, by where the port
-    makes them: {"file:line (function)" of the innermost frame in
-    speck_tpu_torch: count}."""
-    import collections
-    import traceback
-    import warnings
-
-    sites = collections.Counter()
-
-    def hook(message, category, filename, lineno, file=None, line=None):
-        where = "outside the port"
-        for fr in reversed(traceback.extract_stack()[:-1]):
-            if "speck_tpu_torch" in fr.filename:
-                where = (f"{fr.filename.split('speck_tpu_torch/')[-1]}:"
-                         f"{fr.lineno} ({fr.name})")
-                break
-        sites[where] += 1
-
-    torch.cuda.set_sync_debug_mode("warn")
-    try:
-        with warnings.catch_warnings():
-            warnings.simplefilter("always")
-            warnings.showwarning = hook
-            fn()
-            torch.cuda.synchronize()
-    finally:
-        torch.cuda.set_sync_debug_mode("default")
-    return sites
 
 
 def sync_count(fn):
@@ -1307,6 +1302,18 @@ MESH_CELLS = [
 ROUTE_KERNELS = {"stream": ("stream_contract", "row_sort"),
                  "dense": ("row_sort",), "sdia": ()}
 MESH_SHARDS = 4
+# warm calls of a mesh cell: 3, but one on the two slowest (~2.5-3 s a
+# call), whose spread the script's time budget cannot pay for
+MESH_WARM = {"mesh giant row needset": 1, "mesh stencil27 sdia": 1}
+# the phase 7f cells that are phase 7i's one-process references (the same
+# call: matrix, exchange, SpgemmConfig, float32), by 7i's case name; their
+# cold call's outputs (multihost_cards.summary) are kept in MESH_REFS
+SHARED_REFS = {"mesh config 3 needset": "needset",
+               "mesh config 3 overlap": "overlap",
+               "mesh giant row needset": "ksplit",
+               "mesh config 1 sdia": "banded",
+               "mesh config 1 dense": "dense"}
+MESH_REFS = {}
 
 
 def block_diagonal(pt):
@@ -1430,11 +1437,11 @@ def host_stages(fn):
 
 
 def mesh_warm(fn, name, nnz_total):
-    """Three warm calls (nnz(C) each equal to the cold call's), their
-    median, and the synchronizing calls of one more by site
-    (sync_sites)."""
+    """The cell's warm calls (MESH_WARM, else 3; nnz(C) each equal to
+    the cold call's), their median, and the synchronizing calls of one
+    more by site (sync_sites)."""
     warm = []
-    for _ in range(3):
+    for _ in range(MESH_WARM.get(name, 3)):
         ms, out = timed_ms(fn)
         check(int(out[0].sum()) == nnz_total, f"{name}: warm nnz differs")
         warm.append(ms)
@@ -1451,9 +1458,9 @@ def mesh_cell(pt, smi, name, gen_call, exchange, dtype, rel_tol, kw, route,
     the oracle, the cold call, the median of 3 warm calls, GFLOPS, peak
     memory, synchronizing calls, the shards' products and K1's, K2's and
     K3's launches; returns the numbers."""
-    from speck_tpu_torch.parallel import (make_row_mesh, mesh_stream_spgemm,
-                                          mesh_stream_to_host_csr)
+    from speck_tpu_torch.parallel import make_row_mesh, mesh_stream_spgemm
     from speck_tpu_torch.parallel import mesh_stream as ms
+    from speck_tpu_torch.probes import multihost_cards as mc
 
     if gen_call is None:
         h, ref, t_gen, t_ref = block_diagonal(pt)
@@ -1510,7 +1517,10 @@ def mesh_cell(pt, smi, name, gen_call, exchange, dtype, rel_tol, kw, route,
     else:
         check(ks is None, f"{name}: unexpected k-split {ks}")
     t0 = time.perf_counter()
-    Ch = mesh_stream_to_host_csr(*out)
+    fields, arrays = mc.summary(out)
+    Ch = mc.host_csr(arrays, fields["shape"])
+    if name in SHARED_REFS:
+        MESH_REFS[SHARED_REFS[name]] = (fields, arrays)
     check(Ch.data.dtype == np.dtype(dname), f"{name}: C holds {Ch.data.dtype}")
     check(bool(np.isfinite(Ch.data).all()), f"non-finite values in {name}")
     r = pt.compare_csr(ref, Ch)
@@ -1519,7 +1529,7 @@ def mesh_cell(pt, smi, name, gen_call, exchange, dtype, rel_tol, kw, route,
     check(r.ok, f"{name} values differ from the oracle: {r.message}")
     t_ref += time.perf_counter() - t0
     nnz = Ch.nnz
-    del out, Ch
+    del out, Ch, arrays
     warm, warm_ms, sites = mesh_warm(call, name, nnz)
     syncs = sum(sites.values())
     products = products_of(h)
@@ -1530,7 +1540,7 @@ def mesh_cell(pt, smi, name, gen_call, exchange, dtype, rel_tol, kw, route,
             f"{meta['m_loc']}, out_cap {meta['out_cap']}; route {route}"
             f"{planes}; exchange {mode}: needset_bytes {ns_bytes}, "
             f"allgather_bytes {ag_bytes}; k-split {ks}; cold {cold_ms:.1f} ms, "
-            f"warm median of 3 {warm_ms:.2f} ms (all "
+            f"warm median of {len(warm)} {warm_ms:.2f} ms (all "
             f"{[round(w, 2) for w in warm]}), GFLOPS "
             f"{2 * products / (warm_ms * 1e6):.3f}, peak memory "
             f"{peak / 2**30:.2f} GiB ({(peak - base_mem) / 2**30:.2f} GiB "
@@ -1658,6 +1668,71 @@ def mesh_dryrun_cell(pt, smi, needset_call):
     torch.cuda.empty_cache()
     return {"name": "mesh dryrun", "launches": launches,
             "shapes": shapes, "dtype": torch.float32, "line": text}
+
+
+# phase 7i: a worker still running after this many seconds fails the phase
+MULTIHOST_TIMEOUT = 300
+
+
+def multihost_phase(pt, smi, config3_warm):
+    """Phase 7i: multihost_spgemm across worker processes on the card
+    (speck_tpu_torch.probes.multihost_cards, its CASES: config 3 under the
+    need-set, all_gather and overlapped exchanges and pre-sharded, config
+    1 on the dense and diagonal-plane routes, the giant row's k-split),
+    four shards in all: two processes sharing cuda:0 under gloo, then,
+    where there are two cards or four, two or four processes with a card
+    each under the port's own backend choice, which must be NCCL. The
+    workers get the matrices of the earlier phases through a temporary
+    directory; the parent holds every case against the oracles of the
+    earlier phases and the one-process mesh on cuda:0 (multihost_cards.
+    hold; phase 7f's cold call where 7f ran the same call,
+    SHARED_REFS), asserts the kernels each route launches in the workers
+    (ROUTE_KERNELS) and that the overlapped exchange moved the need-set
+    exchange's bytes, and under NCCL prints scaling_efficiency with phase
+    4's warm call as T1. Returns K1's and K2's launches by shape in the
+    workers, summed over the runs."""
+    from speck_tpu_torch.probes import multihost_cards as mc
+
+    mats, oracles = {}, {}
+    for name, call in mc.MATRICES.items():
+        mats[name], oracles[name], _, _ = host_and_oracle(pt, call)
+    torch.cuda.empty_cache()
+    n_cards = torch.cuda.device_count()
+    runs = [("gloo", 2)] + [(None, p) for p in (2, 4) if n_cards >= p]
+    k1, k2 = {}, {}
+    for backend, procs in runs:
+        rep = mc.run(mc.CASES, mats, procs, backend, "cuda",
+                     timeout=MULTIHOST_TIMEOUT, oracles=oracles,
+                     refs=MESH_REFS, t1_ms=config3_warm, smi=smi,
+                     log=lambda line: print(line, flush=True))
+        want = backend or "nccl"
+        check(rep["backend"] == want, f"multihost P={procs}: the workers "
+              f"took {rep['backend']}, not {want}")
+        cases = rep["cases"]
+        check(cases["overlap"]["fields"]["needset_bytes"]
+              == cases["needset"]["fields"]["needset_bytes"],
+              f"multihost {want}: the overlapped exchange moved other "
+              "bytes than the need-set exchange")
+        for case in mc.CASES:
+            cold = np.sum([n["cold_launches"]
+                           for n in cases[case.name]["per_rank"]], axis=0)
+            ran = {"stream_contract": cold[0], "row_sort": cold[1]}
+            for k, n in ran.items():
+                check((n > 0) == (k in ROUTE_KERNELS[case.route]),
+                      f"multihost {want} {case.name} ({case.route}): "
+                      f"launches {ran}")
+        for src, dst in ((rep["k1"], k1), (rep["k2"], k2)):
+            for k, n in src.items():
+                dst[k] = dst.get(k, 0) + n
+        bits = [c for c in cases if cases[c]["bit_identical"]]
+        print(f"multihost {want} P={procs} [{smi}]: {len(cases)} cases held "
+              f"in {rep['seconds']:.1f} s (workers {rep['worker_s']:.1f} s), "
+              f"bit-identical to the one-process mesh: {bits}; K1 launches "
+              f"{sum(rep['k1'].values())}, K2 {sum(rep['k2'].values())}",
+              flush=True)
+    if n_cards < 2:
+        print(f"multihost nccl: not run ({n_cards} card)", flush=True)
+    return k1, k2
 
 
 def native_mtx_cell(pt, smi):
@@ -2222,10 +2297,12 @@ def stage_probe_phase(pt, smi):
     return counts, shapes, (step, mesh, ha.rows), seconds
 
 
-# phase 8d: the conformance sweep's time budget (s) and its most cases; the
-# routes it must hit, each at least SWEEP_MIN_HITS times
+# phase 8d: the conformance sweep's time budget (s) and its most cases (240:
+# the fewest at which every route is hit SWEEP_MIN_HITS times, the
+# accumulator's fifth hit being case 239); the routes it must hit, each at
+# least SWEEP_MIN_HITS times
 SWEEP_SECONDS = 90
-SWEEP_CASES = 300
+SWEEP_CASES = 240
 SWEEP_MIN_HITS = 5
 
 
@@ -2485,6 +2562,12 @@ def main():
     mesh16_cell(pt, smi)
     scipy_cell(pt, smi)
 
+    phase("7i")
+    # 7i. multihost_spgemm across processes: gloo on one card, NCCL with a
+    # card a process where there are cards enough
+    mh_k1, mh_k2 = multihost_phase(pt, smi, config3_warm)
+    torch.cuda.empty_cache()
+
     phase("7b")
     # 7b. K1 at every shape phases 4, 4b, 7c, 7d, 7e, 7f and 7h launched it
     # at (and the shapes of the probe's table), K2 at every other shape of
@@ -2499,10 +2582,11 @@ def main():
     # the mesh's own K1 shapes are timed here by events; phase 9 profiles
     # the rest (each profile is a session of its own, and the mesh's
     # launch-bound shapes would double their number)
-    k1_mesh = set()
+    k1_mesh = set(mh_k1) - k1_all
     for cell in mesh_cells:
         k1_mesh |= set(cell["shapes"][0]) - k1_all
         k2_all |= set(cell["shapes"][1])
+    k2_all |= set(mh_k2)
     k1_all |= k1_mesh
     for shape in sorted(k1_all):
         if shape not in k1:
@@ -2602,6 +2686,7 @@ def main():
                     cp.k3_bytes(*shape), k3[shape][1], smi)
         del col, val
         torch.cuda.empty_cache()
+    phase("9: the giant row, the cells' profiled calls")
     giant_line = giant_profile(pt, giant, smi)
     torch.cuda.empty_cache()
     dia_lines = [dia_profile(pt, cell, smi) for cell in dia_cells]
@@ -2610,6 +2695,7 @@ def main():
     torch.cuda.empty_cache()
     # and of the dense-banded and accumulator cells (7e)
     slice_lines = [dia_profile(pt, slice_cells[i], smi) for i in (0, 2)]
+    phase("9: the probes")
     probe_turns(probe_cases, probe_launches, smi,
                 " (after the profiled phase)")
     # each probe's device time and its library call's, without the host
@@ -2626,6 +2712,7 @@ def main():
     # overlapped exchange, the giant row, the fixed cap (sessions of
     # thousands of kernels, after which a later session of this process
     # may record no device events)
+    phase("9: the mesh")
     mesh_lines = [mesh_profile(mesh[n], smi) for n in (
         "mesh config 3 needset", "mesh config 1 dense",
         "mesh config 3 overlap", "mesh giant row needset",
@@ -2661,6 +2748,8 @@ def main():
                       + sum(n for c in mesh_cells + type_cells
                             for k, n in c["shapes"][0].items()
                             if k[3] == "float32")
+                      + sum(n for k, n in mh_k1.items()
+                            if k[3] == "float32")
                       + k1_by("float32")),
          "max_abs_err": max(v[0] for k, v in k1.items()
                             if k[3] == "float32"),
@@ -2692,6 +2781,8 @@ def main():
                       + sum(c["launches"]["row_sort"]
                             for c in type_cells + [esc16])
                       + sum(n for k, n in sweep_shapes[1].items()
+                            if not k[1] & (k[1] - 1))
+                      + sum(n for k, n in mh_k2.items()
                             if not k[1] & (k[1] - 1))),
          "max_abs_err": max(v[0] for v in k2.values()),
          "ms": k2[(512, 8192, 1)][1], "device_ms": None,
@@ -2754,8 +2845,8 @@ def main():
     odd = {k: n for c in type_cells for k, n in c["shapes"][1].items()
            if k[1] & (k[1] - 1)}
     ko = max(odd, key=lambda k: (k[0] * k[1], k))
-    odd_sweep = sum(n for k, n in sweep_shapes[1].items()
-                    if k[1] & (k[1] - 1))
+    odd_sweep = sum(n for src in (sweep_shapes[1], mh_k2)
+                    for k, n in src.items() if k[1] & (k[1] - 1))
     kernels.append({
         "name": "row_sort (width not a power of two, padded)",
         "route": "cuda", "source": "speck_tpu_torch/csrc/row_sort.cu",

@@ -57,7 +57,9 @@ def initialize(coordinator_address: Optional[str] = None,
         if process_id is not None:
             kw["rank"] = process_id
         if backend == "nccl":
-            torch.cuda.set_device(_local_card(process_id or 0))
+            rank = (process_id if process_id is not None
+                    else int(os.environ.get("RANK", 0)))
+            torch.cuda.set_device(_local_card(rank))
         tdist.init_process_group(backend=backend, **kw)
     if _dist._HOST_GROUP is None:
         _dist._HOST_GROUP = (tdist.new_group(backend="gloo")
@@ -94,18 +96,20 @@ def _default_backend(local_world_size: Optional[str]) -> str:
     return "nccl"
 
 
-def global_row_mesh(devices=None) -> "_dist.RowMesh":
+def global_row_mesh(devices=None, n_local: int = 1) -> "_dist.RowMesh":
     """One-axis mesh over every process's devices: this process's shards
-    are ``devices`` (default: its own CUDA card under several processes,
-    every CUDA card under one), the same count on every process, in
-    process order."""
+    are ``devices`` (default: under several processes ``n_local`` shards
+    on its own CUDA card, which becomes its current card, whatever the
+    backend; every CUDA card under one), the same count on every process,
+    in process order."""
     P = _dist.process_count()
     if P == 1:
         return _dist.make_row_mesh(devices=devices)
     if devices is None:
         _dist.resolve_device("cuda")
-        devices = [torch.device("cuda",
-                                _local_card(_dist.process_index()))]
+        card = _local_card(_dist.process_index())
+        torch.cuda.set_device(card)
+        devices = [torch.device("cuda", card)] * n_local
     local = _dist.make_row_mesh(devices=devices)
     L, p = local.size, _dist.process_index()
     return _dist.RowMesh(devices=tuple(local.devices) * P,

@@ -32,4 +32,13 @@ oracle, each case named by its seed (``--seed S --cases 1`` reruns one):
 
     python -m speck_tpu_torch.probes.conformance [--device cuda|cpu]
         [--cases N] [--seed S] [--seconds T]
+
+``mesh_cards`` runs the row mesh with a shard a card in one process;
+``multihost_cards`` runs ``multihost_spgemm`` across worker processes (a
+card each under NCCL, or sharing one under gloo) and holds every case
+against the scipy oracle and the one-process mesh:
+
+    python -m speck_tpu_torch.probes.multihost_cards [--procs P]
+        [--backend nccl|gloo] [--shards 4] [--cases ...]
+        [--device cuda|cpu] [--timeout S]
 """

@@ -1,5 +1,7 @@
 """Timing helpers of the probes: CUDA-event medians, the host clock of a
-stage (``host_ms``), a profiled call and the card's line."""
+stage (``host_ms``), a profiled call, the synchronizing calls of a call
+by the port's line that makes them (``sync_sites``) and the card's
+line."""
 
 from __future__ import annotations
 
@@ -78,6 +80,38 @@ def host_ms(fn, reps: int = 5):
         _sync_card()
         times.append((time.perf_counter() - t0) * 1e3)
     return statistics.median(times), min(times), out
+
+
+def sync_sites(fn):
+    """Synchronizing calls (readbacks and pageable copies) in one call of
+    fn, as torch.cuda's sync debug mode reports them, by where the port
+    makes them: {"file:line (function)" of the innermost frame in
+    speck_tpu_torch: count}."""
+    import collections
+    import traceback
+    import warnings
+
+    sites = collections.Counter()
+
+    def hook(message, category, filename, lineno, file=None, line=None):
+        where = "outside the port"
+        for fr in reversed(traceback.extract_stack()[:-1]):
+            if "speck_tpu_torch" in fr.filename:
+                where = (f"{fr.filename.split('speck_tpu_torch/')[-1]}:"
+                         f"{fr.lineno} ({fr.name})")
+                break
+        sites[where] += 1
+
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings():
+            warnings.simplefilter("always")
+            warnings.showwarning = hook
+            fn()
+            torch.cuda.synchronize()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    return sites
 
 
 def device_us(evt) -> float:

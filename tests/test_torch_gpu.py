@@ -1003,3 +1003,36 @@ def test_conformance_fixed_cases_on_the_card(cuda_device, seed):
     v = cf.check(c, runs, cf.run_case(c, "cpu"))
     assert not v.failures, (c.describe(), v.failures)
     assert v.deterministic or v.routes & cf.NONDETERMINISTIC_ROUTES
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("backend,procs", [("gloo", 2), (None, 2)])
+def test_multihost_launcher_on_the_card(cuda_device, backend, procs):
+    """multihost_spgemm in two worker processes on the card
+    (probes/multihost_cards.py) at the two-process CPU test's sizes: under
+    gloo, on a machine of one card, both share cuda:0 (card tensors cross
+    through the host); under the port's own choice (``backend=None``)
+    each process takes a card of its own and NCCL, which needs two cards.
+    Under either backend a process takes the card LOCAL_RANK modulo the
+    cards. Every case against the scipy oracle and the one-process mesh
+    over the same 4 shards on cuda:0, as on the CPU
+    (``tests/test_torch_multihost_launch.py``), with K1 and K2 launched in
+    the workers."""
+    from test_torch_multihost_launch import launch_cases
+
+    from speck_tpu_torch.probes import multihost_cards as mc
+
+    if backend is None and torch.cuda.device_count() < procs:
+        pytest.skip(f"NCCL takes a card a process: {procs} cards needed, "
+                    f"{torch.cuda.device_count()} present")
+    cases, matrices = launch_cases()
+    rep = mc.run(cases, matrices, procs=procs, backend=backend,
+                 device="cuda", timeout=300, log=lambda line: None)
+    assert rep["backend"] == (backend or "nccl")
+    # a process takes the card LOCAL_RANK modulo the cards, whatever the
+    # backend: two processes share cuda:0 on a card of one
+    n_cards = torch.cuda.device_count()
+    assert [r["device"] for r in rep["ranks"]] == [
+        f"cuda:{r % n_cards}" for r in range(procs)]
+    assert set(rep["cases"]) == {c.name for c in cases}
+    assert sum(rep["k1"].values()) > 0 and sum(rep["k2"].values()) > 0
