@@ -19,6 +19,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..utils.timings import upload
 from .device_csr import DeviceCSR
 
 INT32_MAX = np.iinfo(np.int32).max
@@ -88,12 +89,11 @@ class HostAnalysis:
         return int(min(self.max_row_products, 2 ** 31 - 2))
 
     def to_device(self, device) -> AnalysisResult:
-        """Upload only row_ops (int32); the planner derives a_len and
-        row_ops_f on the device."""
+        """Upload only row_ops (int32, without a synchronize); the planner
+        derives a_len and row_ops_f on the device."""
         work_max = int(np.maximum(self.row_ops, self.a_len).max(initial=0))
         return AnalysisResult(
-            row_ops=torch.as_tensor(self.row_ops.astype(np.int32),
-                                    device=device),
+            row_ops=upload(self.row_ops.astype(np.int32), device),
             a_len=None, work=None,
             sum_products=torch.tensor(self.sum_products,
                                       dtype=torch.float32),

@@ -29,7 +29,7 @@ row's time (4/3 of the slots at 3 * 2^k) and two copies of the planes.
 
 from __future__ import annotations
 
-from typing import Dict, NamedTuple, Sequence, Tuple
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -38,9 +38,14 @@ from . import build
 INT32_MAX = 2 ** 31 - 1
 
 # launches of the CUDA kernel in this process (the plain version does not
-# count), in all and by (R, W, payloads)
+# count), in all and by (R, W, payloads); and by the same key, [launches,
+# live slots] of the launches whose caller gave the live slots (``live``).
+# A stream chunk's live slots are its share of the call's products
+# (``spgemm.chunk_live``), exact only summed over the call's chunks: read
+# the live share over a whole call, not of one shape
 LAUNCHES = 0
 LAUNCH_SHAPES: Dict[Tuple[int, int, int], int] = {}
+LAUNCH_LIVE: Dict[Tuple[int, int, int], List[int]] = {}
 
 MAX_PAYLOADS = 3
 # slots one CTA sorts in shared memory (kMaxTile in csrc/row_sort.cu)
@@ -112,10 +117,25 @@ def _check(key, payloads):
                              "tensors shaped like the key")
 
 
-def row_sort(key: torch.Tensor, payloads: Sequence[torch.Tensor] = ()
+def count_live(counter: dict, shape: tuple, live: Optional[int],
+               slots: int) -> None:
+    """Add a launch of ``shape`` with ``live`` of its ``slots`` holding a
+    product or a real entry to ``counter`` ([launches, live slots]); a
+    launch without a count adds nothing. It never checks the count: a
+    counter must not fail a call (the tests hold ``live <= slots``)."""
+    if live is None:
+        return
+    n = counter.setdefault(shape, [0, 0])
+    n[0] += 1
+    n[1] += int(live)
+
+
+def row_sort(key: torch.Tensor, payloads: Sequence[torch.Tensor] = (),
+             live: Optional[int] = None
              ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, ...]]:
     """Sort each row of ``key`` ascending, stably; permute ``payloads``
-    alike."""
+    alike. ``live``: the slots that hold a product or a real entry, where
+    the caller knows them (``LAUNCH_LIVE``)."""
     payloads = tuple(payloads)
     _check(key, payloads)
     if key.device.type == "cpu":
@@ -151,6 +171,7 @@ def row_sort(key: torch.Tensor, payloads: Sequence[torch.Tensor] = ()
     LAUNCHES += 1
     shape = (R, W, len(payloads))
     LAUNCH_SHAPES[shape] = LAUNCH_SHAPES.get(shape, 0) + 1
+    count_live(LAUNCH_LIVE, shape, live, R * W)
     if Wp != W:
         return (key_out[:, :W].contiguous(),
                 tuple(p[:, :W].contiguous() for p in outs))

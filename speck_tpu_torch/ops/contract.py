@@ -37,17 +37,22 @@ reference's 16-bit doubling sums; both lie within the 16-bit bound of
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
 from . import build
+from .bitonic import count_live
 
 # launches of the CUDA kernels in this process (the plain versions do not
 # count): K1 (stream_contract), in all and by (R, W, "plane" or "row",
-# value dtype), and K3 (contract_runs), in all and by (R, W, value dtype)
+# value dtype), and K3 (contract_runs), in all and by (R, W, value dtype);
+# and by K1's key, [launches, live slots] of the K1 launches whose caller
+# gave the live slots (``live``, a stream chunk's apportioned as
+# ``bitonic.LAUNCH_LIVE``'s)
 LAUNCHES = 0
 LAUNCH_SHAPES: Dict[Tuple[int, int, str, str], int] = {}
+LAUNCH_LIVE: Dict[Tuple[int, int, str, str], List[int]] = {}
 RUNS_LAUNCHES = 0
 RUNS_LAUNCH_SHAPES: Dict[Tuple[int, int, str], int] = {}
 
@@ -168,8 +173,10 @@ def _dtype_name(val) -> str:
     return str(val.dtype).replace("torch.", "")
 
 
-def stream_contract(rid, col, val, n_cols: int):
-    """(last bool (R, W), run_sum (R, W) in val's dtype) of sorted rows."""
+def stream_contract(rid, col, val, n_cols: int, live: Optional[int] = None):
+    """(last bool (R, W), run_sum (R, W) in val's dtype) of sorted rows.
+    ``live``: the slots that hold a product or a real entry, where the
+    caller knows them (``LAUNCH_LIVE``)."""
     _check(rid, col, val)
     if col.device.type == "cpu":
         return contract_plain(rid, col, val, n_cols)
@@ -199,6 +206,7 @@ def stream_contract(rid, col, val, n_cols: int):
     LAUNCHES += 1
     shape = (R, W, "row" if per_row else "plane", _dtype_name(val))
     LAUNCH_SHAPES[shape] = LAUNCH_SHAPES.get(shape, 0) + 1
+    count_live(LAUNCH_LIVE, shape, live, R * W)
     return last, sums
 
 

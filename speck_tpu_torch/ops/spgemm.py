@@ -18,6 +18,29 @@ Stages (stage names as in the reference's timings):
                   numeric chunks; dense, wide, accumulator and direct
                   rows scatter
 
+Each stage is a ``StageTimer`` and, while ``torch.profiler`` is on, the
+range ``speck.<stage>`` (utils/timings.py); inside them the sub-ranges
+
+  countProducts        speck.plan.host_analyze
+  loadBalanceCounting  speck.plan.lite_gate.<step>, speck.plan.host_gates.
+                       <step> (the gates' steps by their names),
+                       speck.plan.device_plan (plan_stream),
+                       speck.plan.host_layout, speck.plan.groups (the
+                       direct and dense groups), speck.plan.records
+                       (stream_records, build_srec)
+  spGEMMCounting       speck.count.chunk (one a chunk), speck.wide.level
+                       (one a merge level), speck.wide.finish (one a
+                       finish class), speck.accum, speck.dense.batch
+  allocC               speck.alloc.compact (the raw chunks' compaction)
+  spGEMMNumeric        speck.numeric.chunk (one a chunk), speck.wide.level,
+                       speck.wide.finish, speck.accum, speck.dense.batch,
+                       speck.emit, speck.direct
+
+and ``speck.readback.<what>`` around each readback. A plan marks its
+route by the zero-length range ``speck.route.<route>`` and counts it in
+``ROUTES``. The sub-ranges add nothing to a ``Timings``; none of them
+synchronizes.
+
 Row routing as the reference's: a matrix whose diagonal band passes the
 gates runs whole over diagonal planes (ops/dia.py: contiguous DIA over a
 band, ``_plan_dia``; sparse DIA over present-offset lists, ``_plan_sdia``;
@@ -30,7 +53,16 @@ accumulator (``cfg.enable_accum``), and the rest stream or copy.
 It keeps exactly the reference's host readbacks (the planning pack or the
 early gate, the wide-row totals, the nnz and widest row; on the DIA routes
 the diagonal bitmap and the meta) and adds none: no boolean-mask
-indexing, ``.nonzero()`` or ``.item()`` on the device path.
+indexing, ``.nonzero()`` or ``.item()`` on the device path. Each goes
+through ``utils.timings.readback``, which counts it; host arrays go to the
+device through ``utils.timings.upload``, which does not synchronize, so
+the readbacks are a call's only synchronizing copies.
+
+The kernels' launch counters take each launch's live slots where the host
+holds them without a readback (``live``): a chunk's share of the stream's
+products (``stream_products``, ``chunk_live``), a merge level's and a
+finish class's entries (read with the wide rows' totals). The chunks'
+compactions carry none.
 
 Values of float16, bfloat16, float32 and float64, alike or mixed, run
 as in the reference: a float32 A packs B's values as float32 on the
@@ -52,13 +84,14 @@ from __future__ import annotations
 import dataclasses
 import math
 import time
-from typing import List, Optional
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
 
 from ..utils.config import ProductOverflow, SpgemmConfig
-from ..utils.timings import StageTimer, Timings, sync_tensors
+from ..utils.timings import (StageTimer, Timings, readback, span,
+                             sync_tensors, upload)
 from .analysis import (analyze, cumsum1d, host_analyze, host_band_extremes,
                        host_gate_lite)
 from .contract import VALUE_DTYPES
@@ -113,6 +146,11 @@ from .stream import (
 )
 
 I32 = torch.int32
+
+# plans made in this process by route: "dia", "sdia", "stream", "dense"
+# (every row in the dense tiles), "empty"; "blocked" counts the calls
+# that ran as row blocks, whose blocks count their own plans
+ROUTES: Dict[str, int] = {}
 
 
 def _pow2(n: int) -> int:
@@ -219,6 +257,9 @@ class StreamState:
     sid_bases: torch.Tensor     # (n_chunks,) A slots with p0 < chunk start
     pack_bits: int
     fused: bool
+    # the products the chunks hold, where the host has them without a
+    # readback (``stream_products``): the kernels' live slots
+    products: Optional[int] = None
     # each sorted row's live product end (-1 for none), for the decode
     # expand (stream_expand_impl="decode"); None under "fill"
     rowend: Optional[torch.Tensor] = None
@@ -325,7 +366,8 @@ class SpgemmPlan:
         if (d is not None and use_staged and self.dense_staged is not None
                 and not self.groups and d.full_cover and self.nnz > 0
                 and (ss is None or ss.layout.n_stream_rows == 0)):
-            with StageTimer(timings, "spGEMMNumeric", track) as st:
+            with StageTimer(timings, "spGEMMNumeric", track) as st, \
+                    span("speck.emit"):
                 if len(self.dense_staged) == 1:
                     _, cols_c, vals_c = self.dense_staged[0]
                 else:
@@ -346,9 +388,10 @@ class SpgemmPlan:
             if gather_emit:
                 # contained stream rows by gather over the concatenated
                 # staged buffers; wide and direct rows overwrite theirs
-                c_cols, c_vals = stream_gather_emit(
-                    ss.rows_sorted, ss.e, self.row_offsets, *ss.staged_cat(),
-                    W=ss.layout.W, nnz=self.nnz)
+                with span("speck.emit"):
+                    c_cols, c_vals = stream_gather_emit(
+                        ss.rows_sorted, ss.e, self.row_offsets,
+                        *ss.staged_cat(), W=ss.layout.W, nnz=self.nnz)
             else:
                 # one trailing slot takes the dropped scatter writes
                 c_cols = torch.zeros(total + 1, dtype=I32, device=dev)
@@ -359,20 +402,22 @@ class SpgemmPlan:
                 if not staged:
                     apk, bpk = _dense_operands(A, B)
                 for bi, (r0s, kbs, cbs, _) in enumerate(d.batches()):
-                    if staged:
-                        counts, cols_c, vals_c = self.dense_staged[bi]
-                    else:
-                        _, (counts, cols_c, vals_c) = dense_tiles(
-                            r0s, kbs, cbs, A.indptr, A.indices, A.data,
-                            B.indptr, B.indices, B.data,
-                            torch.zeros(m + 1, dtype=I32, device=dev), apk,
-                            bpk, tile_rows=d.tile_rows, kw=d.kw, cw=d.cw,
-                            la=d.la, lb=d.lb, m=m, k_dim=A.shape[1],
-                            n_cols=n, densify=self.cfg.dense_densify)
-                    c_cols, c_vals = dense_emit(
-                        r0s, counts, cols_c, vals_c, self.row_offsets,
-                        c_cols, c_vals, tile_rows=d.tile_rows, cw=d.cw, m=m,
-                        emit_cap=_pow2(self.max_count))
+                    with span("speck.dense.batch"):
+                        if staged:
+                            counts, cols_c, vals_c = self.dense_staged[bi]
+                        else:
+                            _, (counts, cols_c, vals_c) = dense_tiles(
+                                r0s, kbs, cbs, A.indptr, A.indices, A.data,
+                                B.indptr, B.indices, B.data,
+                                torch.zeros(m + 1, dtype=I32, device=dev),
+                                apk, bpk, tile_rows=d.tile_rows, kw=d.kw,
+                                cw=d.cw, la=d.la, lb=d.lb, m=m,
+                                k_dim=A.shape[1], n_cols=n,
+                                densify=self.cfg.dense_densify)
+                        c_cols, c_vals = dense_emit(
+                            r0s, counts, cols_c, vals_c, self.row_offsets,
+                            c_cols, c_vals, tile_rows=d.tile_rows, cw=d.cw,
+                            m=m, emit_cap=_pow2(self.max_count))
             if (ss is not None and ss.layout.n_chunks > 0
                     and ss.layout.total_q > 0):
                 lo = ss.layout
@@ -389,14 +434,17 @@ class SpgemmPlan:
                     for c in range(lo.n_chunks):
                         has_wide = (c * G < lo.r_wide) and not reuse_levels
                         Gc = lo.g_last if c == lo.n_chunks - 1 else G
-                        c_cols, c_vals, stg = stream_chunk_numeric(
-                            ss.rows_sorted, ss.e, ss.p0, ss.su, sa_n,
-                            ss.pend, b_packed, self.row_offsets, c_cols,
-                            c_vals, c * CP, ss.sid_bases[c],
-                            ss.n_accum + lo.n_wide, G=Gc, W=W,
-                            n_cols=n, pack_bits=ss.pack_bits,
-                            stage_wide=has_wide, window=CP,
-                            rowend=ss.rowend, **_knobs(self.cfg))
+                        with span("speck.numeric.chunk"):
+                            c_cols, c_vals, stg = stream_chunk_numeric(
+                                ss.rows_sorted, ss.e, ss.p0, ss.su, sa_n,
+                                ss.pend, b_packed, self.row_offsets, c_cols,
+                                c_vals, c * CP, ss.sid_bases[c],
+                                ss.n_accum + lo.n_wide, G=Gc, W=W,
+                                n_cols=n, pack_bits=ss.pack_bits,
+                                stage_wide=has_wide, window=CP,
+                                rowend=ss.rowend,
+                                live=chunk_live(lo, ss.products, c),
+                                **_knobs(self.cfg))
                         if stg is not None:
                             wide_staged.append(stg)
                     if reuse_levels:
@@ -406,32 +454,36 @@ class SpgemmPlan:
                             ss, wide_staged, None, n, count=False,
                             max_width=self.cfg.stream_max_width,
                             **_knobs(self.cfg, expand=False))[1]
-                for rid_out, col_c, val_c, fcnt in level_bufs:
-                    rid_b = rid_out[:, None].expand(col_c.shape)
-                    c_cols, c_vals = stream_emit(
-                        ss.rows_sorted, rid_b, col_c, val_c, fcnt,
-                        self.row_offsets, c_cols, c_vals)
+                with span("speck.emit"):
+                    for rid_out, col_c, val_c, fcnt in level_bufs:
+                        rid_b = rid_out[:, None].expand(col_c.shape)
+                        c_cols, c_vals = stream_emit(
+                            ss.rows_sorted, rid_b, col_c, val_c, fcnt,
+                            self.row_offsets, c_cols, c_vals)
             if ss is not None and ss.accum:
                 if use_staged and ss.accum_bufs is not None:
                     accum_bufs = ss.accum_bufs
                 else:
-                    accum_bufs = _run_accum(
-                        ss, A, B, None, n, count=False,
-                        expand_impl=self.cfg.stream_expand_impl)[1]
-                for rid_out, col_c, val_c, fcnt in accum_bufs:
-                    rid_b = rid_out[:, None].expand(col_c.shape)
-                    c_cols, c_vals = stream_emit(
-                        ss.rows_sorted, rid_b, col_c, val_c, fcnt,
-                        self.row_offsets, c_cols, c_vals)
-            for g in self.groups:
-                for start, valid in zip(g.starts, g.valids):
-                    if valid == 0:
-                        continue
-                    c_cols, c_vals = direct_chunk(
-                        ss.rows_padded, int(start), int(valid), A.indptr,
-                        A.indices, A.data, B.indptr, B.indices, B.data,
-                        self.row_offsets, c_cols, c_vals,
-                        chunk_rows=g.rows, cap=g.cap)
+                    with span("speck.accum"):
+                        accum_bufs = _run_accum(
+                            ss, A, B, None, n, count=False,
+                            expand_impl=self.cfg.stream_expand_impl)[1]
+                with span("speck.emit"):
+                    for rid_out, col_c, val_c, fcnt in accum_bufs:
+                        rid_b = rid_out[:, None].expand(col_c.shape)
+                        c_cols, c_vals = stream_emit(
+                            ss.rows_sorted, rid_b, col_c, val_c, fcnt,
+                            self.row_offsets, c_cols, c_vals)
+            with span("speck.direct"):
+                for g in self.groups:
+                    for start, valid in zip(g.starts, g.valids):
+                        if valid == 0:
+                            continue
+                        c_cols, c_vals = direct_chunk(
+                            ss.rows_padded, int(start), int(valid),
+                            A.indptr, A.indices, A.data, B.indptr,
+                            B.indices, B.data, self.row_offsets, c_cols,
+                            c_vals, chunk_rows=g.rows, cap=g.cap)
             if self.dia_rows is not None:
                 dg = self.dia_rows
                 if use_staged and dg.cvT is not None:
@@ -444,9 +496,10 @@ class SpgemmPlan:
                         sb=dg.span_b, m=m, k=A.shape[1], dmin_a=dg.dmin_a,
                         with_hit=False)
                     cvT = c_val.t()
-                c_cols, c_vals = dia_scatter_emit(
-                    cvT, dg.present, self.row_offsets, c_cols, c_vals,
-                    base_c=dg.dmin_a + dg.dmin_b)
+                with span("speck.emit"):
+                    c_cols, c_vals = dia_scatter_emit(
+                        cvT, dg.present, self.row_offsets, c_cols, c_vals,
+                        base_c=dg.dmin_a + dg.dmin_b)
             st.stop(c_cols, c_vals)
         return DeviceCSR(indptr=self.row_offsets, indices=c_cols[:total],
                          data=c_vals[:total], shape=(m, n), nnz=self.nnz)
@@ -589,7 +642,35 @@ def count_chunk(ss: StreamState, ops, nnz_row, c: int, n_cols: int,
         G=lo.g_last if c == lo.n_chunks - 1 else lo.G, W=lo.W,
         n_cols=n_cols, pack_bits=ss.pack_bits, stage=ss.fused or has_wide,
         stage_raw=ss.fused and not has_wide, window=CP, rowend=ss.rowend,
-        **knobs)
+        live=chunk_live(lo, ss.products, c), **knobs)
+
+
+def stream_products(pk: PlanPack, hg, direct_ok: bool) -> Optional[int]:
+    """The products the stream's chunks hold, where the host has them
+    without a readback: the pack's exact total when no row takes another
+    route, or, with the host analysis ``hg``, that total less the direct
+    rows' (a row of one A nonzero); else None."""
+    if pk.dense[0] or pk.dia_band[4] or pk.a_hist.any():
+        return None
+    sp_exact = pk.gate[6]
+    if not pk.d_hist.any():
+        return sp_exact
+    if hg is None or not direct_ok:
+        return None
+    return sp_exact - int(np.asarray(hg.row_ops)[hg.a_len == 1].sum())
+
+
+def chunk_live(lo: StreamLayout, products: Optional[int], c: int
+               ) -> Optional[int]:
+    """Chunk c's live slots: the stream's ``products`` in proportion to
+    the chunk's slots of the stream, so that they sum exactly over the
+    chunks (None without ``products``)."""
+    if products is None:
+        return None
+    start = c * lo.G * lo.W
+    rows = lo.g_last if c == lo.n_chunks - 1 else lo.G
+    end = min(start + rows * lo.W, lo.total_q)
+    return products * end // lo.total_q - products * start // lo.total_q
 
 
 def _offsets_from_counts(nnz_row: torch.Tensor):
@@ -628,10 +709,9 @@ def _finish_classes(totals: np.ndarray, rid_live: np.ndarray, device):
         rt = np.zeros(R2, np.int32)
         rt[: len(idxs)] = totals[idxs]
         out.append(dict(
-            R2=R2, W2=W2, E_pad=E_pad,
-            entry_excl=torch.as_tensor(ee, device=device),
-            row_total=torch.as_tensor(rt, device=device),
-            rid_of_out=torch.as_tensor(rid, device=device)))
+            R2=R2, W2=W2, E_pad=E_pad, live=int(totals[idxs].sum()),
+            entry_excl=upload(ee, device), row_total=upload(rt, device),
+            rid_of_out=upload(rid, device)))
     return out
 
 
@@ -643,7 +723,9 @@ def _run_wide(ss: StreamState, wide_staged, nnz_row, n_cols: int,
     the totals per level while deciding), then one sort at each row's
     true entry width. The counting pass records the decision in
     ss.finish; the numeric pass replays it without readbacks. Returns
-    (nnz_row, staged buffers to emit)."""
+    (nnz_row, staged buffers to emit). Each level's and each finish
+    class's entries, read with the totals, are their launches' live
+    slots (kept in ss.finish for the replay)."""
     lo = ss.layout
     if lo.n_wide == 0 or not wide_staged:
         return nnz_row, []
@@ -661,13 +743,14 @@ def _run_wide(ss: StreamState, wide_staged, nnz_row, n_cols: int,
     deciding = ss.finish is None
     if deciding:
         ss.finish = dict(ladder_levels=len(ss.lplans), classes=None,
-                         W_in=W_in)
+                         W_in=W_in, live=[])
     bufs = []
     li = 0
     while True:
         if deciding:
-            totals = wide_entry_totals(wcnt, rid_in - na, n_wide=lo.n_wide
-                                       ).cpu().numpy().astype(np.int64)
+            totals = wide_entry_totals(wcnt, rid_in - na, n_wide=lo.n_wide)
+            totals = readback(totals, "wide_totals").astype(np.int64)
+            ss.finish["live"].append(int(totals.sum()))
             live_loc = np.unique(rid_in_h) - na
             live_tot = totals[live_loc]
             keep_live = live_tot > 0
@@ -686,37 +769,39 @@ def _run_wide(ss: StreamState, wide_staged, nnz_row, n_cols: int,
                 wc_flat = wcol.reshape(-1)
                 wv_flat = wval.reshape(-1)
                 for f in classes:
-                    nnz_row, buf = stream_wide_finish(
-                        ss.rows_sorted, wc_flat, wv_flat, wcnt,
-                        f["entry_excl"], f["row_total"], f["rid_of_out"],
-                        nnz_row, R2=f["R2"], W2=f["W2"],
-                        W0=ss.finish["W_in"], E_pad=f["E_pad"],
-                        n_cols=n_cols, count=count, sort_impl=sort_impl,
-                        compact_impl=compact_impl)
+                    with span("speck.wide.finish"):
+                        nnz_row, buf = stream_wide_finish(
+                            ss.rows_sorted, wc_flat, wv_flat, wcnt,
+                            f["entry_excl"], f["row_total"], f["rid_of_out"],
+                            nnz_row, R2=f["R2"], W2=f["W2"],
+                            W0=ss.finish["W_in"], E_pad=f["E_pad"],
+                            n_cols=n_cols, count=count, sort_impl=sort_impl,
+                            compact_impl=compact_impl, live=f["live"])
                     bufs.append(buf)
             break
         if li >= len(ss.lplans):
             break
         lp = ss.lplans[li]
-        nnz_row, (rid_out, col_c, val_c, counts) = stream_level(
-            ss.rows_sorted, rid_in, wcol, wval, wcnt,
-            torch.as_tensor(lp.in_map, device=dev),
-            torch.as_tensor(lp.final_mask, device=dev), nnz_row, F=lp.F,
-            W_in=lp.W_in, n_cols=n_cols, count=count, sort_impl=sort_impl,
-            compact_impl=compact_impl)
+        with span("speck.wide.level"):
+            nnz_row, (rid_out, col_c, val_c, counts) = stream_level(
+                ss.rows_sorted, rid_in, wcol, wval, wcnt,
+                upload(lp.in_map, dev), upload(lp.final_mask, dev),
+                nnz_row, F=lp.F, W_in=lp.W_in, n_cols=n_cols, count=count,
+                sort_impl=sort_impl, compact_impl=compact_impl,
+                live=ss.finish["live"][li])
         # the same rid_out on the host, from the host rid_in
         src = np.clip(lp.in_map, 0, max(rid_in_h.shape[0] - 1, 0))
         rid_out_h = np.where(lp.in_map >= 0, rid_in_h[src], -1).max(axis=1)
         if lp.final_mask.any():
             # keep a level's buffer only if some row finishes there
-            fi = torch.as_tensor(np.flatnonzero(lp.final_mask), device=dev)
+            fi = upload(np.flatnonzero(lp.final_mask), dev)
             bufs.append((rid_out[fi], col_c[fi], val_c[fi], counts[fi]))
         keep = ~lp.final_mask
         if not keep.any():
             if deciding:
                 ss.finish.update(ladder_levels=li + 1, classes=None)
             break
-        ki = torch.as_tensor(np.flatnonzero(keep), device=dev)
+        ki = upload(np.flatnonzero(keep), dev)
         rid_in, wcol, wval, wcnt = (rid_out[ki], col_c[ki], val_c[ki],
                                     counts[ki])
         rid_in_h = rid_out_h[keep]
@@ -852,6 +937,7 @@ def _plan_dia(A: DeviceCSR, B: DeviceCSR, cfg: SpgemmConfig,
     m, n = A.shape[0], B.shape[1]
     k = A.shape[1]
     sc = sa + sb - 1
+    _route("dia")
     with StageTimer(timings, "spGEMMCounting", track) as st:
         same = (B.indices is A.indices and B.data is A.data
                 and B.shape == A.shape)
@@ -879,8 +965,9 @@ def _finish_dia(A, B, cfg, timings, stats, counts, present, cols_s, vals_s,
     m, sc = A.shape[0], state.span_c
     with StageTimer(timings, "allocC", track):
         row_offsets, meta = dia_offsets_meta(counts, sc=sc)
+        # the ONE meta readback
         nnz, max_count, up, uq, u_ok, u_offs = (
-            int(x) for x in meta.cpu().numpy())  # the ONE meta readback
+            int(x) for x in readback(meta, "dia_meta"))
     if (cfg.dia_uniform_emit and u_ok and nnz > 0
             and (uq - up) * sc >= nnz // 2):
         state.uniform = (up, uq, u_offs)
@@ -918,7 +1005,7 @@ def _diag_offsets(dev, h, dmin: int, span: int) -> np.ndarray:
     ``_DIAG_DEV_SPAN_MAX`` or without a device matrix."""
     if dev is not None and span <= _DIAG_DEV_SPAN_MAX:
         bm = _diag_bitmap_dev(dev.indptr, dev.indices, dmin, span=span)
-        return np.flatnonzero(bm.cpu().numpy()) + dmin
+        return np.flatnonzero(readback(bm, "diag_bitmap")) + dmin
     ip = np.asarray(h.row_offsets, np.int64)
     rid = np.repeat(np.arange(h.rows, dtype=np.int64), ip[1:] - ip[:-1])
     d = np.asarray(h.col_ids, np.int64) - rid
@@ -975,8 +1062,9 @@ def _plan_sdia(A: DeviceCSR, B: DeviceCSR, cfg: SpgemmConfig,
     tc = tuple(int(x) for x in off_c)
     nd_a, nd_b, nd_c = len(ta), len(tb), len(tc)
     dmin_a, dmin_b = stats.a_dmin, stats.b_dmin
+    _route("sdia")
     with StageTimer(timings, "spGEMMCounting", track) as st:
-        lut_a = torch.as_tensor(sdia_lut(off_a, dmin_a, span_a), device=dev)
+        lut_a = upload(sdia_lut(off_a, dmin_a, span_a), dev)
         slot_a = sdia_slots(A.indptr, A.indices, lut_a, dmin=dmin_a, rows=m)
         av, ah_p = dia_planes(slot_a, A.data, span=nd_a, rows=m)
         if (B.indices is A.indices and B.data is A.data
@@ -984,15 +1072,14 @@ def _plan_sdia(A: DeviceCSR, B: DeviceCSR, cfg: SpgemmConfig,
             slot_b = slot_a
             bv, bh_p = av, ah_p
         else:
-            lut_b = torch.as_tensor(sdia_lut(off_b, dmin_b, span_b),
-                                    device=dev)
+            lut_b = upload(sdia_lut(off_b, dmin_b, span_b), dev)
             slot_b = sdia_slots(B.indptr, B.indices, lut_b, dmin=dmin_b,
                                 rows=k)
             bv, bh_p = dia_planes(slot_b, B.data, span=nd_b, rows=k)
         c_val, c_cnt = sdia_conv(av, ah_p, bv, bh_p, off_a=ta, off_b=tb,
                                  off_c=tc, m=m, k=k, with_hit=True)
         del av, ah_p, bv, bh_p
-        doffs = torch.as_tensor(off_c.astype(np.int32), device=dev)
+        doffs = upload(off_c.astype(np.int32), dev)
         counts, present, cols_s, vals_s = dia_count_stage(
             c_val, c_cnt, doffs, sc=nd_c, m=m, n_cols=n, base_c=0)
         st.stop(counts)
@@ -1110,7 +1197,7 @@ def _gate_readback(cfg: SpgemmConfig, A: DeviceCSR, B: DeviceCSR, stats,
     gate = plan_gate(A.indptr, A.indices, B.indptr, B.indices,
                      stats.row_ops, stats.row_ops_f, m=m)
     (a_dmin, a_dmax, b_dmin, b_dmax, sp_sat, mxrow_sat,
-     _sp_exact) = (int(x) for x in gate.cpu().numpy())
+     _sp_exact) = (int(x) for x in readback(gate, "gate"))
     spans = _dia_spans(cfg, A, B, a_dmin, a_dmax, b_dmin, b_dmax, sp_sat)
     if spans is not None:
         return (a_dmin, b_dmin) + spans
@@ -1189,8 +1276,8 @@ def host_layout(pk: PlanPack, cfg: SpgemmConfig, ops_sorted):
     if pk.n_wide <= N_WSEG_PACK:
         wide_segs = pk.wide_segs[: pk.n_wide].astype(np.int64)
     else:
-        wide_ops = ops_sorted[n_accum_h: n_accum_h + pk.n_wide
-                              ].cpu().numpy().astype(np.int64)
+        wide_ops = readback(ops_sorted[n_accum_h: n_accum_h + pk.n_wide],
+                            "wide_ops").astype(np.int64)
         wide_segs = -(-wide_ops // pk.W)
     layout = plan_layout(pk.s_hist, pk.d_hist, pk.W, cfg.product_budget,
                          total_q=pk.total_q, n_wide=pk.n_wide,
@@ -1208,20 +1295,33 @@ def host_layout(pk: PlanPack, cfg: SpgemmConfig, ops_sorted):
 # ---------------------------------------------------------------------------
 
 
+def _route(name: str) -> None:
+    """Count a plan's route in ``ROUTES`` and mark it by the zero-length
+    range ``speck.route.<name>``."""
+    ROUTES[name] = ROUTES.get(name, 0) + 1
+    with span("speck.route." + name):
+        pass
+
+
 def dia_route_possible(cfg: SpgemmConfig, A: DeviceCSR, B: DeviceCSR) -> bool:
     return bool(cfg.enable_dia and A.canonical and B.canonical
                 and A.nnz > 0 and B.nnz > 0)
 
 
-def _call(name: str, fn):
-    """Run a planning step as it is: the default ``step`` of ``lite_gate``
-    and ``host_gates`` (a probe passes one that times each step by its
-    name)."""
-    return fn()
+def _ranged(prefix: str):
+    """The default ``step`` of ``lite_gate`` and ``host_gates``: each
+    planning step run as it is, inside the range ``<prefix>.<step>`` (a
+    probe passes a ``step`` that times each step by its name)."""
+
+    def call(name: str, fn):
+        with span(f"{prefix}.{name}"):
+            return fn()
+
+    return call
 
 
 def lite_gate(cfg: SpgemmConfig, A: DeviceCSR, B: DeviceCSR, ah, bh,
-              step=_call):
+              step=_ranged("speck.plan.lite_gate")):
     """The lite host gate of an input past ``host_analysis_max_nnz`` (A's
     and B's host copies ``ah``, ``bh``): (lite, route, gate), where route
     is "dia" with the spans as gate, "sdia" with ``_sdia_gate``'s output,
@@ -1240,7 +1340,8 @@ def lite_gate(cfg: SpgemmConfig, A: DeviceCSR, B: DeviceCSR, ah, bh,
 
 
 def host_gates(cfg: SpgemmConfig, A: DeviceCSR, B: DeviceCSR, ah, bh,
-               dia_possible: bool, step=_call):
+               dia_possible: bool,
+               step=_ranged("speck.plan.host_gates")):
     """The planning pass's route gates: (use_dense, use_dia_rows), each
     confirmed by its host plausibility test where A's host copy ``ah`` is
     at hand (B's ``bh`` is read by the dense test only up to
@@ -1310,6 +1411,7 @@ def plan_spgemm(A: DeviceCSR, B: DeviceCSR,
     track = timings is not None and timings.measure_all
 
     if m == 0 or A.nnz == 0:
+        _route("empty")
         return SpgemmPlan(A=A, B=B, cfg=cfg,
                           row_offsets=torch.zeros(m + 1, dtype=I32,
                                                   device=dev),
@@ -1323,7 +1425,8 @@ def plan_spgemm(A: DeviceCSR, B: DeviceCSR,
             ah = bh = None
     bh_eff = ah if (B is A or bh is ah) else bh
     if ah is not None and A.nnz <= cfg.host_analysis_max_nnz:
-        with StageTimer(timings, "countProducts", track):
+        with StageTimer(timings, "countProducts", track), \
+                span("speck.plan.host_analyze"):
             hg = host_analyze(ah, bh_eff)
     dia_possible = dia_route_possible(cfg, A, B)
     band_plausible = bool(
@@ -1375,11 +1478,14 @@ def plan_spgemm(A: DeviceCSR, B: DeviceCSR,
                                              dia_possible)
         tr, max_tiles = cfg.dense_tile_rows, _max_tiles(cfg)
         a32 = record_bits(A)
-        (rows_sorted, e, q_sorted, el, ops_sorted, nnz_init, pack,
-         dia_mask, t_r0, t_kb, t_cb, t_valid, e2, q2_sorted,
-         cmin_sorted) = plan_stream(A, B, cfg, stats, use_dense=use_dense,
-                                    use_dia_rows=use_dia_rows)
-        pk = read_pack(pack.cpu().numpy())  # the ONE planning host sync
+        with span("speck.plan.device_plan"):
+            (rows_sorted, e, q_sorted, el, ops_sorted, nnz_init, pack,
+             dia_mask, t_r0, t_kb, t_cb, t_valid, e2, q2_sorted,
+             cmin_sorted) = plan_stream(A, B, cfg, stats,
+                                        use_dense=use_dense,
+                                        use_dia_rows=use_dia_rows)
+        # the ONE planning host sync
+        pk = read_pack(readback(pack, "plan_pack"))
         n_elig, kw_e, cw_e, la_e, lb_e = pk.dense
         (a_dmin, a_dmax, b_dmin, b_dmax, sp_sat, mxrow_sat,
          sp_exact) = pk.gate
@@ -1393,56 +1499,59 @@ def plan_spgemm(A: DeviceCSR, B: DeviceCSR,
                     return _plan_dia(A, B, cfg, timings, stats, a_dmin,
                                      b_dmin, *spans, track)
             _check_limits(cfg, sp_sat, mxrow_sat)
-        (layout, lplans, (n_accum, total_p2, accum_parts,
-                          abase_h)) = host_layout(pk, cfg, ops_sorted)
+        with span("speck.plan.host_layout"):
+            (layout, lplans, (n_accum, total_p2, accum_parts,
+                              abase_h)) = host_layout(pk, cfg, ops_sorted)
 
-        groups: List[DirectGroup] = []
-        max_chunk_rows = 1
-        for cap, start, count in layout.direct_classes:
-            start = start + n_accum
-            full = max(1, 4 * cfg.product_budget // cap)
-            rpc = _bucket_rows(count, full)
-            max_chunk_rows = max(max_chunk_rows, rpc)
-            n_ch = math.ceil(count / rpc)
-            k = _pow2(n_ch)
-            starts = np.zeros(k, np.int32)
-            valids = np.zeros(k, np.int32)
-            for c in range(n_ch):
-                starts[c] = start + c * rpc
-                valids[c] = min(rpc, count - c * rpc)
-            groups.append(DirectGroup(cap=cap, rows=rpc, starts=starts,
-                                      valids=valids))
-        rows_padded = torch.cat(
-            [rows_sorted, torch.zeros(max_chunk_rows, dtype=I32,
-                                      device=dev)])
+        with span("speck.plan.groups"):
+            groups: List[DirectGroup] = []
+            max_chunk_rows = 1
+            for cap, start, count in layout.direct_classes:
+                start = start + n_accum
+                full = max(1, 4 * cfg.product_budget // cap)
+                rpc = _bucket_rows(count, full)
+                max_chunk_rows = max(max_chunk_rows, rpc)
+                n_ch = math.ceil(count / rpc)
+                k = _pow2(n_ch)
+                starts = np.zeros(k, np.int32)
+                valids = np.zeros(k, np.int32)
+                for c in range(n_ch):
+                    starts[c] = start + c * rpc
+                    valids[c] = min(rpc, count - c * rpc)
+                groups.append(DirectGroup(cap=cap, rows=rpc, starts=starts,
+                                          valids=valids))
+            rows_padded = torch.cat(
+                [rows_sorted, torch.zeros(max_chunk_rows, dtype=I32,
+                                          device=dev)])
 
-        dense_grp: Optional[DenseGroup] = None
-        if n_elig > 0:
-            db = max(1, cfg.dense_tiles_per_dispatch)
-            n_full, tail = divmod(n_elig, db)
-            k = n_full * db + (_pow2(tail) if tail else 0)
-            boffs = [i * db for i in range(n_full + 1)]
-            if tail:
-                boffs.append(k)
-            if k > t_r0.shape[0]:
-                padn = k - t_r0.shape[0]
+            dense_grp: Optional[DenseGroup] = None
+            if n_elig > 0:
+                db = max(1, cfg.dense_tiles_per_dispatch)
+                n_full, tail = divmod(n_elig, db)
+                k = n_full * db + (_pow2(tail) if tail else 0)
+                boffs = [i * db for i in range(n_full + 1)]
+                if tail:
+                    boffs.append(k)
+                if k > t_r0.shape[0]:
+                    padn = k - t_r0.shape[0]
 
-                def padded(x, fill):
-                    return torch.cat([x, torch.full((padn,), fill, dtype=I32,
-                                                    device=dev)])
+                    def padded(x, fill):
+                        return torch.cat([x, torch.full(
+                            (padn,), fill, dtype=I32, device=dev)])
 
-                t_r0, t_kb, t_cb, t_valid = (
-                    padded(t_r0, m), padded(t_kb, 0), padded(t_cb, 0),
-                    padded(t_valid, 0))
+                    t_r0, t_kb, t_cb, t_valid = (
+                        padded(t_r0, m), padded(t_kb, 0), padded(t_cb, 0),
+                        padded(t_valid, 0))
 
-            def ceil128(v):
-                return max(128, -(-int(v) // 128) * 128)
+                def ceil128(v):
+                    return max(128, -(-int(v) // 128) * 128)
 
-            dense_grp = DenseGroup(
-                r0s=t_r0[:k], kbases=t_kb[:k], cbases=t_cb[:k],
-                valids=t_valid[:k], boffs=boffs, tile_rows=tr,
-                kw=ceil128(kw_e), cw=ceil128(cw_e), la=_pow2(max(8, la_e)),
-                lb=_pow2(max(8, lb_e)), full_cover=(n_elig == -(-m // tr)))
+                dense_grp = DenseGroup(
+                    r0s=t_r0[:k], kbases=t_kb[:k], cbases=t_cb[:k],
+                    valids=t_valid[:k], boffs=boffs, tile_rows=tr,
+                    kw=ceil128(kw_e), cw=ceil128(cw_e),
+                    la=_pow2(max(8, la_e)), lb=_pow2(max(8, lb_e)),
+                    full_cover=(n_elig == -(-m // tr)))
 
         pack_bits = int(n + 1).bit_length()
         if (W // cfg.stream_min_q) * (1 << pack_bits) >= 2**31:
@@ -1450,8 +1559,9 @@ def plan_spgemm(A: DeviceCSR, B: DeviceCSR,
             pack_bits = 0
         G = layout.G
         CP = G * W
-        p0, su, sa, src, pend, sid_bases = stream_records(
-            A, B, a32, rows_sorted, e, q_sorted, layout, n_live)
+        with span("speck.plan.records"):
+            p0, su, sa, src, pend, sid_bases = stream_records(
+                A, B, a32, rows_sorted, e, q_sorted, layout, n_live)
         # fused staging: 3 int32 planes per stream slot and the dense tiles
         staging = 3 * layout.total_q + (dense_grp.staging_slots
                                         if dense_grp else 0)
@@ -1462,9 +1572,10 @@ def plan_spgemm(A: DeviceCSR, B: DeviceCSR,
             layout=layout, lplans=lplans, rows_sorted=rows_sorted,
             rows_padded=rows_padded, e=e, q_sorted=q_sorted, el=el,
             ops_sorted=ops_sorted, p0=p0, su=su, sa=sa, pend=pend, src=src,
-            sid_bases=sid_bases, pack_bits=pack_bits,
-            fused=fused, wide_rid_in=torch.as_tensor(wide_rid_h, device=dev),
-            wide_rid_in_h=wide_rid_h,
+            sid_bases=sid_bases, pack_bits=pack_bits, fused=fused,
+            products=stream_products(
+                pk, hg, bool(B.canonical) and cfg.enable_direct),
+            wide_rid_in=upload(wide_rid_h, dev), wide_rid_in_h=wide_rid_h,
             dense_elig=n_elig if use_dense and max_tiles > 0 else None,
             n_accum=n_accum)
         decode = cfg.stream_expand_impl == "decode"
@@ -1475,10 +1586,11 @@ def plan_spgemm(A: DeviceCSR, B: DeviceCSR,
             # short stream would otherwise cut them to its own size)
             G2 = max(G, cfg.product_budget // W)
             n_chunks2 = -(-total_p2 // (G2 * W))
-            p02, su2, sa2, src2, pend2 = build_srec(
-                A.indptr, A.indices, a32, B.indptr[:-1],
-                B.indptr[1:] - B.indptr[:-1], rows_sorted, e2, q2_sorted,
-                m=m, nl=_pow2(max(n_live2, 1)))
+            with span("speck.plan.records"):
+                p02, su2, sa2, src2, pend2 = build_srec(
+                    A.indptr, A.indices, a32, B.indptr[:-1],
+                    B.indptr[1:] - B.indptr[:-1], rows_sorted, e2,
+                    q2_sorted, m=m, nl=_pow2(max(n_live2, 1)))
             cks = torch.arange(n_chunks2, dtype=I32, device=dev) * (G2 * W)
             ss.e2, ss.p02, ss.su2, ss.sa2 = e2, p02, su2, sa2
             ss.pend2, ss.src2 = pend2, src2
@@ -1486,11 +1598,10 @@ def plan_spgemm(A: DeviceCSR, B: DeviceCSR,
             if decode:
                 ss.rowend2 = torch.where(q2_sorted > 0, e2 + q2_sorted, -1)
             ss.cmin_s = cmin_sorted
-            ss.abase = torch.as_tensor(abase_h, device=dev)
+            ss.abase = upload(abase_h, dev)
             for part in accum_parts:
-                part["classes"] = [
-                    (R_pad, S, off, torch.as_tensor(rid, device=dev))
-                    for R_pad, S, off, rid in part["classes"]]
+                part["classes"] = [(R_pad, S, off, upload(rid, dev))
+                                   for R_pad, S, off, rid in part["classes"]]
             ss.accum = dict(n_chunks2=n_chunks2, parts=accum_parts, G=G2,
                             W=W)
 
@@ -1530,12 +1641,14 @@ def plan_spgemm(A: DeviceCSR, B: DeviceCSR,
             apk, bpk = _dense_operands(A, B)
             dense_staged = []
             for r0s, kbs, cbs, _ in dense_grp.batches():
-                nnz_row, st_b = dense_tiles(
-                    r0s, kbs, cbs, A.indptr, A.indices, A.data, B.indptr,
-                    B.indices, B.data, nnz_row, apk, bpk,
-                    tile_rows=dense_grp.tile_rows, kw=dense_grp.kw,
-                    cw=dense_grp.cw, la=dense_grp.la, lb=dense_grp.lb, m=m,
-                    k_dim=A.shape[1], n_cols=n, densify=cfg.dense_densify)
+                with span("speck.dense.batch"):
+                    nnz_row, st_b = dense_tiles(
+                        r0s, kbs, cbs, A.indptr, A.indices, A.data,
+                        B.indptr, B.indices, B.data, nnz_row, apk, bpk,
+                        tile_rows=dense_grp.tile_rows, kw=dense_grp.kw,
+                        cw=dense_grp.cw, la=dense_grp.la, lb=dense_grp.lb,
+                        m=m, k_dim=A.shape[1], n_cols=n,
+                        densify=cfg.dense_densify)
                 dense_staged.append(st_b)
         if layout.n_chunks > 0 and layout.total_q > 0:
             sa_ch, b_rec = _stream_operands(A, B, src, sa)
@@ -1543,8 +1656,9 @@ def plan_spgemm(A: DeviceCSR, B: DeviceCSR,
             for c in range(layout.n_chunks):
                 if fused and c * G >= layout.r_wide:
                     raw_chunks.append(c)
-                nnz_row, stg = count_chunk(ss, (sa_ch, b_rec), nnz_row, c,
-                                           n, _knobs(cfg))
+                with span("speck.count.chunk"):
+                    nnz_row, stg = count_chunk(ss, (sa_ch, b_rec), nnz_row,
+                                               c, n, _knobs(cfg))
                 staged.append(stg)
             nw_chunks = -(-layout.r_wide // G) if layout.r_wide else 0
             nnz_row, level_bufs = _run_wide(
@@ -1553,25 +1667,29 @@ def plan_spgemm(A: DeviceCSR, B: DeviceCSR,
             ss.staged = staged if fused else None
             ss.level_bufs = level_bufs
         if ss.accum:
-            nnz_row, ss.accum_bufs = _run_accum(
-                ss, A, B, nnz_row, n, count=True, sa=ss.sa2,
-                expand_impl=cfg.stream_expand_impl)
+            with span("speck.accum"):
+                nnz_row, ss.accum_bufs = _run_accum(
+                    ss, A, B, nnz_row, n, count=True, sa=ss.sa2,
+                    expand_impl=cfg.stream_expand_impl)
         st.stop(nnz_row)
 
     with StageTimer(timings, "allocC", track):
         row_offsets, meta = _offsets_from_counts(nnz_row[:m])
         # the ONE readback of nnz(C) and the widest row (it trims the
         # dense emit)
-        nnz, max_count = (int(x) for x in meta.cpu().numpy())
+        nnz, max_count = (int(x) for x in readback(meta, "nnz_meta"))
         # no-duplicate fast path: nnz(C) == products means every live raw
         # slot is a run-last, so raw chunks already equal their compaction
         if ss.staged is not None and raw_chunks and nnz != sp_exact:
-            for c in raw_chunks:
-                rid_r, col_r, val_r, counts_r = ss.staged[c]
-                ss.staged[c] = compact_staged(
-                    rid_r, col_r, val_r, counts_r, n_cols=n,
-                    compact_impl=cfg.stream_compact_impl)
+            with span("speck.alloc.compact"):
+                for c in raw_chunks:
+                    rid_r, col_r, val_r, counts_r = ss.staged[c]
+                    ss.staged[c] = compact_staged(
+                        rid_r, col_r, val_r, counts_r, n_cols=n,
+                        compact_impl=cfg.stream_compact_impl)
 
+    _route("dense" if dense_grp is not None and dense_grp.full_cover
+           and layout.n_stream_rows == 0 and not groups else "stream")
     return SpgemmPlan(A=A, B=B, cfg=cfg, row_offsets=row_offsets, nnz=nnz,
                       sum_products=stats.sum_products, stream=ss,
                       groups=groups, dense=dense_grp,
@@ -1611,21 +1729,22 @@ def _spgemm_blocked(A: DeviceCSR, B: DeviceCSR, cfg: SpgemmConfig,
     m, n = A.shape[0], B.shape[1]
     dev = A.device
     budget = max(1, cfg.block_products // 2)
+    _route("blocked")
     ah, bh = host_of(A), host_of(B)
     if (cfg.host_analysis and A.nnz <= cfg.host_analysis_max_nnz
             and ah is not None and (bh is not None or B is A)):
         row_ops = np.asarray(host_analyze(
             ah, ah if (B is A or bh is ah) else bh).row_ops, np.int64)
     else:
-        row_ops = np.maximum(
-            analyze(A, B).row_ops_f.cpu().numpy().astype(np.float64), 0.0
-        ).astype(np.int64)
+        row_ops = np.maximum(readback(
+            analyze(A, B).row_ops_f, "block_row_ops").astype(np.float64),
+            0.0).astype(np.int64)
     widest = int(row_ops.max(initial=0))
     if widest > budget:
         raise ProductOverflow(
             f"a single row has {widest} products, above the per-block "
             f"budget ({budget}); raise BlockProducts")
-    indptr_h = A.indptr.cpu().numpy().astype(np.int64)
+    indptr_h = readback(A.indptr, "block_indptr").astype(np.int64)
     cum = np.cumsum(row_ops)
     blocks = []
     r0 = 0

@@ -772,7 +772,7 @@ def _resolve_sort(sort_impl: str, width: int) -> str:
 
 
 def _sort_rect(rid, col, val, n_cols: int, pack_bits: int,
-               sort_impl: str = "auto"):
+               sort_impl: str = "auto", live: Optional[int] = None):
     """Sort each rectangle row by (rid, col) with every dead slot
     (col >= n_cols) last (kernel K2, whatever ``sort_impl`` names).
     pack_bits > 0: one sort on the packed
@@ -780,13 +780,15 @@ def _sort_rect(rid, col, val, n_cols: int, pack_bits: int,
     0 (the packed key would overflow int32): two stable passes, by column
     and then by rid - rid0 with dead slots at W, each key within its own
     small range, which is the reference's two-key sort with dead rids at
-    INT_MAX; dead slots carry rid INT_MAX, as there."""
+    INT_MAX; dead slots carry rid INT_MAX, as there. ``live``: the
+    rectangle's products, where the caller knows them (each K2 launch's
+    live slots)."""
     _resolve_sort(sort_impl, col.shape[1])
     rid0 = rid[:, :1]
     if pack_bits > 0:
         keyk = ((rid - rid0) << pack_bits) | col
         keyk = torch.where(col >= n_cols, INT_MAX, keyk).to(I32).contiguous()
-        keyk, (moved,) = row_sort(keyk, [slot_payload(val)])
+        keyk, (moved,) = row_sort(keyk, [slot_payload(val)], live)
         dead = keyk == INT_MAX
         col_s = torch.where(dead, n_cols, keyk & ((1 << pack_bits) - 1))
         rid_s = torch.where(dead, rid0, rid0 + (keyk >> pack_bits))
@@ -795,18 +797,20 @@ def _sort_rect(rid, col, val, n_cols: int, pack_bits: int,
     dead = col >= n_cols
     rel = torch.where(dead, W, rid - rid0).to(I32).contiguous()
     col1, (rel1, moved1) = row_sort(col.to(I32).contiguous(),
-                                    [rel, slot_payload(val)])
-    key2, (col_s, moved) = row_sort(rel1, [col1, moved1])
+                                    [rel, slot_payload(val)], live)
+    key2, (col_s, moved) = row_sort(rel1, [col1, moved1], live)
     rid_s = torch.where(key2 >= W, INT_MAX, rid0 + key2)
     return rid_s.to(I32), col_s, by_slot(val, moved)
 
 
-def _sort_cols(col, val, sort_impl: str = "auto"):
+def _sort_cols(col, val, sort_impl: str = "auto",
+               live: Optional[int] = None):
     """Single-key (col, val) row sort (kernel K2, whatever ``sort_impl``
     names); a level under a factor that is not a power of two has a width
-    that is not one either, which K2 sorts padded."""
+    that is not one either, which K2 sorts padded. ``live``: the real
+    entries, where the caller knows them."""
     _resolve_sort(sort_impl, col.shape[1])
-    col_s, (moved,) = row_sort(col.contiguous(), [slot_payload(val)])
+    col_s, (moved,) = row_sort(col.contiguous(), [slot_payload(val)], live)
     return col_s, by_slot(val, moved)
 
 
@@ -873,7 +877,8 @@ def stream_chunk(rows_sorted, e, q_sorted, el, ops_sorted, p0, su, sa, pend,
                  G: int, W: int, n_cols: int, pack_bits: int, stage: bool,
                  stage_raw: bool = False, window: Optional[int] = None,
                  rowend=None, sort_impl: str = "auto",
-                 compact_impl: str = "sort", expand_impl: str = "fill"):
+                 compact_impl: str = "sort", expand_impl: str = "fill",
+                 live: Optional[int] = None):
     """One fused count(+stage) pass over chunk [chunk_start,
     chunk_start + G*W). Every row contained in the chunk gets its exact
     nnz in ``nnz_row`` (padded by one drop slot, updated in place) by an
@@ -881,13 +886,14 @@ def stream_chunk(rows_sorted, e, q_sorted, el, ops_sorted, p0, su, sa, pend,
     counts. stage=True also returns the compacted (rid, col, val, counts)
     rectangle rows; stage_raw returns them sorted but uncompacted. The
     knobs are ``SpgemmConfig``'s (module docstring); ``rowend`` serves the
-    decode expand."""
+    decode expand; ``live``, the chunk's products where the caller knows
+    them, goes to the sort's and the contract's launch counters."""
     rid, col, val = _expand_chunk(e, p0, su, sa, pend, b_packed,
                                   chunk_start, sid_base, G, W, n_cols,
                                   window, rowend, expand_impl)
     rid_s, col_s, val_s = _sort_rect(rid, col, val, n_cols, pack_bits,
-                                     sort_impl)
-    last, run_sum = stream_contract(rid_s, col_s, val_s, n_cols)
+                                     sort_impl, live)
+    last, run_sum = stream_contract(rid_s, col_s, val_s, n_cols, live)
 
     dev = e.device
     m = rows_sorted.shape[0]
@@ -923,19 +929,20 @@ def stream_chunk_numeric(rows_sorted, e, p0, su, sa, pend, b_packed,
                          n_cols: int, pack_bits: int, stage_wide: bool,
                          window: Optional[int] = None, rowend=None,
                          sort_impl: str = "auto", compact_impl: str = "sort",
-                         expand_impl: str = "fill"):
+                         expand_impl: str = "fill",
+                         live: Optional[int] = None):
     """Two-phase numeric pass over one chunk: the same expand, sort and
     contract, then contained rows' run-last entries scatter straight to
     their offsets in C (padded buffers, updated in place); the first
     ``n_wide`` sorted rows (the accumulator and wide rows) emit elsewhere.
     stage_wide also returns the compacted rectangle rows for the merge
-    levels."""
+    levels. ``live`` as ``stream_chunk``'s."""
     rid, col, val = _expand_chunk(e, p0, su, sa, pend, b_packed,
                                   chunk_start, sid_base, G, W, n_cols,
                                   window, rowend, expand_impl)
     rid_s, col_s, val_s = _sort_rect(rid, col, val, n_cols, pack_bits,
-                                     sort_impl)
-    last, run_sum = stream_contract(rid_s, col_s, val_s, n_cols)
+                                     sort_impl, live)
+    last, run_sum = stream_contract(rid_s, col_s, val_s, n_cols, live)
 
     # rank among the row's run-lasts via a segmented exclusive count; the
     # live slots are sorted by rid, the dead ones (col >= n_cols) last
@@ -1022,12 +1029,13 @@ def accum_finalize(rows_sorted, acc_slice, pres_slice, cmin_s, rid_of_out,
 def stream_level(rows_sorted, rid_in, col_in, val_in, counts_in, in_map,
                  final_mask, nnz_row, *, F: int, W_in: int, n_cols: int,
                  count: bool = True, sort_impl: str = "auto",
-                 compact_impl: str = "sort"):
+                 compact_impl: str = "sort", live: Optional[int] = None):
     """One merge level: each output rectangle row re-sorts F input
     segments (compacted prefixes of width W_in) of one wide row and
     contracts them; rows whose segments all fit here (final_mask) are
     counted into ``nnz_row`` (padded, in place). in_map (R_out, F): input
-    rectangle-row indices, -1 for none."""
+    rectangle-row indices, -1 for none. ``live``: the input entries, where
+    the caller knows them."""
     dev = col_in.device
     R_out = in_map.shape[0]
     W_out = F * W_in
@@ -1041,9 +1049,9 @@ def stream_level(rows_sorted, rid_in, col_in, val_in, counts_in, in_map,
     rid_out = torch.max(torch.where(okrow, rid_in[src], -1).reshape(R_out, F),
                         dim=1).values.to(I32)
 
-    col_s, val_s = _sort_cols(col.to(I32), val, sort_impl)
+    col_s, val_s = _sort_cols(col.to(I32), val, sort_impl, live)
     rid_b = rid_out[:, None].expand(R_out, W_out)
-    last, run_sum = stream_contract(rid_b, col_s, val_s, n_cols)
+    last, run_sum = stream_contract(rid_b, col_s, val_s, n_cols, live)
     if count:
         # each final row's run-lasts, added at its matrix row (one output
         # row per final wide row)
@@ -1067,13 +1075,15 @@ def wide_entry_totals(wcnt, wide_rid, *, n_wide: int):
 def stream_wide_finish(rows_sorted, wcol_flat, wval_flat, wcnt, entry_excl,
                        row_total, rid_of_out, nnz_row, *, R2: int, W2: int,
                        W0: int, E_pad: int, n_cols: int, count: bool,
-                       sort_impl: str = "auto", compact_impl: str = "sort"):
+                       sort_impl: str = "auto", compact_impl: str = "sort",
+                       live: Optional[int] = None):
     """Adaptive wide-row finish: gather each wide row's staged entries into
     one (R2, W2) rectangle sized by the true entry totals, then one sort
     and contract completes the row (counts set into ``nnz_row`` in place).
     wcol_flat/wval_flat: the flattened (r_wide * W0) staged wide buffers;
     wcnt: per-rectangle-row live counts; entry_excl/row_total/rid_of_out:
-    host-computed per output row."""
+    host-computed per output row; ``live``: the sum of row_total, where
+    the caller has it on the host."""
     dev = wcol_flat.device
     r_wide = wcnt.shape[0]
     ccum = cumsum1d(wcnt)
@@ -1092,9 +1102,9 @@ def stream_wide_finish(rows_sorted, wcol_flat, wval_flat, wcnt, entry_excl,
     col = torch.where(dead, n_cols, wcol_flat[src]).to(I32)
     val = torch.where(dead, 0.0, wval_flat[src])
 
-    col_s, val_s = _sort_cols(col, val, sort_impl)
+    col_s, val_s = _sort_cols(col, val, sort_impl, live)
     rid_b = rid_of_out[:, None].expand(R2, W2)
-    last, run_sum = stream_contract(rid_b, col_s, val_s, n_cols)
+    last, run_sum = stream_contract(rid_b, col_s, val_s, n_cols, live)
     if count:
         m = rows_sorted.shape[0]
         tgt = torch.where(rid_of_out >= 0,

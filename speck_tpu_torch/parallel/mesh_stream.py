@@ -51,14 +51,12 @@ sharded arrays; ``mesh_stream_to_host_csr`` assembles them.
 
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 from collections import OrderedDict
 from typing import List, Optional
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from ..formats.csr import HostCSR
 from ..ops.analysis import cumsum1d
@@ -76,6 +74,7 @@ from ..ops.stream import (Unpacked, _compact_rect, _count_le,
                           build_srec, stream_chunk, stream_chunk_numeric,
                           stream_emit, stream_level, tight_total_host)
 from ..utils.config import SpgemmConfig
+from ..utils.timings import span
 from .dist import (RowMesh, _host_all_gather, _np_dtype, _pad_to,
                    _slice_rows, all_gather, assemble, fetch_global,
                    fetch_output, ppermute, ppermute_start, process_count, put,
@@ -2087,17 +2086,9 @@ def _overlap_groups(ash_eff: RowShards, ops_sh: np.ndarray, a_ranges,
     return groups, arrays
 
 
-# the prefix of the overlapped exchange's profiler labels
+# the prefix of the overlapped exchange's profiler ranges, which mark its
+# device work in a profile (probes/ab_overlap.py reads them)
 EXCHANGE_LABEL = "needset_overlap exchange"
-
-
-def _exchange_range(what: str):
-    """A profiler range over a part of the overlapped exchange, which marks
-    its device work in a profile (probes/ab_overlap.py reads them); no
-    range when no profiler is on."""
-    if torch.autograd._profiler_enabled():
-        return record_function(f"{EXCHANGE_LABEL} {what}")
-    return contextlib.nullcontext()
 
 
 class _OverlapStep:
@@ -2124,7 +2115,7 @@ class _OverlapStep:
         for i, r in enumerate(self.payload_rounds):
             sidx, sval = sends[2 * i], sends[2 * i + 1]
             payload = {}
-            with _exchange_range(f"send round {r}"):
+            with span(f"{EXCHANGE_LABEL} send round {r}"):
                 for d in mesh.local:
                     pk = packed[d]
                     p = pk[torch.clamp(sidx[d], 0, pk.shape[0] - 1)]
@@ -2145,7 +2136,7 @@ class _OverlapStep:
             def prefix(r):
                 for pr, got in issued:
                     if pr <= r and pr not in landed:
-                        with _exchange_range(f"land round {pr}"):
+                        with span(f"{EXCHANGE_LABEL} land round {pr}"):
                             part = got.wait(d) if pr else got[d]
                             buf[seg_off[pr]: seg_off[pr]
                                 + part.shape[0]] = part

@@ -129,11 +129,11 @@ def test_giant_row_contract_shapes(monkeypatch):
     shapes = {}
     plain = stream.stream_contract
 
-    def counted(rid, col, val, n_cols):
+    def counted(rid, col, val, n_cols, live=None):
         key = (col.shape[0], col.shape[1],
                "row" if rid.stride(1) == 0 else "plane")
         shapes[key] = shapes.get(key, 0) + 1
-        return plain(rid, col, val, n_cols)
+        return plain(rid, col, val, n_cols, live)
 
     monkeypatch.setattr(stream, "stream_contract", counted)
     h = make_giant_row(**SMALL)

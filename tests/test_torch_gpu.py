@@ -1036,3 +1036,107 @@ def test_multihost_launcher_on_the_card(cuda_device, backend, procs):
         f"cuda:{r % n_cards}" for r in range(procs)]
     assert set(rep["cases"]) == {c.name for c in cases}
     assert sum(rep["k1"].values()) > 0 and sum(rep["k2"].values()) > 0
+
+
+def _sync_case(case, device):
+    """(the call, its operand) of one entry of the sync check."""
+    from speck_tpu_torch.utils.generators import make_stencil27
+
+    wide = dict(stream_width=64, product_budget=1 << 12)
+    if case == "stencil":
+        # past host_analysis_max_nnz: the lite gate, the device analysis
+        h, dtype, kw = (make_stencil27(12, seed=19), torch.float64,
+                        dict(host_analysis_max_nnz=16))
+    elif case == "dia":
+        h, dtype, kw = make_banded(3000, half_band=4, seed=3), torch.float32, {}
+    else:
+        h, dtype = make_powerlaw(3000, avg=6, seed=3), torch.float32
+        kw = {"levels": dict(wide, stream_max_width=64),
+              "two_phase": dict(wide, fused_staging_budget=0),
+              "execute": dict(wide, fused_staging_budget=0),
+              "blocked": dict(wide, block_products=1 << 15)}[case]
+    A = pt.device_put_csr(h, dtype, device)
+    cfg = pt.SpgemmConfig(**kw)
+    if case == "execute":
+        plan = pt.plan_spgemm(A, A, cfg)
+        A2 = pt.device_put_csr(h, dtype, device)
+        return lambda: plan.execute(A2, A2)
+    return lambda: pt.spgemm(A, A, cfg)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["levels", "two_phase", "execute",
+                                  "stencil", "dia", "blocked"])
+def test_readbacks_are_every_sync_of_a_call(cuda_device, case):
+    """One call under ``torch.cuda.set_sync_debug_mode("warn")``: the
+    synchronizing operations torch reports are the readbacks the program
+    counted (``utils.timings.READBACKS``), one for one; host arrays reach
+    the card without one (``upload``)."""
+    import traceback
+    import warnings
+
+    from speck_tpu_torch.utils import timings as tt
+
+    call = _sync_case(case, cuda_device)
+    call()
+    torch.cuda.synchronize()
+    # torch reports one synchronize of its own at a process's first
+    # switch of the mode
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        torch.cuda.set_sync_debug_mode("warn")
+        torch.cuda.set_sync_debug_mode(0)
+    before = sum(n for n, _ in tt.READBACKS.values())
+    syncs = []
+
+    def show(message, category, filename, lineno, file=None, line=None):
+        if "synchroniz" in str(message):
+            syncs.append("".join(traceback.format_stack(limit=8)[:-1]))
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = show
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            C = call()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    counted = sum(n for n, _ in tt.READBACKS.values()) - before
+    assert len(syncs) == counted, "\n----\n".join(
+        s for s in syncs if "timings.py" not in s)
+    assert C.nnz > 0 and (counted == 0) == (case == "execute")
+
+
+@pytest.mark.gpu
+def test_live_slots_on_the_card(cuda_device):
+    """The counting pass's chunk launches carry the stream's products
+    (scipy's, less the direct rows'), beside launch counts that stay as
+    they were; the wide rows' launches carry their entries."""
+    import scipy.sparse as sps
+
+    h = make_powerlaw(3000, avg=6, seed=3)
+    A = pt.device_put_csr(h, torch.float32, cuda_device)
+    cfg = pt.SpgemmConfig(stream_width=64, product_budget=1 << 12,
+                          enable_direct=False, enable_dense=False,
+                          enable_accum=False, enable_dia=False,
+                          enable_sdia=False, dia_rows=False)
+    pt.plan_spgemm(A, A, cfg)
+    k1 = {k: list(v) for k, v in contract.LAUNCH_LIVE.items()}
+    shapes = dict(contract.LAUNCH_SHAPES)
+    plan = pt.plan_spgemm(A, A, cfg)
+    mat = sps.csr_matrix((h.data, h.col_ids, h.row_offsets),
+                         shape=(h.rows, h.cols))
+    lens = np.diff(mat.indptr)
+    products = int(lens[mat.indices].sum())
+    assert plan.stream.products == products
+    new = {k: [v[0] - k1.get(k, [0, 0])[0], v[1] - k1.get(k, [0, 0])[1]]
+           for k, v in contract.LAUNCH_LIVE.items()}
+    plane = sum(v[1] for k, v in new.items() if k[2] == "plane")
+    assert plane == products
+    for k, (n, live) in new.items():
+        # every launch of a shape carried a count, within its slots
+        assert n == contract.LAUNCH_SHAPES[k] - shapes.get(k, 0)
+        assert 0 <= live <= n * k[0] * k[1]
+    assert all(v[1] <= v[0] * k[0] * k[1]
+               for k, v in bitonic.LAUNCH_LIVE.items())
