@@ -7,8 +7,15 @@ exact while each row fits int32, and the f32 twin ``row_ops_f`` (each
 row's count rounded once) detects the rows that do not.
 
 ``host_analyze``, ``host_gate_lite`` and ``host_band_extremes`` are numpy
-copies of the reference's host forms: with the HostCSR copies attached,
-planning needs no device sync for its routing decisions.
+forms of the reference's host gates: with the HostCSR copies attached,
+planning needs no device sync for its routing decisions. They read the
+same decisions at less cost: every band comes from ``row_ends`` (each
+row's first and last column, one O(rows) gather from the ids as they
+are), which a call's ``HostEnds`` builds once for each host copy and
+shares between its steps; ``HostGateLite`` computes the product total
+(``product_total``, a bincount over A's ids) only when a test reads it.
+Each O(nnz) host pass of planning is counted in
+``utils.timings.HOST_NNZ_PASSES``.
 """
 
 from __future__ import annotations
@@ -19,7 +26,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..utils.timings import upload
+from ..utils.timings import host_pass, span, upload
 from .device_csr import DeviceCSR
 
 INT32_MAX = np.iinfo(np.int32).max
@@ -103,69 +110,128 @@ class HostAnalysis:
         )
 
 
-def _host_band(ipx, cix, rows):
-    """Exact (dmin, dmax) of (col - row) over a canonical CSR: a row's
-    diagonal extremes are its first and last column ids."""
-    n_r = int(rows)
-    nz = cix.shape[0]
-    if nz == 0 or n_r == 0:
-        return INT32_MAX, -INT32_MAX
-    lenx = ipx[1:] - ipx[:-1]
-    ne = lenx > 0
-    if not ne.any():
-        return INT32_MAX, -INT32_MAX
-    ridx = np.arange(n_r, dtype=np.int64)
-    first = cix[np.minimum(ipx[:-1], nz - 1)] - ridx
-    last = cix[np.maximum(ipx[1:] - 1, 0)] - ridx
-    return int(first[ne].min()), int(last[ne].max())
-
-
 @dataclasses.dataclass(frozen=True)
+class RowEnds:
+    """Each row's ends over a canonical CSR, int64: ``first`` and ``last``
+    are every row's first and last column ids, meaningful where ``ne``
+    (the row is not empty) holds; ``dfirst`` and ``dlast`` are the
+    non-empty rows' ends less the row (a row's diagonal extremes)."""
+
+    ne: np.ndarray
+    first: np.ndarray
+    last: np.ndarray
+    dfirst: np.ndarray
+    dlast: np.ndarray
+
+    def band(self):
+        """Exact (dmin, dmax) of (col - row); (INT32_MAX, -INT32_MAX)
+        without an entry."""
+        if self.dfirst.size == 0:
+            return INT32_MAX, -INT32_MAX
+        return int(self.dfirst.min()), int(self.dlast.max())
+
+
+def row_ends(h) -> RowEnds:
+    """``RowEnds`` of a host CSR: two gathers of ``rows`` column ids from
+    the ids as they are (no copy of all of them), so O(rows) whatever the
+    nonzero count."""
+    ip = np.asarray(h.row_offsets, np.int64)
+    ci = np.asarray(h.col_ids)
+    n_r = ip.shape[0] - 1
+    ne = ip[1:] > ip[:-1]
+    if ci.shape[0] == 0:
+        first = last = np.zeros(n_r, np.int64)
+    else:
+        # "wrap" keeps an empty row's offsets in range: its ends are
+        # some row's, and ``ne`` masks them
+        first = np.take(ci, ip[:-1], mode="wrap").astype(np.int64)
+        last = np.take(ci, ip[1:] - 1, mode="wrap").astype(np.int64)
+    rid = np.arange(n_r, dtype=np.int64)
+    if ne.all():
+        return RowEnds(ne=ne, first=first, last=last, dfirst=first - rid,
+                       dlast=last - rid)
+    rid = rid[ne]
+    return RowEnds(ne=ne, first=first, last=last, dfirst=first[ne] - rid,
+                   dlast=last[ne] - rid)
+
+
+class HostEnds:
+    """One call's ``RowEnds`` by host matrix: each built on its first use,
+    inside the range ``speck.plan.row_ends``, and reused by the call's
+    later steps (B's are A's where B is A's host copy). Holds nothing
+    across calls."""
+
+    def __init__(self) -> None:
+        self._got = []
+
+    def __call__(self, h) -> RowEnds:
+        for k, v in self._got:
+            if k is h:
+                return v
+        with span("speck.plan.row_ends"):
+            v = row_ends(h)
+        self._got.append((h, v))
+        return v
+
+
+def product_total(ah, bh) -> float:
+    """The exact product total of A·B on the host: one bincount over A's
+    column ids (an O(nnz) pass, counted in ``HOST_NNZ_PASSES``)."""
+    host_pass("product_total")
+    ci = np.asarray(ah.col_ids)
+    b_ip = np.asarray(bh.row_offsets, np.int64)
+    cnt_a = (np.bincount(ci, minlength=int(bh.rows)) if ci.size
+             else np.zeros(int(bh.rows), np.int64))
+    b_len = b_ip[1:] - b_ip[:-1]
+    return float(np.dot(cnt_a[: b_len.shape[0]].astype(np.int64), b_len))
+
+
+@dataclasses.dataclass
 class HostGateLite:
-    """Whole-matrix gate scalars without the per-row analysis."""
+    """Whole-matrix gate scalars without the per-row analysis; the exact
+    product total (``sum_products``) is computed on its first read and
+    kept in ``total`` (None until then)."""
 
     a_dmin: int
     a_dmax: int
     b_dmin: int
     b_dmax: int
-    sum_products: float    # exact
+    ah: object = dataclasses.field(repr=False, compare=False)
+    bh: object = dataclasses.field(repr=False, compare=False)
+    total: Optional[float] = dataclasses.field(default=None, repr=False,
+                                               compare=False)
+
+    @property
+    def sum_products(self) -> float:
+        if self.total is None:
+            self.total = product_total(self.ah, self.bh)
+        return self.total
 
     @property
     def sp_sat(self) -> int:
         return int(min(self.sum_products, 2.0 ** 31 - 2))
 
 
-def host_band_extremes(ah, bh):
-    """(a_dmin, a_dmax, b_dmin, b_dmax), O(rows)."""
-    a_dmin, a_dmax = _host_band(np.asarray(ah.row_offsets, np.int64),
-                                np.asarray(ah.col_ids), ah.rows)
-    if bh is ah:
-        return a_dmin, a_dmax, a_dmin, a_dmax
-    b_dmin, b_dmax = _host_band(np.asarray(bh.row_offsets, np.int64),
-                                np.asarray(bh.col_ids), bh.rows)
-    return a_dmin, a_dmax, b_dmin, b_dmax
+def host_band_extremes(ah, bh, ends: HostEnds):
+    """(a_dmin, a_dmax, b_dmin, b_dmax), O(rows) from the call's row ends
+    ``ends``."""
+    return ends(ah).band() + ends(bh).band()
 
 
-def host_gate_lite(ah, bh, extremes=None) -> HostGateLite:
-    if extremes is None:
-        extremes = host_band_extremes(ah, bh)
-    a_dmin, a_dmax, b_dmin, b_dmax = extremes
-    ci = np.asarray(ah.col_ids)
-    b_ip = np.asarray(bh.row_offsets, np.int64)
-    cnt_a = (np.bincount(ci, minlength=int(bh.rows)) if ci.size
-             else np.zeros(int(bh.rows), np.int64))
-    b_len = b_ip[1:] - b_ip[:-1]
-    sum_products = float(np.dot(cnt_a[: b_len.shape[0]].astype(np.int64),
-                                b_len))
-    return HostGateLite(a_dmin=a_dmin, a_dmax=a_dmax, b_dmin=b_dmin,
-                        b_dmax=b_dmax, sum_products=sum_products)
+def host_gate_lite(ah, bh, extremes) -> HostGateLite:
+    """The lite gate's scalars from ``host_band_extremes``' ``extremes``;
+    the product total waits for its first read."""
+    return HostGateLite(*extremes, ah=ah, bh=bh)
 
 
-def host_analyze(ah, bh) -> HostAnalysis:
-    """Analysis + gate scalars on host numpy (exact int64)."""
+def host_analyze(ah, bh, ends: HostEnds) -> HostAnalysis:
+    """Analysis + gate scalars on host numpy (exact int64): one O(nnz)
+    pass, counted in ``HOST_NNZ_PASSES``; the bands from the call's row
+    ends ``ends``."""
+    host_pass("host_analyze")
     m = int(ah.rows)
     ip = np.asarray(ah.row_offsets, np.int64)
-    ci = np.asarray(ah.col_ids, np.intp)
+    ci = np.asarray(ah.col_ids)
     b_ip = np.asarray(bh.row_offsets, np.int64)
     b_len = b_ip[1:] - b_ip[:-1]
     a_len = ip[1:] - ip[:-1]
@@ -180,12 +246,7 @@ def host_analyze(ah, bh) -> HostAnalysis:
     else:
         row_ops = np.zeros(m, np.int64)
         sum_products = 0.0
-    a_dmin, a_dmax = _host_band(ip, ci, m)
-    if bh is ah:
-        b_dmin, b_dmax = a_dmin, a_dmax
-    else:
-        b_dmin, b_dmax = _host_band(b_ip, np.asarray(bh.col_ids, np.intp),
-                                    bh.rows)
+    a_dmin, a_dmax, b_dmin, b_dmax = host_band_extremes(ah, bh, ends)
     return HostAnalysis(row_ops=row_ops, a_len=a_len,
                         sum_products=sum_products,
                         max_row_products=int(row_ops.max(initial=0)),

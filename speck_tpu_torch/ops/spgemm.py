@@ -28,6 +28,9 @@ range ``speck.<stage>`` (utils/timings.py); inside them the sub-ranges
                        speck.plan.host_layout, speck.plan.groups (the
                        direct and dense groups), speck.plan.records
                        (stream_records, build_srec)
+                       and in both, inside the first step that reads them,
+                       speck.plan.row_ends (the host copies' row ends,
+                       analysis.HostEnds, once a call)
   spGEMMCounting       speck.count.chunk (one a chunk), speck.wide.level
                        (one a merge level), speck.wide.finish (one a
                        finish class), speck.accum, speck.dense.batch
@@ -90,10 +93,10 @@ import numpy as np
 import torch
 
 from ..utils.config import ProductOverflow, SpgemmConfig
-from ..utils.timings import (StageTimer, Timings, readback, span,
-                             sync_tensors, upload)
-from .analysis import (analyze, cumsum1d, host_analyze, host_band_extremes,
-                       host_gate_lite)
+from ..utils.timings import (StageTimer, Timings, host_pass, readback,
+                             span, sync_tensors, upload)
+from .analysis import (HostEnds, analyze, cumsum1d, host_analyze,
+                       host_band_extremes, host_gate_lite)
 from .contract import VALUE_DTYPES
 from .dense import dense_emit, dense_gather_emit, dense_tiles
 from .device_csr import DeviceCSR, host_of
@@ -909,11 +912,12 @@ def _run_accum(ss: StreamState, A: DeviceCSR, B: DeviceCSR, nnz_row,
 # ---------------------------------------------------------------------------
 
 
-def _dia_spans(cfg: SpgemmConfig, A: DeviceCSR, B: DeviceCSR, a_dmin: int,
-               a_dmax: int, b_dmin: int, b_dmax: int, sp_sat: int):
-    """The whole-matrix DIA gate: (span_a, span_b) when the multiply runs
-    over diagonal planes, else None. The int32 guard holds whatever the
-    memory budget: slots are span * rows + row in int32."""
+def _dia_band_spans(cfg: SpgemmConfig, A: DeviceCSR, B: DeviceCSR,
+                    a_dmin: int, a_dmax: int, b_dmin: int, b_dmax: int):
+    """The whole-matrix DIA gate's tests that need no product total:
+    (span_a, span_b) when the spans fit the span cap, the int32 slots
+    (span * rows + row, whatever the memory budget) and the memory
+    budget, else None."""
     if not (a_dmin <= a_dmax and b_dmin <= b_dmax):
         return None
     m, n = A.shape[0], B.shape[1]
@@ -922,11 +926,27 @@ def _dia_spans(cfg: SpgemmConfig, A: DeviceCSR, B: DeviceCSR, a_dmin: int,
     sc_g = sa + sb - 1
     if (sa <= cfg.dia_span_cap and sb <= cfg.dia_span_cap
             and max(sa * m, sb * A.shape[1], sc_g * m) < 2 ** 31
-            and m * sa * sb <= cfg.dia_waste_cap * max(sp_sat, 1)
             and plane_bytes(m, A.shape[1], n, sa, sb, A.data.dtype.itemsize)
             <= cfg.dia_mem_budget):
         return sa, sb
     return None
+
+
+def _dia_waste_ok(cfg: SpgemmConfig, m: int, spans, sp_sat: int) -> bool:
+    """The whole-matrix DIA gate's last test: the planes' work m * sa *
+    sb within dia_waste_cap of the (saturated) product total."""
+    sa, sb = spans
+    return m * sa * sb <= cfg.dia_waste_cap * max(sp_sat, 1)
+
+
+def _dia_spans(cfg: SpgemmConfig, A: DeviceCSR, B: DeviceCSR, a_dmin: int,
+               a_dmax: int, b_dmin: int, b_dmax: int, sp_sat: int):
+    """The whole-matrix DIA gate: (span_a, span_b) when the multiply runs
+    over diagonal planes, else None."""
+    spans = _dia_band_spans(cfg, A, B, a_dmin, a_dmax, b_dmin, b_dmax)
+    if spans is None or not _dia_waste_ok(cfg, A.shape[0], spans, sp_sat):
+        return None
+    return spans
 
 
 def _plan_dia(A: DeviceCSR, B: DeviceCSR, cfg: SpgemmConfig,
@@ -1006,6 +1026,7 @@ def _diag_offsets(dev, h, dmin: int, span: int) -> np.ndarray:
     if dev is not None and span <= _DIAG_DEV_SPAN_MAX:
         bm = _diag_bitmap_dev(dev.indptr, dev.indices, dmin, span=span)
         return np.flatnonzero(readback(bm, "diag_bitmap")) + dmin
+    host_pass("diag_offsets")
     ip = np.asarray(h.row_offsets, np.int64)
     rid = np.repeat(np.arange(h.rows, dtype=np.int64), ip[1:] - ip[:-1])
     d = np.asarray(h.col_ids, np.int64) - rid
@@ -1015,9 +1036,10 @@ def _diag_offsets(dev, h, dmin: int, span: int) -> np.ndarray:
 def _sdia_gate(cfg: SpgemmConfig, A: DeviceCSR, B: DeviceCSR, ah, bh, hg):
     """Sparse-DIA eligibility (needs the attached HostCSR copies): the
     present-offset lists within the pair cap, the band within
-    sdia_span_cap, the work m * nd_a * nd_b within dia_waste_cap of the
-    true product count, the planes within dia_mem_budget. Returns
-    (off_a, off_b, span_a, span_b) or None."""
+    sdia_span_cap, the planes within dia_mem_budget, and last (the one
+    test that reads ``hg.sum_products``) the work m * nd_a * nd_b within
+    dia_waste_cap of the true product count. Returns (off_a, off_b,
+    span_a, span_b) or None."""
     if not cfg.enable_sdia or ah is None or bh is None:
         return None
     if not (hg.a_dmin <= hg.a_dmax and hg.b_dmin <= hg.b_dmax):
@@ -1039,11 +1061,11 @@ def _sdia_gate(cfg: SpgemmConfig, A: DeviceCSR, B: DeviceCSR, ah, bh, hg):
     nd_c = len(np.unique(off_a[:, None] + off_b[None, :]))
     if max(nd_a * m, nd_b * k, nd_c * m) >= 2 ** 31:
         return None
-    if m * nd_a * nd_b > cfg.dia_waste_cap * max(hg.sum_products, 1.0):
-        return None
     pad_l, pad_r = sdia_pad(tuple(int(x) for x in off_a), m, k)
     if sdia_plane_bytes(m, k, nd_a, nd_b, nd_c, k + pad_l + pad_r,
                         A.data.dtype.itemsize) > cfg.dia_mem_budget:
+        return None
+    if m * nd_a * nd_b > cfg.dia_waste_cap * max(hg.sum_products, 1.0):
         return None
     return off_a, off_b, span_a, span_b
 
@@ -1091,70 +1113,66 @@ def _plan_sdia(A: DeviceCSR, B: DeviceCSR, cfg: SpgemmConfig,
                            off_b=tb, doffs=doffs))
 
 
-def _host_dia_rows_plausible(ah, bh, cfg: SpgemmConfig) -> bool:
+def _host_dia_rows_plausible(ah, bh, cfg: SpgemmConfig,
+                             ends: HostEnds) -> bool:
     """Host twin of the per-row DIA split's robust-band gate (5% outlier
-    allowance per side of the per-row diagonal extents)."""
+    allowance per side of the per-row diagonal extents), O(rows) from the
+    call's row ends ``ends``."""
 
-    def robust(ipx, cix, rows):
-        ip = np.asarray(ipx, np.int64)
-        ci = np.asarray(cix, np.int64)
-        lens = ip[1:] - ip[:-1]
-        ne = lens > 0
-        n_ne = int(ne.sum())
+    def robust(h):
+        e = ends(h)
+        n_ne = e.dfirst.size
         if n_ne == 0:
             return 0, -1
-        rid = np.arange(int(rows), dtype=np.int64)
-        first = ci[np.minimum(ip[:-1], max(ci.size - 1, 0))] - rid
-        last = ci[np.maximum(ip[1:] - 1, 0)] - rid
         pad = n_ne // 20
-        fs = np.sort(first[ne])
-        ls = np.sort(last[ne])
-        return int(fs[min(pad, n_ne - 1)]), int(ls[max(n_ne - 1 - pad, 0)])
+        return (int(np.sort(e.dfirst)[pad]),
+                int(np.sort(e.dlast)[n_ne - 1 - pad]))
 
-    dlo_a, dhi_a = robust(ah.row_offsets, ah.col_ids, ah.rows)
-    dlo_b, dhi_b = robust(bh.row_offsets, bh.col_ids, bh.rows)
+    dlo_a, dhi_a = robust(ah)
+    dlo_b, dhi_b = (dlo_a, dhi_a) if bh is ah else robust(bh)
     return bool(dhi_a >= dlo_a and dhi_b >= dlo_b
                 and dhi_a - dlo_a + 1 <= cfg.dia_span_cap
                 and dhi_b - dlo_b + 1 <= cfg.dia_span_cap)
 
 
-def _host_dense_plausible(ah, tile_rows: int, kw_max: int, bh=None,
-                          cw_max: int = 0) -> bool:
+def _host_dense_plausible(ah, tile_rows: int, kw_max: int, ends: HostEnds,
+                          bh=None, cw_max: int = 0) -> bool:
     """Host pre-reject of the dense-tile route: some row tile must have
     its A column range within the k-window and (with ``bh``) its output
-    column range within the c-window."""
-    ip = np.asarray(ah.row_offsets, np.int64)
-    ci = np.asarray(ah.col_ids, np.int64)
+    column range within the c-window. A's windows are O(rows) from the
+    call's row ends ``ends``; the output window reads every nonzero of A
+    (an O(nnz) pass, ``dense_b_window``)."""
     m = int(ah.rows)
+    ci = np.asarray(ah.col_ids)
     if m == 0 or ci.size == 0:
         return False
-    ne = (ip[1:] - ip[:-1]) > 0
     INTM = np.iinfo(np.int64).max
+    t0 = np.arange(0, m, tile_rows)
 
     def tiles(first, last):
-        nt = -(-m // tile_rows)
-        padn = nt * tile_rows - m
-        f = np.concatenate([first, np.full(padn, INTM, np.int64)])
-        la = np.concatenate([last, np.full(padn, -1, np.int64)])
-        return (f.reshape(nt, tile_rows).min(axis=1),
-                la.reshape(nt, tile_rows).max(axis=1))
+        return (np.minimum.reduceat(first, t0),
+                np.maximum.reduceat(last, t0))
 
-    first = np.where(ne, ci[np.minimum(ip[:-1], ci.size - 1)], INTM)
-    last = np.where(ne, ci[np.maximum(ip[1:] - 1, 0)], -1)
-    tmin, tmax = tiles(first, last)
+    def cols(h):
+        """Each row's first and last column id, INTM and -1 if empty."""
+        e = ends(h)
+        if e.dfirst.size == e.ne.size:
+            return e.first, e.last
+        return np.where(e.ne, e.first, INTM), np.where(e.ne, e.last, -1)
+
+    ne = ends(ah).ne
+    tmin, tmax = tiles(*cols(ah))
     ok = (tmax >= 0) & (tmax - tmin + 1 <= kw_max)
     if not ok.any():
         return False
     if bh is None or cw_max <= 0:
         return True
-    bip = np.asarray(bh.row_offsets, np.int64)
-    bci = np.asarray(bh.col_ids, np.int64)
-    if bci.size == 0:
+    if np.asarray(bh.col_ids).size == 0:
         return False
-    bne = (bip[1:] - bip[:-1]) > 0
-    bfirst = np.where(bne, bci[np.minimum(bip[:-1], bci.size - 1)], INTM)
-    blast = np.where(bne, bci[np.maximum(bip[1:] - 1, 0)], -1)
-    starts = np.minimum(ip[:-1], max(ci.size - 1, 0))
+    host_pass("dense_b_window")
+    bfirst, blast = cols(bh)
+    starts = np.minimum(np.asarray(ah.row_offsets, np.int64)[:-1],
+                        ci.size - 1)
     rmin = np.minimum.reduceat(bfirst[ci], starts)
     rmax = np.maximum.reduceat(blast[ci], starts)
     cmin_t, cmax_t = tiles(np.where(ne, rmin, INTM), np.where(ne, rmax, -1))
@@ -1321,18 +1339,28 @@ def _ranged(prefix: str):
 
 
 def lite_gate(cfg: SpgemmConfig, A: DeviceCSR, B: DeviceCSR, ah, bh,
-              step=_ranged("speck.plan.lite_gate")):
+              ends: HostEnds, step=_ranged("speck.plan.lite_gate")):
     """The lite host gate of an input past ``host_analysis_max_nnz`` (A's
-    and B's host copies ``ah``, ``bh``): (lite, route, gate), where route
-    is "dia" with the spans as gate, "sdia" with ``_sdia_gate``'s output,
-    or None (the band admits no diagonal route)."""
-    ext = step("host_band_extremes", lambda: host_band_extremes(ah, bh))
+    and B's host copies ``ah``, ``bh``; their row ends from the call's
+    ``ends``): (lite, route, gate), where route is "dia" with the spans
+    as gate, "sdia" with ``_sdia_gate``'s output, or None (the band
+    admits no diagonal route). The product total is computed only where a
+    test reads it."""
+    ext = step("host_band_extremes",
+               lambda: host_band_extremes(ah, bh, ends))
     if not any(lite_band_ok(cfg, ext, ah, bh, A.shape[0])):
         return None, None, None
     lite = step("host_gate_lite", lambda: host_gate_lite(ah, bh, ext))
-    spans = step("_dia_spans", lambda: _dia_spans(
-        cfg, A, B, lite.a_dmin, lite.a_dmax, lite.b_dmin, lite.b_dmax,
-        lite.sp_sat))
+
+    def dia_spans():
+        # the waste test, the one that reads the total, goes last
+        spans = _dia_band_spans(cfg, A, B, *ext)
+        if spans is None or not _dia_waste_ok(cfg, A.shape[0], spans,
+                                              lite.sp_sat):
+            return None
+        return spans
+
+    spans = step("_dia_spans", dia_spans)
     if spans is not None:
         return lite, "dia", spans
     sd = step("_sdia_gate", lambda: _sdia_gate(cfg, A, B, ah, bh, lite))
@@ -1340,24 +1368,26 @@ def lite_gate(cfg: SpgemmConfig, A: DeviceCSR, B: DeviceCSR, ah, bh,
 
 
 def host_gates(cfg: SpgemmConfig, A: DeviceCSR, B: DeviceCSR, ah, bh,
-               dia_possible: bool,
+               dia_possible: bool, ends: HostEnds,
                step=_ranged("speck.plan.host_gates")):
     """The planning pass's route gates: (use_dense, use_dia_rows), each
     confirmed by its host plausibility test where A's host copy ``ah`` is
-    at hand (B's ``bh`` is read by the dense test only up to
-    ``host_analysis_max_nnz``)."""
+    at hand (B's ``bh`` is read by the dense test's output window only up
+    to ``host_analysis_max_nnz``); the row ends from the call's ``ends``,
+    shared by the two tests."""
     use_dense = bool(cfg.enable_dense and A.canonical and B.canonical
                      and B.nnz > 0)
     if use_dense and ah is not None:
         use_dense = step("_host_dense_plausible", lambda: (
             _host_dense_plausible(
-                ah, cfg.dense_tile_rows, cfg.dense_kw,
+                ah, cfg.dense_tile_rows, cfg.dense_kw, ends,
                 bh=bh if A.nnz <= cfg.host_analysis_max_nnz else None,
                 cw_max=cfg.dense_cw)))
     use_dia_rows = bool(cfg.dia_rows and dia_possible)
     if use_dia_rows and ah is not None:
         use_dia_rows = step("_host_dia_rows_plausible",
-                            lambda: _host_dia_rows_plausible(ah, bh, cfg))
+                            lambda: _host_dia_rows_plausible(ah, bh, cfg,
+                                                             ends))
         # a host-confirmed split claims the banded bulk and leaves no
         # tile dense-eligible
         use_dense = use_dense and not use_dia_rows
@@ -1424,10 +1454,12 @@ def plan_spgemm(A: DeviceCSR, B: DeviceCSR,
         if ah is None or (bh is None and B is not A):
             ah = bh = None
     bh_eff = ah if (B is A or bh is ah) else bh
+    # each host copy's row ends, built by the first step that reads them
+    ends = HostEnds()
     if ah is not None and A.nnz <= cfg.host_analysis_max_nnz:
         with StageTimer(timings, "countProducts", track), \
                 span("speck.plan.host_analyze"):
-            hg = host_analyze(ah, bh_eff)
+            hg = host_analyze(ah, bh_eff, ends)
     dia_possible = dia_route_possible(cfg, A, B)
     band_plausible = bool(
         A.nnz <= m * cfg.dia_span_cap
@@ -1437,7 +1469,7 @@ def plan_spgemm(A: DeviceCSR, B: DeviceCSR,
     if hg is None and ah is not None and dia_possible:
         # lite host gate for inputs past host_analysis_max_nnz
         with StageTimer(timings, "loadBalanceCounting", track):
-            lite, route, gate = lite_gate(cfg, A, B, ah, bh_eff)
+            lite, route, gate = lite_gate(cfg, A, B, ah, bh_eff, ends)
             if route == "dia":
                 return _plan_dia(A, B, cfg, timings, lite, lite.a_dmin,
                                  lite.b_dmin, *gate, track)
@@ -1475,7 +1507,7 @@ def plan_spgemm(A: DeviceCSR, B: DeviceCSR,
 
     with StageTimer(timings, "loadBalanceCounting", track):
         use_dense, use_dia_rows = host_gates(cfg, A, B, ah, bh_eff,
-                                             dia_possible)
+                                             dia_possible, ends)
         tr, max_tiles = cfg.dense_tile_rows, _max_tiles(cfg)
         a32 = record_bits(A)
         with span("speck.plan.device_plan"):
@@ -1734,7 +1766,8 @@ def _spgemm_blocked(A: DeviceCSR, B: DeviceCSR, cfg: SpgemmConfig,
     if (cfg.host_analysis and A.nnz <= cfg.host_analysis_max_nnz
             and ah is not None and (bh is not None or B is A)):
         row_ops = np.asarray(host_analyze(
-            ah, ah if (B is A or bh is ah) else bh).row_ops, np.int64)
+            ah, ah if (B is A or bh is ah) else bh, HostEnds()).row_ops,
+            np.int64)
     else:
         row_ops = np.maximum(readback(
             analyze(A, B).row_ops_f, "block_row_ops").astype(np.float64),

@@ -19,7 +19,7 @@ import argparse
 
 import torch
 
-from ..ops.analysis import host_analyze
+from ..ops.analysis import HostEnds, host_analyze
 from ..ops.device_csr import device_put_csr, host_of
 from ..ops.spgemm import plan_spgemm, plan_stream, spgemm
 from ..utils.config import SpgemmConfig
@@ -37,7 +37,8 @@ def split(A, cfg=None, reps: int = 5):
     cfg = cfg or SpgemmConfig()
     ah = host_of(A)
     rows = [timed(LABELS[0], lambda: spgemm(A, A, cfg), reps),
-            timed(LABELS[1], lambda: host_analyze(ah, ah), reps)]
+            timed(LABELS[1], lambda: host_analyze(ah, ah, HostEnds()),
+                  reps)]
     stats = rows[-1][3].to_device(A.device)
     for label, (dia_rows, dense) in zip(LABELS[2:5], VARIANTS):
         rows.append(timed(label, lambda dense=dense, dia_rows=dia_rows: (

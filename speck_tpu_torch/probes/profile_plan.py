@@ -17,11 +17,15 @@ the staged planes and ``execute()``), at the plan's spans.
 ``giant_row`` (``make_giant_row()``) and ``stencil27``
 (``make_stencil27(102)``) run ``lbc_split``: each step that
 ``plan_spgemm`` runs on an input past ``host_analysis_max_nnz``, in its
-order, timed alone: the lite host gate (``host_band_extremes``, then,
-where the band allows a diagonal route, ``host_gate_lite``,
-``_dia_spans`` and ``_sdia_gate``); on a diagonal route, the DIA plan it
-encloses; else the device ``analyze`` (booked as ``countProducts``), the
-host plausibility gates, ``plan_device_stream``, the pack's readback,
+order, timed alone: the row ends that the host gates share
+(``analysis.HostEnds``: each row's first and last column, O(rows)); the
+lite host gate (``host_band_extremes``, then, where the band allows a
+diagonal route, ``host_gate_lite``, ``_dia_spans`` and ``_sdia_gate``;
+where one of them read the product total, that total as a row of its
+own); on a diagonal route, the DIA plan it encloses; else the device
+``analyze`` (booked as ``countProducts``), the host plausibility gates
+(``_host_dense_plausible``, ``_host_dia_rows_plausible``),
+``plan_device_stream``, the pack's readback,
 the host layout (``host_layout``: ``plan_layout``, ``plan_levels``,
 ``_plan_accum``) and ``build_srec`` with its ``searchsorted``. Last,
 ``plan_spgemm``'s own stages by ``Timings`` with ``measure_all``; the
@@ -42,7 +46,7 @@ import time
 
 import torch
 
-from ..ops.analysis import analyze
+from ..ops.analysis import HostEnds, analyze, product_total
 from ..ops.dense import dense_gather_emit, tile_stats
 from ..ops.device_csr import device_put_csr, host_of
 from ..ops.dia import dia_conv, dia_count_stage, dia_planes, dia_slots
@@ -65,6 +69,8 @@ LABELS = ("analyze", "plan_device_stream (device)", "tile_stats alone",
           "dia dense_gather_emit", "dia execute()")
 
 LBC_LABEL = "plan_spgemm loadBalanceCounting (Timings)"
+ROW_ENDS_LABEL = "row ends (HostEnds)"
+TOTAL_LABEL = "product total (bincount)"
 
 
 def planning_calls(A, cfg, stats):
@@ -164,7 +170,8 @@ def lbc_split(A, cfg=None, reps: int = 5):
     each timed alone, then ``LBC_LABEL``: plan_spgemm's own
     ``loadBalanceCounting`` (its outputs: the medians of every stage).
     The gates are plan_spgemm's own (``lite_gate``, ``host_gates``), each
-    step timed as they run it; the steps they skip are not rows."""
+    step timed as they run it, on row ends built once (``ROW_ENDS_LABEL``,
+    the first row); the steps they skip are not rows."""
     cfg = cfg or SpgemmConfig()
     ah = host_of(A)
     if not cfg.host_analysis or ah is None \
@@ -180,9 +187,22 @@ def lbc_split(A, cfg=None, reps: int = 5):
             return rows[-1][3]
         return run
 
+    def built():
+        ends = HostEnds()
+        ends(ah)
+        return ends
+
+    rows.append(timed(ROW_ENDS_LABEL, built, reps))
+    ends = rows[-1][3]
     route = None
     if dia_possible:
-        lite, route, gate = lite_gate(cfg, A, A, ah, ah, step("lite gate: "))
+        lite, route, gate = lite_gate(cfg, A, A, ah, ah, ends,
+                                      step("lite gate: "))
+        if lite is not None and lite.total is not None:
+            # a gate read the product total: computed inside its first
+            # rep only (HostGateLite caches it), so it is a row of its own
+            rows.append(timed(TOTAL_LABEL, lambda: product_total(ah, ah),
+                              reps))
         if route == "dia":
             rows.append(timed(
                 "_plan_dia (spGEMMCounting, allocC)",
@@ -198,7 +218,7 @@ def lbc_split(A, cfg=None, reps: int = 5):
                           reps))
         stats = rows[-1][3]
         use_dense, use_dia_rows = host_gates(cfg, A, A, ah, ah, dia_possible,
-                                             step("host gate: "))
+                                             ends, step("host gate: "))
         rows.append(timed("plan_device_stream", lambda: plan_stream(
             A, A, cfg, stats, use_dense=use_dense,
             use_dia_rows=use_dia_rows), reps))

@@ -18,6 +18,8 @@ host-device copies of a call.
   the range ``speck.readback.<what>`` and counted in ``READBACKS[what] =
   [copies, bytes]`` (on any device: a CPU tensor counts what the card's
   path would copy). On the card each is a synchronize.
+- ``host_pass``: each O(nnz) pass over a host copy that planning makes,
+  counted in ``HOST_NNZ_PASSES[what] = passes``.
 - ``upload``: a host array onto the device without a synchronize (an
   asynchronous copy from pinned memory on a CUDA device), so that the
   readbacks are the call path's only synchronizing copies.
@@ -45,6 +47,10 @@ STAGE_NAMES = (
 # the call path's device-to-host copies in this process: {what: [copies,
 # bytes]}
 READBACKS: Dict[str, List[int]] = {}
+
+# the O(nnz) host passes that planning makes in this process: {what:
+# passes} (the gates past host_analysis_max_nnz read O(rows) otherwise)
+HOST_NNZ_PASSES: Dict[str, int] = {}
 
 _NO_RANGE = contextlib.nullcontext()
 
@@ -95,6 +101,11 @@ def readback(t: torch.Tensor, what: str) -> np.ndarray:
     n[0] += 1
     n[1] += t.numel() * t.element_size()
     return out
+
+
+def host_pass(what: str) -> None:
+    """Count one O(nnz) host pass of planning in ``HOST_NNZ_PASSES``."""
+    HOST_NNZ_PASSES[what] = HOST_NNZ_PASSES.get(what, 0) + 1
 
 
 def upload(x: np.ndarray, device) -> torch.Tensor:

@@ -658,18 +658,20 @@ def test_default_routing_skips_the_dia_family():
                     data=giant.data)
     Aj, At = st.device_put_csr(gj), pt.device_put_csr(giant, device="cpu")
     hj = st.ops.analysis.host_analyze(gj, gj)
-    ht = tsp.host_analyze(giant, giant)
-    for mod, A, h, hg, cfg in [(jsp, Aj, gj, hj, st.SpgemmConfig()),
-                               (tsp, At, giant, ht, pt.SpgemmConfig())]:
+    ht = tsp.host_analyze(giant, giant, tsp.HostEnds())
+    # the port's host gates read the row ends of the call they serve
+    for mod, A, h, hg, cfg, ends in [
+            (jsp, Aj, gj, hj, st.SpgemmConfig(), ()),
+            (tsp, At, giant, ht, pt.SpgemmConfig(), (tsp.HostEnds(),))]:
         assert mod._dia_spans(cfg, A, A, hg.a_dmin, hg.a_dmax, hg.b_dmin,
                               hg.b_dmax, hg.sp_sat) is None
         assert mod._sdia_gate(cfg, A, A, h, h, hg) is None
-        assert not mod._host_dia_rows_plausible(h, h, cfg)
+        assert not mod._host_dia_rows_plausible(h, h, cfg, *ends)
     assert pt.plan_spgemm(At, At).dense is not None
     cfg = pt.SpgemmConfig()
     for h in (gen.make_powerlaw(131072, seed=5),
               gen.make_powerlaw(262144, seed=7)):
-        assert not tsp._host_dia_rows_plausible(h, h, cfg)
+        assert not tsp._host_dia_rows_plausible(h, h, cfg, tsp.HostEnds())
 
 
 @pytest.mark.parametrize("which", ["stencil27", "mixed"])

@@ -172,7 +172,8 @@ def test_split_labels_in_script_order(runs, case):
 def test_lbc_split_runs_plan_spgemms_steps_in_order(runs):
     rows, cfg = runs["profile_plan lbc"]
     labels = [r[0] for r in rows]
-    order = ["lite gate: host_band_extremes", "analyze (countProducts)",
+    order = [profile_plan.ROW_ENDS_LABEL, "lite gate: host_band_extremes",
+             "analyze (countProducts)",
              "host gate: _host_dense_plausible",
              "host gate: _host_dia_rows_plausible", "plan_device_stream",
              "pack readback",
@@ -193,10 +194,13 @@ def test_lbc_split_of_a_stencil_encloses_its_diagonal_plan():
     rows = profile_plan.lbc_split(
         S, pt.SpgemmConfig(host_analysis_max_nnz=16), 1)
     assert [r[0] for r in rows] == [
+        profile_plan.ROW_ENDS_LABEL,
         "lite gate: host_band_extremes", "lite gate: host_gate_lite",
         "lite gate: _dia_spans", "lite gate: _sdia_gate",
+        profile_plan.TOTAL_LABEL,
         "_plan_sdia (spGEMMCounting, allocC)", profile_plan.LBC_LABEL]
-    assert_csr_equal(rows[4][3].execute(), pt.spgemm(
+    assert rows[5][3] == rows[6][3].sum_products
+    assert_csr_equal(rows[6][3].execute(), pt.spgemm(
         S, S, pt.SpgemmConfig(host_analysis_max_nnz=16)))
 
 
