@@ -1,50 +1,64 @@
-"""The plain reference of C = A @ B and the comparison that decides
+"""The plain reference of a call's steps and the comparison that decides
 ``correct``.
 
-Plain PyTorch in float64, on the device the run uses, in blocks of rows of
-at most ``BLOCK_PRODUCTS`` products: each block expands its products,
-sorts them by (row, column) and sums each run, with the sum of the
-products' magnitudes beside it. It imports nothing of the program: it is
-given the inputs' structure and value sets as the benchmark made them.
+A call is a chain of steps over named operands (``check``; the format is
+``operands.py``'s): ``spgemm``, C = A @ B, and ``transpose``. Plain
+PyTorch in float64, on the device the run uses. A product runs in blocks
+of rows of at most ``BLOCK_PRODUCTS`` products: each block expands its
+products, sorts them by (row, column) and sums each run, with the sum of
+the products' magnitudes beside it. A transpose is a stable sort of the
+entries by column. Each operand carries
+a magnitude plane beside its values, the scale of its entries' rounding
+error: absent on the inputs, where it stands for ``|v|``; a product's is
+``|A| @ |B|`` of its operands' planes, and a transpose moves it with the
+values, so that the chain Pt (A P) carries ``|Pt| (|A| |P|)``. It imports
+nothing of the program: it is given the inputs' structure and values as
+the benchmark made them.
 
-``compare`` holds the program's output to it, block by block, so that no
-whole reference product is ever held. Two numbers come of it:
+``compare`` holds the program's output to the last step, a product, block
+by block, so that no whole reference of it is ever held (the steps before
+it are held whole). Two numbers come of it:
 
 - ``struct_rows``: rows of C whose columns differ from the reference's
   (sorted, distinct), or the whole of C where its offsets are unusable.
   The structure is exact, so its limit is 0.
 - ``val_err``: the largest ``|c - r| / m`` over the entries of the rows
   whose structure matches, ``r`` the reference's value and ``m`` the sum of
-  ``|a| |b|`` over the entry's products, the scale of any rounding error.
-  An entry whose products are all 0 must be 0.
+  ``|a| |b|`` over the entry's products (of the operands' magnitude
+  planes), the scale of any rounding error. An entry whose products are
+  all 0 must be 0.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from .inputs import Structure
+from .operands import Step, check_steps
 
 BLOCK_PRODUCTS = 1 << 26
 
 
 @dataclasses.dataclass
 class Operand:
-    """A CSR matrix on the device, int64 indices, with each entry's row."""
+    """A CSR matrix on the device, int64 indices, with each entry's row,
+    its values and its magnitude plane (None: ``|v|``)."""
 
     st: Structure
     ip: torch.Tensor
     ix: torch.Tensor
     row: torch.Tensor
     v: torch.Tensor
+    m: Optional[torch.Tensor] = None
 
     @staticmethod
-    def of(st: Structure, values: torch.Tensor) -> "Operand":
+    def of(st: Structure, values: torch.Tensor,
+           m: Optional[torch.Tensor] = None) -> "Operand":
         dev = values.device
         ip = torch.as_tensor(st.indptr, device=dev)
         rows = torch.arange(st.rows, device=dev)
@@ -52,7 +66,7 @@ class Operand:
                        ix=torch.as_tensor(st.indices, device=dev).long(),
                        row=torch.repeat_interleave(rows, ip[1:] - ip[:-1],
                                                    output_size=st.nnz),
-                       v=values)
+                       v=values, m=m)
 
 
 def product_counts(a: Structure, b: Structure) -> np.ndarray:
@@ -95,12 +109,14 @@ def block_product(a: Operand, b: Operand, cs: np.ndarray, r0: int, r1: int):
     del first
     va = a.v[src].double()
     vb = b.v[pos].double()
+    ma = va.abs() if a.m is None else a.m[src]
+    mb = vb.abs() if b.m is None else b.m[pos]
     key = (a.row[src] - r0) * b.st.cols + b.ix[pos]
     del src, pos
     key, perm = torch.sort(key)
     val = (va * vb)[perm]
-    mag = (va.abs() * vb.abs())[perm]
-    del va, vb, perm
+    mag = (ma * mb)[perm]
+    del va, vb, ma, mb, perm
     new = torch.ones(n_prod, dtype=torch.bool, device=dev)
     new[1:] = key[1:] != key[:-1]
     seg = torch.cumsum(new, 0) - 1
@@ -113,6 +129,52 @@ def block_product(a: Operand, b: Operand, cs: np.ndarray, r0: int, r1: int):
     urow = torch.div(ukey, b.st.cols, rounding_mode="floor")
     counts = torch.bincount(urow, minlength=r1 - r0)
     return counts, ukey - urow * b.st.cols, vals, mags
+
+
+def product(a: Operand, b: Operand, budget: int = BLOCK_PRODUCTS
+            ) -> Operand:
+    """A @ B whole, in float64, with its magnitude plane."""
+    cs = product_counts(a.st, b.st)
+    counts, cols, vals, mags = zip(*(block_product(a, b, cs, r0, r1)
+                                     for r0, r1 in row_blocks(a.st, cs,
+                                                              budget)))
+    indptr = np.zeros(a.st.rows + 1, np.int64)
+    np.cumsum(torch.cat(counts).cpu().numpy(), out=indptr[1:])
+    st = Structure(rows=a.st.rows, cols=b.st.cols, indptr=indptr,
+                   indices=torch.cat(cols).int().cpu().numpy())
+    return Operand.of(st, torch.cat(vals), torch.cat(mags))
+
+
+def transpose(a: Operand) -> Operand:
+    """A's transpose, in float64, with its magnitude plane: the entries in
+    a stable sort by column, so rows ascend within each column."""
+    ix, perm = torch.sort(a.ix, stable=True)
+    indptr = np.zeros(a.st.cols + 1, np.int64)
+    np.cumsum(torch.bincount(ix, minlength=a.st.cols).cpu().numpy(),
+              out=indptr[1:])
+    st = Structure(rows=a.st.cols, cols=a.st.rows, indptr=indptr,
+                   indices=a.row[perm].int().cpu().numpy())
+    v = a.v.double()
+    m = v.abs() if a.m is None else a.m
+    return Operand.of(st, v[perm], m[perm])
+
+
+def check(c_indptr: torch.Tensor, c_indices: torch.Tensor,
+          c_data: torch.Tensor, shape, operands: Dict[str, Operand],
+          steps: Sequence[Step], budget: int = BLOCK_PRODUCTS
+          ) -> Dict[str, float]:
+    """The program's output of ``steps`` over ``operands`` against the
+    reference of the last step, the steps before it evaluated whole:
+    ``struct_rows`` and ``val_err`` (``compare``)."""
+    check_steps(steps, operands)
+    env = dict(operands)
+    for name, op, *args in steps[:-1]:
+        ops = [env[x] for x in args]
+        env[name] = (product(*ops, budget) if op == "spgemm"
+                     else transpose(*ops))
+    a, b = (env[x] for x in steps[-1][2:])
+    del env
+    return compare(c_indptr, c_indices, c_data, shape, a, b, budget)
 
 
 def rel_err(c: torch.Tensor, r: torch.Tensor, m: torch.Tensor) -> float:

@@ -8,8 +8,8 @@ process's age at the first timed call), then calls the entry back to back
 for ``--seconds`` (a closed loop with one caller; every call ends in a
 synchronize). One call of the window, drawn from the seed, keeps its
 output; after the window the program's state is freed and that output is
-held to the plain reference (``reference.compare``) against the
-configuration's limits.
+held to the plain reference of the entry's steps over the same inputs
+(``reference.check``) against the configuration's limits.
 
 ``--trace 0`` reports the cell's end-to-end metrics. ``--trace 1`` runs
 calls with the program's stage spans (``window.SpanTimings``) for half of
@@ -184,7 +184,6 @@ def run(bench: Bench, cell: str, seed: int, seconds: float, trace: bool,
     import torch
 
     from . import reference, window
-    from .inputs import draw_values
 
     wl = bench.workload(cell)
     cfg = bench.config(wl["config"])
@@ -196,7 +195,7 @@ def run(bench: Bench, cell: str, seed: int, seconds: float, trace: bool,
         if cuda:
             torch.cuda.synchronize()
 
-    entry = window.make(traffic, st, cfg, seed, device, dtype)
+    entry = window.make(traffic, st, cfg, seed, device, dtype, bench)
     entry.call(0)  # the warm call: every shape of the window built once
     sync()
     res = Reservoir(seed)
@@ -233,6 +232,7 @@ def run(bench: Bench, cell: str, seed: int, seconds: float, trace: bool,
 
     kept = res.kept
     attempted, failed = loop.i, loop.failed
+    inputs, steps = entry.inputs, entry.steps
     entry.free()
     del entry, loop, res
     gc.collect()
@@ -244,10 +244,11 @@ def run(bench: Bench, cell: str, seed: int, seconds: float, trace: bool,
         found = {"struct_rows": st.rows, "val_err": math.inf}
     else:
         k, out = kept
-        a = reference.Operand.of(st, draw_values(st, cfg, seed, k, device))
-        found = reference.compare(out.indptr, out.indices, out.data,
-                                  out.shape, a, a)
-        del a, out, kept
+        ops = {name: reference.Operand.of(s, v)
+               for name, (s, v) in inputs.named(k, device).items()}
+        found = reference.check(out.indptr, out.indices, out.data,
+                                out.shape, ops, steps)
+        del ops, out, kept
     print(f"# check {time.perf_counter() - t_check!r} s", file=sys.stderr)
     checks = {n: {"value": _finite(found[n]), "limit": limit}
               for n, limit in limits.items()}

@@ -21,7 +21,7 @@ TINY = {
 }
 CELLS = [("gs.AxA", "gs", "square"), ("hs.AxA", "hs", "square"),
          ("hs.reuse", "hs", "reuse"), ("gs.reuse", "gs", "reuse"),
-         ("gs.pair", "gs", "pair")]
+         ("gs.pair", "gs", "pair"), ("hs.galerkin", "hs", "galerkin")]
 
 
 def manifest():

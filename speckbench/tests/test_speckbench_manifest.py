@@ -59,7 +59,10 @@ def test_every_name_is_found():
     for w in b.m["workloads"]:
         cfg = b.config(w["config"])
         b.generator(cfg["generator"])
-        assert b.traffic(w["traffic"])["entry"]
+        traffic = b.traffic(w["traffic"])
+        assert traffic["entry"]
+        for op in traffic.get("operands", {}).values():
+            assert callable(b.generator(op["generator"]).operand)
         assert cfg["limits"]["struct_rows"] == 0
         e2e = {e["name"] for e in b.end_to_end(w["name"])}
         assert "setup_s" in e2e and len(e2e) >= 2

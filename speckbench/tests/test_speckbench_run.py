@@ -66,7 +66,7 @@ def altered(C):
 
 
 @pytest.mark.parametrize("fault", [half_rows, altered])
-@pytest.mark.parametrize("cell", ["gs.AxA", "hs.AxA"])
+@pytest.mark.parametrize("cell", ["gs.AxA", "hs.AxA", "hs.galerkin"])
 def test_a_broken_product_is_not_correct(tiny, monkeypatch, fault, cell):
     orig = speck_tpu_torch.spgemm
     monkeypatch.setattr(speck_tpu_torch, "spgemm",
@@ -169,8 +169,8 @@ for m in b.m["per_layer"]:
 
 def test_the_reference_loads_nothing_of_the_program(tiny):
     mods = loaded(tiny, """
-from speckbench import inputs, kernel_bytes, reference, trace
-for g in ("kronecker", "stencil27"):
+from speckbench import inputs, kernel_bytes, operands, reference, trace
+for g in ("kronecker", "stencil27", "prolong_trilinear"):
     b.generator(g)
 """)
     assert not mods & {"speck_tpu_torch", "jax", "jaxlib", "flax",
