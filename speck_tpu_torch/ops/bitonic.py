@@ -1,7 +1,8 @@
 """The row sort: each row of an int32 key sorted ascending, stably, with up
-to three 32-bit payloads permuted the same way. A 64-bit plane moves by
-its sorted slot: the slot index rides as the payload and the plane is
-gathered after the sort (``slot_payload``, ``by_slot``).
+to three 32-bit payloads permuted the same way. A plane of 16 or 64 bits
+moves by its sorted slot: the slot index rides as the payload and the
+plane is gathered after the sort (``slot_payload``, ``by_slot``), inside
+the range ``speck.values.by_slot`` and counted in ``BY_SLOT``.
 
 ``row_sort`` replaces ``speck_tpu``'s Pallas kernel
 ``bitonic.bitonic_sort_pairs_pallas`` and, for rows of 2^20 and wider,
@@ -33,6 +34,7 @@ from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
+from ..utils.timings import span
 from . import build
 
 INT32_MAX = 2 ** 31 - 1
@@ -46,6 +48,11 @@ INT32_MAX = 2 ** 31 - 1
 LAUNCHES = 0
 LAUNCH_SHAPES: Dict[Tuple[int, int, int], int] = {}
 LAUNCH_LIVE: Dict[Tuple[int, int, int], List[int]] = {}
+
+# planes of 16 or 64 bits moved by their sorted slot in this process (on
+# any device; a 32-bit plane rides the sort and counts nothing): {value
+# type: [gathers, slots]}
+BY_SLOT: Dict[str, List[int]] = {}
 
 MAX_PAYLOADS = 3
 # slots one CTA sorts in shared memory (kMaxTile in csrc/row_sort.cu)
@@ -80,8 +87,8 @@ def sort_plan(R: int, W: int, n_payloads: int = 0) -> SortPlan:
 
 def slot_payload(val):
     """The payload that moves ``val`` through ``row_sort``: the plane
-    itself when it is 32-bit, else each slot's index in its row (a float64
-    plane is then gathered after the sort, ``by_slot``)."""
+    itself when it is 32-bit, else each slot's index in its row (a plane
+    of 16 or 64 bits is then gathered after the sort, ``by_slot``)."""
     if val.dtype.itemsize == 4:
         return val.contiguous()
     R, W = val.shape
@@ -90,10 +97,17 @@ def slot_payload(val):
 
 
 def by_slot(val, moved):
-    """``val`` in sorted order from its moved ``slot_payload``."""
+    """``val`` in sorted order from its moved ``slot_payload``; a gather
+    inside the range ``speck.values.by_slot``, counted in ``BY_SLOT``
+    (no synchronize, no stage of a ``Timings``)."""
     if val.dtype.itemsize == 4:
         return moved
-    return torch.gather(val, 1, moved.long())
+    with span("speck.values.by_slot"):
+        out = torch.gather(val, 1, moved.long())
+    n = BY_SLOT.setdefault(str(val.dtype).replace("torch.", ""), [0, 0])
+    n[0] += 1
+    n[1] += moved.numel()
+    return out
 
 
 def sort_plain(key, payloads):

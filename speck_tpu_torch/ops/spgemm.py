@@ -39,10 +39,12 @@ range ``speck.<stage>`` (utils/timings.py); inside them the sub-ranges
                        speck.wide.finish, speck.accum, speck.dense.batch,
                        speck.emit, speck.direct
 
-and ``speck.readback.<what>`` around each readback. A plan marks its
-route by the zero-length range ``speck.route.<route>`` and counts it in
-``ROUTES``. The sub-ranges add nothing to a ``Timings``; none of them
-synchronizes.
+and ``speck.readback.<what>`` around each readback, and
+``speck.values.by_slot`` around each gather of a 16- or 64-bit value plane
+after a sort (``bitonic.by_slot``, counted in ``bitonic.BY_SLOT``). A plan
+marks its route by the zero-length range ``speck.route.<route>`` and
+counts it in ``ROUTES``. The sub-ranges add nothing to a ``Timings``;
+none of them synchronizes.
 
 Row routing as the reference's: a matrix whose diagonal band passes the
 gates runs whole over diagonal planes (ops/dia.py: contiguous DIA over a

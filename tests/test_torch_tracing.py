@@ -1,7 +1,7 @@
 """The port's instrumentation on the CPU: the profiler ranges of a call and
 their nesting, no range without a profiler, the stage timings the ranges
-leave alone, the readback and route counters, and the kernels' live
-slots against the products scipy counts."""
+leave alone, the readback and route counters, the kernels' live slots
+against the products scipy counts, and the value planes moved by slot."""
 
 import importlib
 
@@ -13,6 +13,7 @@ from torch.profiler import ProfilerActivity, profile
 
 import speck_tpu_torch as pt
 from speck_tpu_torch.formats.csr import HostCSR
+from speck_tpu_torch.ops import bitonic as tbitonic
 from speck_tpu_torch.ops import stream as tstream
 from speck_tpu_torch.utils import timings as tt
 from speckbench import trace as tr
@@ -47,9 +48,8 @@ def wide_matrix(n=300, seed=5, singles=False):
     return mat
 
 
-def put(mat):
-    return pt.device_put_csr(HostCSR.from_scipy(mat), torch.float32,
-                             device=CPU)
+def put(mat, dtype=torch.float32):
+    return pt.device_put_csr(HostCSR.from_scipy(mat), dtype, device=CPU)
 
 
 def ranges_of(fn):
@@ -254,3 +254,85 @@ def test_routes_are_counted_and_marked(route, cfg):
     rs = ranges_of(lambda: pt.spgemm(A, A, pt.SpgemmConfig(**cfg)))
     assert tsp.ROUTES[route] == before.get(route, 0) + 1
     assert "speck.route." + route in [r[0] for r in rs]
+
+
+@pytest.fixture()
+def one_thread():
+    """A 16-bit call's many small torch ops on one thread: more threads
+    only spin-wait at each op when the other test workers keep the cores
+    busy."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def by_slot_of(fn):
+    """What ``fn`` adds to ``bitonic.BY_SLOT``."""
+    before = {k: list(v) for k, v in tbitonic.BY_SLOT.items()}
+    fn()
+    return {k: [a - b for a, b in zip(v, before.get(k, [0, 0]))]
+            for k, v in tbitonic.BY_SLOT.items()
+            if v != before.get(k, [0, 0])}
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16,
+                                   torch.float64, torch.float32])
+def test_by_slot_counts_planes_of_16_and_64_bits(dtype):
+    """A sort moves a 16- or 64-bit plane by its slot, one gather of R * W
+    slots counted under the type's name; a 32-bit plane rides the sort
+    and counts nothing. The values land where a plain sort puts them."""
+    g = torch.Generator().manual_seed(3)
+    col = torch.randint(0, 50, (4, 96), generator=g, dtype=torch.int32)
+    val = torch.randn(4, 96, generator=g).to(dtype)
+    out = []
+    got = by_slot_of(lambda: out.append(tstream._sort_cols(col, val)))
+    name = str(dtype).replace("torch.", "")
+    assert got == ({} if dtype.itemsize == 4 else {name: [1, 4 * 96]})
+    perm = torch.sort(col, dim=1, stable=True).indices
+    assert torch.equal(out[0][0], torch.gather(col, 1, perm))
+    assert torch.equal(out[0][1], torch.gather(val, 1, perm))
+
+
+def test_by_slot_range_only_under_a_profiler(monkeypatch, one_thread):
+    """A 16-bit call opens ``speck.values.by_slot`` inside its stages under
+    the profiler, as many times as it counts gathers, and opens no range
+    without it; a float32 call gathers nothing by slot."""
+    A = put(wide_matrix(), torch.bfloat16)
+    cfg = pt.SpgemmConfig(**CASES["two_phase"])
+    opened = []
+    real = tt.record_function
+    monkeypatch.setattr(tt, "record_function",
+                        lambda name: opened.append(name) or real(name))
+    assert by_slot_of(lambda: pt.spgemm(A, A, cfg))["bfloat16"][0] > 0
+    assert opened == []
+    got = {}
+    rs = ranges_of(lambda: got.update(by_slot_of(
+        lambda: pt.spgemm(A, A, cfg))))
+    mine = [r for r in rs if r[0] == "speck.values.by_slot"]
+    assert len(mine) == got["bfloat16"][0] > 0
+    stages = [r for r in rs if r[0] in ("speck.spGEMMCounting",
+                                        "speck.allocC",
+                                        "speck.spGEMMNumeric")]
+    assert all(any(inside(r, s) for s in stages) for r in mine)
+    f32 = put(wide_matrix())
+    assert by_slot_of(lambda: pt.spgemm(f32, f32, cfg)) == {}
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_by_slot_adds_no_readback_or_stage(case, one_thread):
+    """The gathers by slot copy nothing to the host and reach no
+    ``Timings``: a 16-bit call's readbacks and stage spans under the
+    profiler are those without it."""
+    A = put(wide_matrix(), torch.bfloat16)
+    cfg = pt.SpgemmConfig(**CASES[case])
+    plain, ranged = SpanTimings(), SpanTimings()
+    quiet = readbacks_of(lambda: pt.spgemm(A, A, cfg, timings=plain))
+
+    def profiled():
+        with profile(activities=[ProfilerActivity.CPU]):
+            pt.spgemm(A, A, cfg, timings=ranged)
+
+    assert readbacks_of(profiled) == quiet
+    assert [s[0] for s in ranged.spans] == [s[0] for s in plain.spans]
+    assert set(tr.self_times(ranged.spans)) <= set(tt.STAGE_NAMES)
