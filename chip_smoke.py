@@ -25,15 +25,23 @@ Phases (any failure raises and exits non-zero; nothing falls back):
      K2's keys and payloads equal to the stable plain sort's bit for bit,
      K1's sums within atol 1e-6 + rtol 1e-5 (float32) or rtol 1e-12
      (double) of the run prefix's sum of magnitudes (sums in another
-     order) and two K1 launches bit-identical; times from
+     order) and two K1 launches bit-identical; K4 stream_expand at
+     (512, 8192) on the middle chunk of planned streams
+     (probes/expand_profile.py: config 3's graph A·A in float32, packed,
+     and in bfloat16, a 60^3 27-point stencil's A·A in float64, each on
+     the stream route): rid, col and val equal to expand_plain's bit for
+     bit, two launches bit-identical; times from
      CUDA events around one call, medians of 5 in turns (K1 and its plain
-     version; K2, its plain version and torch.sort + gather);
+     version; K2, its plain version and torch.sort + gather; K4 and its
+     plain version);
   4. spgemm on make_powerlaw(262144, seed=7), A·A, f32, default
      SpgemmConfig: launch counts of both kernels from that run must be
      > 0 and the plan must have wide rows; K1's launches by (R, W, rid)
-     and K2's by (R, W, payloads); result against the oracle (structure
-     exact, values rel_tol 2e-3); cold call, median of 3 warm calls,
-     GFLOPS = 2 * products / time;
+     and K2's by (R, W, payloads); K4's, read after plan_spgemm and again
+     after execute, one a chunk of the stream in each pass that expands
+     (check_expand, as in the stream cells of 7d and 7h); result against
+     the oracle (structure exact, values rel_tol 2e-3); cold call, median
+     of 3 warm calls, GFLOPS = 2 * products / time;
   5. plan.execute(A2, A2) with new values on the same structure (the
      two-phase numeric path) against the oracle;
   4b. (after 5) spgemm on the bench's giant row (make_giant_row(): 40,000
@@ -66,6 +74,7 @@ Phases (any failure raises and exits non-zero; nothing falls back):
   7d. (after 7c, before 7b) the general-stream cells (GENERAL_CELLS),
      each through spgemm against the oracle (structure exact, values
      rel_tol 2e-3 in float32, 1e-9 in float64 with float64 values out):
+     K4 one launch a chunk a pass in each unblocked cell (check_expand):
      the 2^20-row graph (make_powerlaw(1 << 20, seed=11), f32:
      pack_bits == 0 and wide rows), config 3 in float64 (the stream, K1
      in double only), config 1b in float64 (the per-row split with stream
@@ -126,7 +135,8 @@ Phases (any failure raises and exits non-zero; nothing falls back):
      out); config 1 in bfloat16 through DIA and with enable_dia=False
      (the dense tiles); config 3 under stream_compact_impl="scatter",
      stream_expand_impl="decode" and stream_sort_impl="bitonic", each
-     timed in turns with the default call; stencil27 under the scatter
+     timed in turns with the default call (K4 one launch a chunk a pass
+     in the stream cells, none under "decode"); stencil27 under the scatter
      compaction; config 3 and the giant row under stream_level_factor=3
      (K2 at 3 * 8192 and 3 * 65536 slots); esc_fixed on config 1 in
      bfloat16 and float16 (K3 in 16 bits); the mesh in bfloat16 (config
@@ -211,7 +221,8 @@ Phases (any failure raises and exits non-zero; nothing falls back):
   9. every torch.profiler session, after every CUDA-event time above: K1
      and K3 at each shape timed before (K1 but at the shapes only the
      mesh launches), their device time (the kernel and the clear of its
-     scratch, medians of cp.REPS calls) beside the bound;
+     scratch, medians of cp.REPS calls) beside the bound; K4's at phase
+     3's three cases;
      one warm giant-row call: its device time, K1's and K2's share of it
      and its longest kernels; one warm call of each phase 7c cell, of
      the 2^20 graph and config 3 in float64 (7d) and of the dense-banded
@@ -231,7 +242,8 @@ one PyTorch call computing the same function, where there is one; the port
 never calls it. Launches in the kernels' line: K1's over phases 4, 4b, 7c
 (config 1b), 7e, 7f, 7h, 7i (the workers'), 8b, 8c and 8d (float32), its
 double variant's over the float64 cells of 7d and 7f and 8d's, its 16-bit
-variants' over 7h's config 3 cells and 8d's, K2's over 4, 4b, 7, 7c, 7d,
+variants' over 7h's config 3 cells and 8d's, K4's over 4, 7d and 7h at
+the entry's own (G, W, packing, type), K2's over 4, 4b, 7, 7c, 7d,
 7e, 7f, 7h, 7i, 8b, 8c and 8d (an entry of its own for the widths that
 are not powers of two), K3's over 7, 7f and 8d (the
 fixed cap), its double variant's over 7d's esc_fixed and its 16-bit
@@ -420,13 +432,121 @@ def sort_line(R, W, n_pay, res, smi, where=""):
           f"{bound_ms(8 * (1 + n_pay) * R * W):.4f} ms [{smi}]", flush=True)
 
 
+def expand_cases(smi):
+    """K4 at (512, 8192) on planned chunks in float32 packed and float64
+    and bfloat16 unpacked (``expand_profile.cases``: each equal to
+    expand_plain bit for bit, two launches equal), K4 and its plain
+    version timed in turns, medians of 5: (the cases, {label: (events ms,
+    plain ms, bound ms)})."""
+    from speck_tpu_torch.probes import expand_profile as xp
+
+    todo = xp.cases()
+    k4 = {}
+    for c in todo:
+        k4[c.label] = xp.event_ms(c.args, 5) + (bound_ms(c.nbytes),)
+        print(f"{c.label}: kernel {k4[c.label][0]:.4f} ms, plain "
+              f"{k4[c.label][1]:.4f} ms, bound {k4[c.label][2]:.4f} ms, "
+              f"bit-equal to the plain version [{smi}]", flush=True)
+    return todo, k4
+
+
+def expand_device(todo, k4, smi):
+    """Phase 9's K4 lines: the device time of each of ``expand_cases``'
+    cases by torch.profiler, beside its bound and its event time:
+    {label: device ms}."""
+    from speck_tpu_torch.probes import expand_profile as xp
+
+    k4_dev = {}
+    for c in todo:
+        d = k4_dev[c.label] = xp.kernel_device_ms(c.args)
+        bms = k4[c.label][2]
+        print(f"{c.label}: device {d:.4f} ms by torch.profiler, "
+              f"{d / bms:.2f}x the bound {bms:.4f} ms; events around one "
+              f"call {k4[c.label][0]:.4f} ms [{smi}]", flush=True)
+    return k4_dev
+
+
+# K4's launches on the main path (check_expand in phases 4, 7d and 7h), by
+# (G, W, "packed" or "unpacked", product type)
+K4_MAIN = {}
+
+
+def check_expand(name, plan, dtype, passes=(1, 2), main=True):
+    """K4's launches since reset_counts are one a chunk of plan's stream in
+    each of 1 or 2 passes (``passes``: the counts allowed), keyed by the
+    chunk's (G, W), the B operand's packing and the products' type
+    ``dtype``, and carry the stream's products as their live slots in
+    each pass (none where the plan has no product count). With ``main``
+    they are added to K4_MAIN. Returns the number of passes."""
+    from speck_tpu_torch.ops import expand
+
+    lo = plan.stream.layout
+    shapes = dict(expand.LAUNCH_SHAPES)
+    n = expand.LAUNCHES
+    check(n == sum(shapes.values()) and lo.n_chunks > 0
+          and n % lo.n_chunks == 0 and n // lo.n_chunks in passes,
+          f"{name}: K4 launched {n} times over {lo.n_chunks} chunks "
+          f"({shapes})")
+    p = n // lo.n_chunks
+    kind = "packed" if plan.A.data.dtype == torch.float32 else "unpacked"
+    dname = str(dtype).replace("torch.", "")
+    want = {}
+    for g, k in ((lo.G, lo.n_chunks - 1), (lo.g_last, 1)):
+        if k:
+            key = (g, lo.W, kind, dname)
+            want[key] = want.get(key, 0) + p * k
+    check(shapes == want, f"{name}: K4 launches by (G, W, packing, type) "
+                          f"{shapes}, not one a chunk a pass: {want}")
+    live = dict(expand.LAUNCH_LIVE)
+    if plan.stream.products is None:
+        check(not live, f"{name}: K4 counted live slots without a count")
+    else:
+        check(sum(v[0] for v in live.values()) == n
+              and sum(v[1] for v in live.values())
+              == p * plan.stream.products,
+              f"{name}: K4's live slots {live}, not {p} passes of "
+              f"{plan.stream.products} products")
+    if main:
+        for k, v in shapes.items():
+            K4_MAIN[k] = K4_MAIN.get(k, 0) + v
+    return p
+
+
+def expand_entries(todo, k4, k4_dev):
+    """K4's entries of the kernels' JSON line, one a case of
+    ``expand_cases``: launches are the main path's (K4_MAIN) at the
+    entry's own (G, W, packing, type). K4 replaces no TPU kernel (the
+    reference's expand is XLA)."""
+    from speck_tpu_torch.ops.expand import Unpacked
+    from speck_tpu_torch.probes import expand_profile as xp
+
+    out = []
+    for c in todo:
+        b = c.args[5]
+        kind = "unpacked" if isinstance(b, Unpacked) else "packed"
+        dname = str(torch.float32 if kind == "packed" else
+                    torch.promote_types(b.a_data.dtype, b.b_data.dtype)
+                    ).replace("torch.", "")
+        ms, pms, bms = k4[c.label]
+        out.append({"name": f"stream_expand {kind} {dname}",
+                    "route": "cuda",
+                    "source": "speck_tpu_torch/csrc/stream_expand.cu",
+                    "replaces": None,
+                    "launches": K4_MAIN.get(xp.SHAPE + (kind, dname), 0),
+                    "max_abs_err": c.max_abs_err, "ms": ms,
+                    "device_ms": k4_dev[c.label], "plain_ms": pms,
+                    "bound_ms": bms, "bound_by": "bytes",
+                    "library_ms": None, "shape": list(xp.SHAPE)})
+    return out
+
+
 def shape_histogram(what, shapes, kernel="K2", key="payloads"):
     print(f"{kernel} launches by (R, W, {key}) in {what}: "
           f"{dict(sorted(shapes.items()))}", flush=True)
 
 
 def reset_counts():
-    from speck_tpu_torch.ops import bitonic, contract
+    from speck_tpu_torch.ops import bitonic, contract, expand
 
     contract.LAUNCHES = 0
     contract.LAUNCH_SHAPES.clear()
@@ -434,6 +554,9 @@ def reset_counts():
     contract.RUNS_LAUNCH_SHAPES.clear()
     bitonic.LAUNCHES = 0
     bitonic.LAUNCH_SHAPES.clear()
+    expand.LAUNCHES = 0
+    expand.LAUNCH_SHAPES.clear()
+    expand.LAUNCH_LIVE.clear()
 
 
 # host matrices and their oracles, made once for the cells that share them
@@ -965,6 +1088,7 @@ def general_cell(pt, smi, name, gen_call, dtype, rel_tol, kw):
               f"{name} did not take the stream")
         lo = ss.layout
         nnz = plan.nnz
+        check_expand(name, plan, dtype)
         route = (f"stream: W={lo.W} G={lo.G} chunks={lo.n_chunks} "
                  f"n_wide={lo.n_wide} r_wide={lo.r_wide} fused={ss.fused} "
                  f"pack_bits={ss.pack_bits} stream rows {lo.n_stream_rows}")
@@ -1855,8 +1979,8 @@ def type_cell(pt, smi, name, gen_call, dta, dtb, kw, route):
     against the oracle (check_typed), the cold call, the median of 3 warm
     calls (a knob cell in turns with the default call), GFLOPS, peak
     memory, synchronizing calls, K1's, K2's and K3's launches by shape and
-    type; returns the numbers."""
-    from speck_tpu_torch.ops import bitonic, contract, stream
+    type, K4's one a chunk a pass (check_expand); returns the numbers."""
+    from speck_tpu_torch.ops import bitonic, contract, expand, stream
 
     h, ref, t_gen, t_ref = host_and_oracle(pt, gen_call)
     cfg = pt.SpgemmConfig(**kw)
@@ -1886,6 +2010,10 @@ def type_cell(pt, smi, name, gen_call, dta, dtb, kw, route):
     got = ("dia" if plan.dia is not None else
            "dense" if plan.dense is not None else "stream")
     check(got == route, f"{name}: took the {got} route")
+    if route == "stream" and kw.get("stream_expand_impl") == "decode":
+        check(expand.LAUNCHES == 0, f"{name}: the decode form launched K4")
+    elif route == "stream":
+        check_expand(name, plan, dtc)
     want = {"stream": {"stream_contract", "row_sort"}, "dia": set(),
             "dense": {"row_sort"}}[route]
     check({k for k, n in launches.items() if n} == want,
@@ -2398,6 +2526,7 @@ def main():
     for shape in [(512, 8192, 1), (512, 8192, 3), (2, 1 << 20, 1)]:
         k2[shape] = sort_case(gen, *shape)
         sort_line(*shape, k2[shape], smi)
+    k4_cases, k4 = expand_cases(smi)
 
     phase("4")
     # 4. the main path at bench config 3's size
@@ -2408,9 +2537,13 @@ def main():
     reset_counts()
     t0 = time.perf_counter()
     plan = pt.plan_spgemm(A, A, cfg)
+    # K4's counters between the calls (host integers, no synchronize)
+    check_expand("config 3 plan_spgemm", plan, torch.float32, (1,), False)
     C = plan.execute()
     torch.cuda.synchronize()
     cold_ms = (time.perf_counter() - t0) * 1e3
+    k4_passes = check_expand("config 3 plan_spgemm + execute", plan,
+                             torch.float32)
     launches = {"stream_contract": contract.LAUNCHES,
                 "row_sort": bitonic.LAUNCHES}
     stream_shapes = dict(bitonic.LAUNCH_SHAPES)
@@ -2423,7 +2556,8 @@ def main():
           f"r_wide={lo.r_wide} fused={plan.stream.fused} "
           f"finish_classes={len(plan.stream.finish['classes'] or [])} "
           f"ladder_levels={plan.stream.finish['ladder_levels']}; "
-          f"launches {launches}", flush=True)
+          f"launches {launches}; K4 one launch a chunk in {k4_passes} "
+          f"passes", flush=True)
     shape_histogram("the config 3 plan_spgemm + execute", stream_shapes)
     shape_histogram("the config 3 plan_spgemm + execute", k1_shapes, "K1",
                     "rid, dtype")
@@ -2686,6 +2820,7 @@ def main():
                     cp.k3_bytes(*shape), k3[shape][1], smi)
         del col, val
         torch.cuda.empty_cache()
+    k4_dev = expand_device(k4_cases, k4, smi)
     phase("9: the giant row, the cells' profiled calls")
     giant_line = giant_profile(pt, giant, smi)
     torch.cuda.empty_cache()
@@ -2842,6 +2977,7 @@ def main():
             "device_ms": sum(k3_dev[kr].values()), "plain_ms": k3[kr][2],
             "bound_ms": bound_ms(cp.k3_bytes(*kr)), "bound_by": "bytes",
             "library_ms": None})
+    kernels += expand_entries(k4_cases, k4, k4_dev)
     odd = {k: n for c in type_cells for k, n in c["shapes"][1].items()
            if k[1] & (k[1] - 1)}
     ko = max(odd, key=lambda k: (k[0] * k[1], k))

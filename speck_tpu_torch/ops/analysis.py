@@ -47,6 +47,21 @@ def cumsum1d(x: torch.Tensor) -> torch.Tensor:
     return torch.cumsum(x, 0, dtype=x.dtype)
 
 
+def _count_le(sorted_pos: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """#(sorted_pos <= t) for every t (sorted_pos ascending): the
+    run-length decode id[t] + 1 of the reference's boundary scatter-add
+    and cumsum."""
+    return torch.searchsorted(sorted_pos, t.contiguous(), right=True,
+                              out_int32=True)
+
+
+def _decode(boundary_pos, t):
+    """Run-length id decode: id[t] = #(pos <= t) - 1 for ascending
+    ``boundary_pos`` (the reference's base + in-chunk count, with base the
+    number of boundaries before the chunk)."""
+    return _count_le(boundary_pos, t.reshape(-1)).reshape(t.shape) - 1
+
+
 def _analyze_impl(a_indptr, a_indices, b_indptr, m: int) -> AnalysisResult:
     a_len = a_indptr[1:] - a_indptr[:-1]
     blen = b_indptr[a_indices + 1] - b_indptr[a_indices]

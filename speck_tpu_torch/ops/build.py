@@ -47,6 +47,13 @@ _SIGNATURES = {
     #  scratch, stream)
     "speck_row_sort": [_P, _P, _P, _P, _P, _P, _P, _P, ctypes.c_int, _I64,
                        _I64, _I64, _P, _P],
+    # (e, m, p0, su, sa, pend, nnz_a, window, sid_base, b_rec or null,
+    #  a_data, n_a, a_type, b_indices, b_data, b_type, nnz_b, out_type,
+    #  chunk_start, slots, n_cols, rid, col, val, stream)
+    "speck_stream_expand": [_P, _I64, _P, _P, _P, _P, _I64, _I64, _P, _P,
+                            _P, _I64, ctypes.c_int, _P, _P, ctypes.c_int,
+                            _I64, ctypes.c_int, _I64, _I64, ctypes.c_int, _P,
+                            _P, _P, _P],
     # (idx, tab, out, rows, S, stream)
     "speck_sublane_gather": [_P, _P, _P, _I64, ctypes.c_int, _P],
     # (offs, src, out, n_runs, L, stream)

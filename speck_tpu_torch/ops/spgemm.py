@@ -72,7 +72,7 @@ compactions carry none.
 Values of float16, bfloat16, float32 and float64, alike or mixed, run
 as in the reference: a float32 A packs B's values as float32 on the
 stream (float32 out); a 16-bit or float64 A takes the unpacked B gathers
-(``stream.Unpacked``) and the products' promoted type (bfloat16 times
+(``expand.Unpacked``) and the products' promoted type (bfloat16 times
 float32 is float32). Where the reference raises, the port raises
 TypeError: the dense tiles of a float32 A times a B of another type (the
 packed record, ``esc.pack_csr_arrays``) and the contiguous diagonal
@@ -124,6 +124,7 @@ from .dia import (
     sdia_slots,
 )
 from .esc import direct_chunk, pack_csr_arrays, packable
+from .expand import Unpacked
 from .stream import (
     COMPACT_IMPLS,
     EXPAND_IMPLS,
@@ -132,7 +133,6 @@ from .stream import (
     N_WSEG_PACK,
     LevelPlan,
     StreamLayout,
-    Unpacked,
     accum_finalize,
     build_srec,
     compact_staged,

@@ -6,8 +6,8 @@ rows (more products than the rectangle width W) on whole W-aligned
 rectangle rows, contained rows back to back without straddling a
 rectangle-row boundary. The stream is cut into (G, W) chunks. Per chunk:
 
-  expand    decode each slot's row and A-slot record (boundary scatters
-            plus forward fill), one packed B-record gather per product;
+  expand    each slot's row and A-slot record, one packed B-record
+            gather per product (kernel K4, ops/expand.stream_expand);
   sort      each rectangle row by the packed key rid_local << pack_bits |
             col, dead slots last (kernel K2, ops/bitonic.row_sort, a
             stable radix sort);
@@ -34,9 +34,9 @@ writes with ``mode="drop"`` targets a buffer with one extra trailing slot
 that takes the dropped writes (``_drop_buf``), because torch raises on
 out-of-range indices and wraps negative ones. The reference's run-length
 decodes (boundary scatter-adds + cumsum) and forward fills are binary
-searches over the sorted boundary arrays here (``torch.searchsorted``):
-the same values, without the scatter-adds that torch serializes on
-repeated indices.
+searches over the sorted boundary arrays here (``torch.searchsorted``;
+the expand's, on the card, K4's own searches): the same values, without
+the scatter-adds that torch serializes on repeated indices.
 
 The reference's four A/B knobs (``SpgemmConfig.stream_*``) all run:
 
@@ -63,7 +63,7 @@ The reference's four A/B knobs (``SpgemmConfig.stream_*``) all run:
 Values: float32 takes the packed (col, value bits) B record. float64 and
 the 16-bit types take the reference's unpacked form: the expand gathers
 B's columns and values apart and A's value through the A-source map that
-rides the record channel (``Unpacked``); products promote as in the
+rides the record channel (``expand.Unpacked``); products promote as in the
 reference (bfloat16 times float32 is float32). K2 carries 32-bit payloads,
 so every sort moves a non-32-bit plane by its sorted slot: the slot index
 rides as the payload and the values are gathered after the sort
@@ -75,15 +75,16 @@ then by row.
 from __future__ import annotations
 
 import dataclasses
-from typing import List, NamedTuple, Optional, Tuple
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from ..utils.config import ProductOverflow
-from .analysis import cumsum1d
+from .analysis import _count_le, _decode, cumsum1d
 from .bitonic import by_slot, row_sort, slot_payload
 from .contract import stream_contract
+from .expand import expand_plain, stream_expand
 
 INT_MAX = 2 ** 31 - 1
 I32 = torch.int32
@@ -112,14 +113,6 @@ def _arange(n: int, device) -> torch.Tensor:
 def _drop_buf(n: int, fill, dtype, device) -> torch.Tensor:
     """A fill-valued buffer of n slots plus one trailing drop slot."""
     return torch.full((n + 1,), fill, dtype=dtype, device=device)
-
-
-def _count_le(sorted_pos: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
-    """#(sorted_pos <= t) for every t (sorted_pos ascending): the
-    run-length decode id[t] + 1 of the reference's boundary scatter-add
-    and cumsum."""
-    return torch.searchsorted(sorted_pos, t.contiguous(), right=True,
-                              out_int32=True)
 
 
 def _run_start(key: torch.Tensor) -> torch.Tensor:
@@ -675,87 +668,20 @@ def plan_gate(a_indptr, a_indices, b_indptr, b_indices, row_ops, row_ops_f,
 # ---------------------------------------------------------------------------
 
 
-def _decode(boundary_pos, t):
-    """Run-length id decode: id[t] = #(pos <= t) - 1 for ascending
-    ``boundary_pos`` (the reference's base + in-chunk count, with base the
-    number of boundaries before the chunk)."""
-    return _count_le(boundary_pos, t.reshape(-1)).reshape(t.shape) - 1
-
-
-class Unpacked(NamedTuple):
-    """float64 and 16-bit operands of the expand stage: A's values (read
-    through the A-source map on the record channel) and B's columns and
-    values, gathered apart (only a float32 A takes the packed record)."""
-
-    a_data: torch.Tensor
-    b_indices: torch.Tensor
-    b_data: torch.Tensor
-
-
 def _expand_chunk(e, p0, su, sa, pend, b_packed, chunk_start: int,
                   sid_base, G: int, W: int, n_cols: int,
                   window: Optional[int] = None, rowend=None,
-                  expand_impl: str = "fill"):
-    """The expand stage for chunk [chunk_start, chunk_start + G*W): each
-    slot's sorted row (the last row start e <= t) and its A-slot record
-    (the last record start p0 <= t, which is the reference's forward fill
-    from the record starts, the winner among equal starts included), live
-    while t < that record's pend; then one packed B-record gather per
-    live product. ``b_packed`` is the (nnz, 2) int32 record of float32
-    values with ``sa`` the A value bits, or ``Unpacked`` operands with
-    ``sa`` the A-source map. Returns (rid, col, val); dead slots carry
-    col = n_cols and val = 0.
-
-    ``expand_impl="decode"`` (the reference's round-2 form) decodes every
-    slot's record from all of ``p0`` and kills slots at t >= rowend[rid]
-    (``rowend``: each sorted row's live product end, -1 for none) instead
-    of at the record's product end; the records and products are the
-    same.
-
-    ``window`` (default G * W) is the slots of the plan's full chunk: the
-    records are read from a window of window + 2 of them, which holds
-    every record a chunk can meet when they are compacted and all of them
-    when they are not (``build_srec(compact=False)`` keeps that many at
-    most). The reference sizes the window by the chunk's own G, which
-    misses records in a shorter last chunk over uncompacted records."""
-    dev = e.device
-    CP = G * W
-    t = chunk_start + _arange(CP, dev).reshape(G, W)
-    rid = _decode(e, t)
-    nnzA = su.shape[0]
+                  expand_impl: str = "fill", live: Optional[int] = None):
+    """The expand stage for chunk [chunk_start, chunk_start + G*W): (rid,
+    col, val) as ``expand.expand_plain`` defines them. "fill" is
+    ``expand.stream_expand`` (kernel K4 on the card; ``live`` goes to its
+    launch counter); "decode" keeps its torch form on every device."""
     if expand_impl == "decode":
-        uw, aw = su, sa
-        rec = _decode(p0, t)
-        m = rowend.shape[0]
-        live = (rec >= 0) & (t < rowend[torch.clamp(rid, 0, m - 1)])
-        rec = torch.clamp(rec, 0, nnzA - 1)
-    else:
-        K = min(nnzA, (window or CP) + 2)
-        # window of the records that can intersect this chunk (kept p0 is
-        # strictly increasing) plus the run straddling its start
-        if K < nnzA:
-            widx = torch.clamp(sid_base - 1, 0, nnzA - K) + _arange(K, dev)
-            p0w, uw, aw, pw = p0[widx], su[widx], sa[widx], pend[widx]
-        else:
-            p0w, uw, aw, pw = p0, su, sa, pend
-        rec = _decode(p0w, t)
-        has = rec >= 0
-        rec = torch.clamp(rec, min=0)
-        live = has & (t < pw[rec])
-    dead = ~live | (rid < 0)
-    bsrc = torch.where(dead, 0, uw[rec] + t)
-    if isinstance(b_packed, Unpacked):
-        a_data, b_indices, b_data = b_packed
-        aval = a_data[torch.clamp(aw[rec], 0, a_data.shape[0] - 1)]
-        col = torch.where(dead, n_cols, b_indices[bsrc])
-        val = torch.where(dead, 0.0, aval * b_data[bsrc])
-        return rid, col.to(I32), val
-    bp = b_packed[bsrc.reshape(-1)].reshape(G, W, 2)
-    col = torch.where(dead, n_cols, bp[..., 0])
-    bval = bp[..., 1].contiguous().view(torch.float32)
-    aval = aw[rec].view(torch.float32)
-    val = torch.where(dead, 0.0, aval * bval)
-    return rid, col.to(I32), val
+        return expand_plain(e, p0, su, sa, pend, b_packed, chunk_start,
+                            sid_base, G, W, n_cols, window, rowend,
+                            expand_impl)
+    return stream_expand(e, p0, su, sa, pend, b_packed, chunk_start,
+                         sid_base, G, W, n_cols, window, live)
 
 
 def _resolve_sort(sort_impl: str, width: int) -> str:
@@ -887,10 +813,11 @@ def stream_chunk(rows_sorted, e, q_sorted, el, ops_sorted, p0, su, sa, pend,
     rectangle rows; stage_raw returns them sorted but uncompacted. The
     knobs are ``SpgemmConfig``'s (module docstring); ``rowend`` serves the
     decode expand; ``live``, the chunk's products where the caller knows
-    them, goes to the sort's and the contract's launch counters."""
+    them, goes to the expand's, the sort's and the contract's launch
+    counters."""
     rid, col, val = _expand_chunk(e, p0, su, sa, pend, b_packed,
                                   chunk_start, sid_base, G, W, n_cols,
-                                  window, rowend, expand_impl)
+                                  window, rowend, expand_impl, live)
     rid_s, col_s, val_s = _sort_rect(rid, col, val, n_cols, pack_bits,
                                      sort_impl, live)
     last, run_sum = stream_contract(rid_s, col_s, val_s, n_cols, live)
@@ -939,7 +866,7 @@ def stream_chunk_numeric(rows_sorted, e, p0, su, sa, pend, b_packed,
     levels. ``live`` as ``stream_chunk``'s."""
     rid, col, val = _expand_chunk(e, p0, su, sa, pend, b_packed,
                                   chunk_start, sid_base, G, W, n_cols,
-                                  window, rowend, expand_impl)
+                                  window, rowend, expand_impl, live)
     rid_s, col_s, val_s = _sort_rect(rid, col, val, n_cols, pack_bits,
                                      sort_impl, live)
     last, run_sum = stream_contract(rid_s, col_s, val_s, n_cols, live)

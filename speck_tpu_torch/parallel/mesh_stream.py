@@ -67,9 +67,10 @@ from ..ops.dense import (_densify_scatter, _densify_sorted,
 from ..ops.device_csr import torch_dtype
 from ..ops.dia import _rank_compact, dia_planes, sdia_lut
 from ..ops.esc import _sort_rows, pack_csr_arrays
+from ..ops.expand import Unpacked
 from ..ops.spgemm import _pow2 as _pow2ceil
 from ..ops.spgemm import check_knobs
-from ..ops.stream import (Unpacked, _compact_rect, _count_le,
+from ..ops.stream import (_compact_rect, _count_le,
                           _plan_rows_impl, _pow2ceil_arr, _sort_cols,
                           build_srec, stream_chunk, stream_chunk_numeric,
                           stream_emit, stream_level, tight_total_host)
@@ -715,7 +716,7 @@ def _operands(b_payload, ad, sa, src, f64: bool):
     """The expand stage's record channel and B operand: float32 takes the
     packed (col, value bits) records with A's value bits; float64 the
     unpacked columns and values of the (col, lo, hi) records with the
-    A-source map (``ops.stream.Unpacked``)."""
+    A-source map (``ops.expand.Unpacked``)."""
     if f64:
         b_ind = b_payload[:, 0].contiguous()
         # a fresh copy: with 0 or 1 rows the slice is already contiguous,

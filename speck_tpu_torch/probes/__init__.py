@@ -33,6 +33,12 @@ oracle, each case named by its seed (``--seed S --cases 1`` reruns one):
     python -m speck_tpu_torch.probes.conformance [--device cuda|cpu]
         [--cases N] [--seed S] [--seconds T]
 
+``expand_profile`` holds the expand kernel K4 to its plain version bit
+for bit at the cells' chunk shape, in the three value types the cells run,
+and times it beside its bound:
+
+    python -m speck_tpu_torch.probes.expand_profile
+
 ``mesh_cards`` runs the row mesh with a shard a card in one process;
 ``multihost_cards`` runs ``multihost_spgemm`` across worker processes (a
 card each under NCCL, or sharing one under gloo) and holds every case

@@ -1140,3 +1140,261 @@ def test_live_slots_on_the_card(cuda_device):
         assert 0 <= live <= n * k[0] * k[1]
     assert all(v[1] <= v[0] * k[0] * k[1]
                for k, v in bitonic.LAUNCH_LIVE.items())
+
+
+def _k4_csr(rs, rows, cols, shape):
+    import scipy.sparse as sp
+
+    mat = sp.csr_matrix((rs.standard_normal(len(rows)), (rows, cols)),
+                        shape=shape)
+    mat.sum_duplicates()
+    return pt.HostCSR.from_scipy(mat)
+
+
+def _k4_rows(rs, m, n, avg, first=0, col0=0):
+    """Rows first .. first + m of 1 to 2 * avg - 1 random columns in
+    [col0, col0 + n): (row ids, column ids)."""
+    lens = rs.integers(1, 2 * avg, m)
+    return (first + np.repeat(np.arange(m), lens),
+            col0 + rs.integers(0, n, int(lens.sum())))
+
+
+def _k4_short(rs):
+    # 20000 rows of ~3: ~60k records, several times a chunk's window
+    r, c = _k4_rows(rs, 20000, 20000, 3)
+    return _k4_csr(rs, r, c, (20000, 20000)), None
+
+
+def _k4_small(rs):
+    # 1000 rows of ~6: every record inside one window (uncompacted)
+    r, c = _k4_rows(rs, 1000, 1000, 6)
+    return _k4_csr(rs, r, c, (1000, 1000)), None
+
+
+def _k4_long_b(rs):
+    # B rows of 60 entries, A rows of 1-15: wide rows of 1-4 rectangle
+    # rows, so that chunk starts fall inside rows and records
+    r, c = _k4_rows(rs, 1000, 500, 8)
+    a = _k4_csr(rs, r, c, (1000, 500))
+    rb = np.repeat(np.arange(500), 60)
+    return a, _k4_csr(rs, rb, rs.integers(0, 4000, rb.shape[0]),
+                      (500, 4000))
+
+
+def _k4_empty_tail(rs):
+    # 600 rows of ~5, then 3000 rows without entries (rows that end the
+    # stream at one start)
+    r, c = _k4_rows(rs, 600, 600, 5)
+    return _k4_csr(rs, r, c, (3600, 3600)), None
+
+
+def _k4_heavy(rs):
+    # 1000 rows of ~6 and 20 of ~40 (past accum_min_ops = 64 products)
+    r1, c1 = _k4_rows(rs, 1000, 1020, 6)
+    r2, c2 = _k4_rows(rs, 20, 1020, 40, first=1000)
+    return _k4_csr(rs, np.concatenate([r1, r2]), np.concatenate([c1, c2]),
+                   (1020, 1020)), None
+
+
+def _k4_zero_records(rs):
+    # A's row 0 holds 3000 entries on empty B rows and 10 on full ones,
+    # rows 1-399 ~5 on full ones; B's rows 4000-4999 hold 20 entries:
+    # 7000 records in one window (uncompacted), 3000 of them at one start
+    r, c = _k4_rows(rs, 399, 1000, 5, first=1, col0=4000)
+    r = np.concatenate([np.zeros(3010, np.int64), r])
+    c = np.concatenate([np.arange(3000), 4000 + np.arange(10), c])
+    rb = np.repeat(np.arange(4000, 5000), 20)
+    return (_k4_csr(rs, r, c, (5000, 5000)),
+            _k4_csr(rs, rb, rs.integers(0, 5000, rb.shape[0]),
+                    (5000, 5000)))
+
+
+# K4's cases, each a chunk of a plan of the stream route: (matrices, G, W,
+# SpgemmConfig keywords beyond expand_profile.STREAM_ONLY, which chunk:
+# "first", "mid", "last", "inside" (the first after chunk 0 whose start
+# lies strictly inside a record) or "zero" (the one holding the start of
+# the 3000 records without products), slots the stream is moved by)
+K4_CASES = {
+    # a full chunk whose records are read from a window of nnz_a
+    "window_cut": (_k4_short, 16, 512, {}, "mid", 0),
+    # a stream whose records a window holds all of
+    "window_all": (_k4_small, 16, 512, {}, "first", 0),
+    # chunk 0 over a cut window: sid_base 0
+    "sid_base_0": (_k4_short, 16, 512, {}, "first", 0),
+    "inside_record": (_k4_long_b, 8, 256, {}, "inside", 0),
+    # the short last chunk, slots past every row, past 2048 equal row
+    # starts (the rows without products at the stream's end)
+    "past_rows": (_k4_empty_tail, 16, 256, {}, "last", 0),
+    # slots before the first row (rid -1): a plan's stream moved 5 slots
+    # on, which no plan lays out
+    "lead": (_k4_small, 16, 512, {}, "first", 5),
+    # behind the accumulator's rows (e = -1)
+    "accum_rows": (_k4_heavy, 8, 512,
+                   dict(enable_accum=True, accum_min_ops=64), "first", 0),
+    # uncompacted records, 3000 of them without products at one start:
+    # past 2048 equal record starts in a tile
+    "uncompacted": (_k4_zero_records, 16, 512, {}, "zero", 0),
+}
+K4_VALUES = {"float32": ("float32", "float32"),
+             "float64": ("float64", "float64"),
+             "bfloat16": ("bfloat16", "bfloat16"),
+             "float16": ("float16", "float16"),
+             "bf16_x_f32": ("bfloat16", "float32"),
+             "f16_x_bf16": ("float16", "bfloat16"),
+             "f16_x_f64": ("float16", "float64")}
+
+
+def _k4_moved(args, lead):
+    """``expand_args``' chunk 0 with the stream moved ``lead`` slots on:
+    row starts (not the accumulator's -1), record starts and ends (not
+    the INT32_MAX tail's) and B's offsets (su = B's start - p0)."""
+    e, p0, su, sa, pend = args[:5]
+    real = p0 != 2 ** 31 - 1
+    return ((torch.where(e >= 0, e + lead, e),
+             torch.where(real, p0 + lead, p0),
+             torch.where(real, su - lead, su), sa,
+             torch.where(real, pend + lead, pend)) + args[5:7]
+            + (torch.zeros((), dtype=torch.int32, device=e.device),)
+            + args[8:])
+
+
+def _k4_chunk(case, value, device):
+    """The arguments of ``stream_expand`` for one K4 case, with the
+    property the case names asserted."""
+    from speck_tpu_torch.probes.expand_profile import (expand_args,
+                                                        stream_plan)
+
+    make, G, W, kw, which, lead = K4_CASES[case]
+    ha, hb = make(np.random.default_rng([20261018, G, W]))
+    dta, dtb = (getattr(torch, t) for t in K4_VALUES[value])
+    A = pt.device_put_csr(ha, dta, device)
+    B = pt.device_put_csr(ha if hb is None else hb, dtb, device)
+    plan = stream_plan(A, B, stream_width=W, product_budget=G * W, **kw)
+    lo = plan.stream.layout
+    assert (lo.G, lo.W) == (G, W)
+    n = lo.n_chunks
+    p0 = plan.stream.p0.cpu().numpy()
+    pend = plan.stream.pend.cpu().numpy()
+    sid = plan.stream.sid_bases.cpu().numpy()
+    e = plan.stream.e.cpu().numpy()
+    nnz_a, CP = p0.shape[0], G * W
+    if which == "inside":
+        c = next(c for c in range(1, n) if sid[c] > 0
+                 and p0[sid[c] - 1] < c * CP < pend[sid[c] - 1])
+    elif which == "zero":
+        start = np.bincount(p0[p0 < 2 ** 31 - 1]).argmax()
+        c = int(start) // CP
+    else:
+        c = {"first": 0, "mid": n // 2, "last": n - 1}[which]
+    args = expand_args(plan, c)
+    if case in ("window_cut", "sid_base_0"):
+        assert nnz_a > CP + 2
+    if case in ("window_all", "uncompacted"):
+        assert nnz_a <= CP + 2
+    if case == "sid_base_0":
+        assert sid[c] == 0
+    if case == "past_rows":
+        Gc = args[8]
+        assert Gc < G and c * CP + Gc * W > lo.total_q
+        assert (e == lo.total_q).sum() > 2048
+    if case == "accum_rows":
+        assert (e == -1).sum() > 0
+    if case == "uncompacted":
+        assert np.bincount(p0[p0 < 2 ** 31 - 1]).max() > 2048
+    if lead:
+        args = _k4_moved(args, lead)
+    return args
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("value", list(K4_VALUES))
+@pytest.mark.parametrize("case", list(K4_CASES))
+def test_expand_kernel_matches_plain(cuda_device, case, value):
+    """K4 against expand_plain on the card: rid, col and val equal bit for
+    bit (types included, dead slots too), one launch counted by shape."""
+    from speck_tpu_torch.ops import expand
+    from speck_tpu_torch.probes.expand_profile import planes_equal
+
+    args = _k4_chunk(case, value, cuda_device)
+    n0, shapes = expand.LAUNCHES, dict(expand.LAUNCH_SHAPES)
+    got = expand.stream_expand(*args)
+    torch.cuda.synchronize()
+    assert expand.LAUNCHES == n0 + 1
+    G, W = args[8], args[9]
+    kind = "packed" if value == "float32" else "unpacked"
+    key = (G, W, kind, str(got[2].dtype).replace("torch.", ""))
+    assert expand.LAUNCH_SHAPES[key] == shapes.get(key, 0) + 1
+    assert planes_equal(got, expand.expand_plain(*args))
+    if case == "lead":
+        assert bool((got[0][0, :5] == -1).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("value", ["float32", "float64", "bfloat16"])
+def test_expand_kernel_is_deterministic(cuda_device, value):
+    """Two K4 launches on the (512, 8192) chunk of expand_profile's case
+    of the value type give the same bits."""
+    from speck_tpu_torch.ops import expand
+    from speck_tpu_torch.probes import expand_profile as xp
+
+    c = xp.case(value, dict(xp.CASES)[value], cuda_device)
+    a = expand.stream_expand(*c.args)
+    b = expand.stream_expand(*c.args)
+    torch.cuda.synchronize()
+    assert xp.planes_equal(a, b)
+    assert xp.planes_equal(a, expand.expand_plain(*c.args))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("what", ["contiguous", "dtype", "device",
+                                  "record", "sid_base"])
+def test_expand_kernel_rejects_what_it_does_not_take(cuda_device, what):
+    """The wrapper raises ValueError for a non-contiguous plane, a wrong
+    type, an operand on another device, a record of another shape and a
+    sid_base that is no int32 device scalar."""
+    from speck_tpu_torch.ops import expand
+
+    args = list(_k4_chunk("window_all", "float32", cuda_device))
+    if what == "contiguous":
+        args[1] = torch.stack([args[1], args[1]], 1)[:, 0]
+    elif what == "dtype":
+        args[2] = args[2].long()
+    elif what == "device":
+        args[3] = args[3].cpu()
+    elif what == "record":
+        args[5] = torch.cat([args[5], args[5][:, :1]], 1)
+    else:
+        args[7] = args[7].long()
+    n0 = expand.LAUNCHES
+    with pytest.raises(ValueError):
+        expand.stream_expand(*args)
+    assert expand.LAUNCHES == n0
+
+
+@pytest.mark.gpu
+def test_expand_launches_a_chunk_on_the_card(cuda_device):
+    """A plan's counting pass launches K4 once a chunk, carrying the
+    stream's products as its live slots; the numeric pass of
+    ``execute`` with new values once a chunk again."""
+    from speck_tpu_torch.ops import expand
+
+    h = make_powerlaw(3000, avg=6, seed=3)
+    A = pt.device_put_csr(h, torch.float32, cuda_device)
+    cfg = pt.SpgemmConfig(stream_width=64, product_budget=1 << 12,
+                          enable_direct=False, enable_dense=False,
+                          enable_accum=False, enable_dia=False,
+                          enable_sdia=False, dia_rows=False,
+                          fused_staging_budget=0)
+    n0, live0 = expand.LAUNCHES, {k: list(v) for k, v in
+                                  expand.LAUNCH_LIVE.items()}
+    plan = pt.plan_spgemm(A, A, cfg)
+    chunks = plan.stream.layout.n_chunks
+    assert chunks > 1 and expand.LAUNCHES == n0 + chunks
+    live = sum(v[1] - live0.get(k, [0, 0])[1]
+               for k, v in expand.LAUNCH_LIVE.items())
+    assert live == plan.stream.products
+    n1 = expand.LAUNCHES
+    plan.execute(pt.device_put_csr(h, torch.float32, cuda_device),
+                 pt.device_put_csr(h, torch.float32, cuda_device))
+    torch.cuda.synchronize()
+    assert expand.LAUNCHES == n1 + chunks

@@ -8,8 +8,10 @@ bit-identically (rtol 0, same doubling order), the sort with equal keys
 and equal per-row (key, payload) multisets (the JAX network is not
 stable; the port's sort is, and equals numpy's stable argsort). K2's
 launch plan (tile, merge passes, scratch) is host code and is tested
-here. The CUDA kernels against the plain versions are in
-test_torch_gpu.py."""
+here. K4 (ops/expand.py, the stream chunk's expand, which replaces no
+Pallas kernel): its wrapper takes the plain version on the CPU, which
+test_torch_stream.py holds to the JAX expand. The CUDA kernels against
+the plain versions are in test_torch_gpu.py."""
 
 import numpy as np
 import pytest
@@ -19,9 +21,22 @@ import jax.numpy as jnp
 from speck_tpu.ops import bitonic as jbitonic
 from speck_tpu.ops.pallas_kernels import stream_contract_runs
 from speck_tpu.ops.stream import _contract_rect
-from speck_tpu_torch.ops import bitonic, contract
+import speck_tpu_torch as pt
+from speck_tpu_torch.ops import bitonic, contract, expand
+from speck_tpu_torch.probes.expand_profile import (expand_args, planes_equal,
+                                                    stream_plan)
+from speck_tpu_torch.utils.generators import make_powerlaw
 
 N_COLS = 300
+
+
+def _expand_plan(value=("float32", "float32")):
+    """A plan of the stream route over (8, 256) chunks, A in value[0] and
+    B (A's matrix) in value[1], on the CPU: the expand's operands as the
+    planner lays them out."""
+    h = make_powerlaw(3000, 6, 2.2, 3)
+    A, B = (pt.device_put_csr(h, getattr(torch, t), "cpu") for t in value)
+    return stream_plan(A, B, stream_width=256, product_budget=1 << 11)
 
 
 def _sorted_rect(rng, R, W, const_rid=False):
@@ -119,18 +134,39 @@ def test_sort_float_payload_round_trips(rng):
 
 def test_cpu_wrappers_take_plain_path_and_do_not_count(rng):
     rid, col, val = _sorted_rect(rng, 4, 128)
-    n1, n2 = contract.LAUNCHES, bitonic.LAUNCHES
+    n1, n2, n4 = contract.LAUNCHES, bitonic.LAUNCHES, expand.LAUNCHES
     shapes = dict(bitonic.LAUNCH_SHAPES)
     k1_shapes = dict(contract.LAUNCH_SHAPES)
+    k4_shapes = dict(expand.LAUNCH_SHAPES)
+    k4_live = {k: list(v) for k, v in expand.LAUNCH_LIVE.items()}
     contract.stream_contract(torch.from_numpy(rid), torch.from_numpy(col),
                              torch.from_numpy(val), N_COLS)
     contract.stream_contract(torch.from_numpy(rid[:, :1]).expand(4, 128),
                              torch.from_numpy(col), torch.from_numpy(val),
                              N_COLS)
     bitonic.row_sort(torch.from_numpy(col), [torch.from_numpy(val)])
+    for value in (("float32", "float32"), ("bfloat16", "float32")):
+        args = expand_args(_expand_plan(value), 1)
+        got = expand.stream_expand(*args, live=1000)
+        assert planes_equal(got, expand.expand_plain(*args))
     assert (contract.LAUNCHES, bitonic.LAUNCHES) == (n1, n2)
     assert bitonic.LAUNCH_SHAPES == shapes
     assert contract.LAUNCH_SHAPES == k1_shapes
+    assert expand.LAUNCHES == n4 and expand.LAUNCH_SHAPES == k4_shapes
+    assert expand.LAUNCH_LIVE == k4_live
+
+
+def test_expand_plain_unpacked_float32_equals_packed():
+    """The plain expand of float32 operands apart (A's values through the
+    A-source map, B's columns and values) equals that of the packed record,
+    bit for bit, on every chunk of a plan: K4's unpacked float32 build and
+    its packed one compute one function."""
+    plan = _expand_plan()
+    unpacked = (plan.stream.src,
+                expand.Unpacked(plan.A.data, plan.B.indices, plan.B.data))
+    for c in range(plan.stream.layout.n_chunks):
+        got = expand.expand_plain(*expand_args(plan, c, unpacked))
+        assert planes_equal(got, expand.expand_plain(*expand_args(plan, c)))
 
 
 @pytest.mark.parametrize("R,W,words", [(3, 5000, 5), (1, 1 << 23, 2049),
@@ -197,10 +233,32 @@ def test_sort_plan(R, W, n_pay, tile, passes, scratch):
 @pytest.mark.parametrize("case", ["sort_width", "sort_plan_payloads",
                                   "sort_payloads",
                                   "sort_dtype", "contract_dtype",
-                                  "contract_shape"])
+                                  "contract_shape", "expand_dtype",
+                                  "expand_contiguous", "expand_record",
+                                  "expand_values", "expand_sid_base",
+                                  "expand_device"])
 def test_wrappers_reject_what_kernels_do_not_take(case):
     k = torch.zeros((2, 64), dtype=torch.int32)
     v = torch.zeros((2, 64), dtype=torch.float32)
+    if case.startswith("expand"):
+        ex = list(expand_args(_expand_plan(), 0))
+        if case == "expand_dtype":
+            ex[0] = ex[0].long()
+        elif case == "expand_contiguous":
+            ex[2] = torch.stack([ex[2], ex[2]], 1)[:, 0]
+        elif case == "expand_record":
+            ex[5] = torch.cat([ex[5], ex[5][:, :1]], 1)
+        elif case == "expand_values":
+            ex[5] = expand.Unpacked(ex[3].view(torch.float32),
+                                    ex[5][:, 0].contiguous(),
+                                    ex[5][:, 1].contiguous())
+        elif case == "expand_sid_base":
+            ex[7] = ex[7].reshape(1)
+        else:
+            ex[4] = ex[4].to("meta")
+        with pytest.raises(ValueError):
+            expand.stream_expand(*ex)
+        return
     with pytest.raises(ValueError):
         if case == "sort_width":
             # any width of 1 and more (a power of two or padded to one)
@@ -225,3 +283,12 @@ def test_sort_profile_needs_a_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA card"):
         sort_profile.main()
+
+
+def test_expand_profile_needs_a_card(monkeypatch):
+    """K4's profile times the card only: without one it raises, and times
+    no plain version in its place."""
+    from speck_tpu_torch.probes import expand_profile
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA card"):
+        expand_profile.main()

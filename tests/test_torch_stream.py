@@ -5,7 +5,8 @@ across with HostCSR.from_host) and the same configuration. Held equal
 element by element: the AnalysisResult fields, the planning pack, the
 StreamLayout fields and the planning arrays (rows_sorted, e, el, p0, su,
 sa, src, pend, sid_bases); per chunk, nnz_row and the staged (rid, col,
-counts).
+counts), and the expand's (rid, col, val) bit for bit (float32 through the
+packed record, float64 and bfloat16 through the unpacked operands).
 Staged values at rtol 1e-5 (the chunk sort may order duplicate products
 differently, which changes only the fp32 summation order)."""
 
@@ -156,6 +157,70 @@ def test_stream_chunks_equal(case):
         live = np.arange(lo.W)[None, :] < counts[:, None]
         np.testing.assert_allclose(stg_t[2].numpy()[live], val_j[live],
                                    rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("case,value", [
+    ("powerlaw", "float32"), ("wide", "float32"), ("powerlaw", "float64"),
+    ("wide", "bfloat16")])
+def test_expand_plain_equals_reference_expand(case, value):
+    """Every chunk's expand: ``expand.expand_plain``, and
+    ``stream._expand_chunk`` through the K4 wrapper (which takes it on the
+    CPU), equal the JAX package's ``_expand_chunk`` in rid, col and val,
+    bit for bit: float32 through the packed record, float64 (under
+    ``jax_enable_x64``) and bfloat16 through the unpacked operands (the
+    values rounded to bfloat16 once, on the host, for both)."""
+    import jax
+
+    from speck_tpu.ops.stream import _expand_chunk
+    from speck_tpu_torch.ops.expand import expand_plain
+    from speck_tpu_torch.ops.spgemm import _stream_operands
+
+    j_expand = jax.jit(_expand_chunk, static_argnames=("G", "W", "n_cols",
+                                                       "f64"))
+    f64 = value != "float32"
+    h = _MATS[case]()
+    if value == "bfloat16":
+        h = st.HostCSR(rows=h.rows, cols=h.cols, row_offsets=h.row_offsets,
+                       col_ids=h.col_ids, data=torch.from_numpy(h.data).to(
+                           torch.bfloat16).double().numpy())
+    kw = dict(_BASE, **CASES[case])
+    x64 = jax.config.read("jax_enable_x64")
+    jax.config.update("jax_enable_x64", value == "float64")
+    try:
+        Aj = st.device_put_csr(h, getattr(jnp, value))
+        sj = st.plan_spgemm(Aj, Aj, st.SpgemmConfig(**kw)).stream
+        At = pt.device_put_csr(pt.HostCSR.from_host(h),
+                               getattr(torch, value), device="cpu")
+        stt = pt.plan_spgemm(At, At, pt.SpgemmConfig(**kw)).stream
+        lo = stt.layout
+        n = h.cols
+        CP = lo.G * lo.W
+        bj = (jnp.zeros((1, 2), jnp.int32) if f64
+              else j_pack(Aj.indices, Aj.data))
+        sa_t, bt = _stream_operands(At, At, stt.src, stt.sa)
+        ints = {2: np.int16, 4: np.int32, 8: np.int64}
+        for c in range(lo.n_chunks):
+            Gc = lo.g_last if c == lo.n_chunks - 1 else lo.G
+            rid_j, col_j, val_j, _ = j_expand(
+                sj.e, sj.rowend, sj.p0, sj.su, sj.sa, sj.pend, bj,
+                Aj.indices, Aj.data, Aj.data, sj.src, jnp.int32(c * CP),
+                sj.rid_bases[c], sj.sid_bases[c], G=Gc, W=lo.W, n_cols=n,
+                f64=f64)
+            val_j = np.asarray(val_j)
+            args = (stt.e, stt.p0, stt.su, sa_t, stt.pend, bt, c * CP,
+                    stt.sid_bases[c], Gc, lo.W, n, CP)
+            for rid, col, val in (expand_plain(*args),
+                                  tstream._expand_chunk(*args)):
+                np.testing.assert_array_equal(rid.numpy(), np.asarray(rid_j))
+                np.testing.assert_array_equal(col.numpy(), np.asarray(col_j))
+                assert val.dtype == getattr(torch, value)
+                assert val_j.dtype.itemsize == val.element_size()
+                np.testing.assert_array_equal(
+                    val.view(getattr(torch, ints[val.element_size()].__name__
+                                     )).numpy(),
+                    val_j.view(ints[val.element_size()]))
+    finally:
+        jax.config.update("jax_enable_x64", x64)
 
 
 def test_tight_total_host_matches_port_layout(rng):
