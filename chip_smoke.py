@@ -136,7 +136,8 @@ Phases (any failure raises and exits non-zero; nothing falls back):
      (the dense tiles); config 3 under stream_compact_impl="scatter",
      stream_expand_impl="decode" and stream_sort_impl="bitonic", each
      timed in turns with the default call (K4 one launch a chunk a pass
-     in the stream cells, none under "decode"); stencil27 under the scatter
+     in the stream cells, "decode" too: every name runs the one expand);
+     stencil27 under the scatter
      compaction; config 3 and the giant row under stream_level_factor=3
      (K2 at 3 * 8192 and 3 * 65536 slots); esc_fixed on config 1 in
      bfloat16 and float16 (K3 in 16 bits); the mesh in bfloat16 (config
@@ -741,7 +742,7 @@ def slice_cell(pt, smi, name, gen_call, dtype, rel_tol, kw):
         check(all(v > 0 for v in launches.values()),
               f"a kernel was not launched on {name}: {launches}")
     else:
-        check(ss.n_accum > 0 and ss.accum["n_chunks2"] > 0,
+        check(ss.n_accum > 0 and ss.rec2.n_chunks > 0,
               f"{name} did not take the accumulator")
         check(launches["row_sort"] > 0, f"{name}: launches {launches}")
     if d is not None:
@@ -756,8 +757,8 @@ def slice_cell(pt, smi, name, gen_call, dtype, rel_tol, kw):
         parts = ss.accum["parts"]
         route += ("; " if route else "") + (f"accumulator: {ss.n_accum} rows, {len(parts)} parts, "
                   f"span classes {[c[:2] for pp in parts for c in pp['classes']]}"
-                  f", {ss.accum['n_chunks2']} chunks of {ss.accum['G']} x "
-                  f"{ss.accum['W']}; {ss.layout.n_stream_rows} stream rows, "
+                  f", {ss.rec2.n_chunks} chunks of {ss.rec2.G} x "
+                  f"{ss.rec2.W}; {ss.layout.n_stream_rows} stream rows, "
                   f"dense tiles {d is not None}")
     nnz = plan.nnz
     t0 = time.perf_counter()
@@ -1980,7 +1981,7 @@ def type_cell(pt, smi, name, gen_call, dta, dtb, kw, route):
     calls (a knob cell in turns with the default call), GFLOPS, peak
     memory, synchronizing calls, K1's, K2's and K3's launches by shape and
     type, K4's one a chunk a pass (check_expand); returns the numbers."""
-    from speck_tpu_torch.ops import bitonic, contract, expand, stream
+    from speck_tpu_torch.ops import bitonic, contract
 
     h, ref, t_gen, t_ref = host_and_oracle(pt, gen_call)
     cfg = pt.SpgemmConfig(**kw)
@@ -1991,7 +1992,6 @@ def type_cell(pt, smi, name, gen_call, dta, dtb, kw, route):
     torch.cuda.reset_peak_memory_stats()
     base_mem = torch.cuda.memory_allocated()
     reset_counts()
-    stream.SORT_RESOLVED.clear()
     plan = None
 
     def cold():
@@ -2005,14 +2005,11 @@ def type_cell(pt, smi, name, gen_call, dta, dtb, kw, route):
               dict(contract.RUNS_LAUNCH_SHAPES))
     launches = {"stream_contract": contract.LAUNCHES,
                 "row_sort": bitonic.LAUNCHES}
-    resolved = dict(stream.SORT_RESOLVED)
     check(C.data.dtype == dtc, f"{name}: C holds {C.data.dtype}, not {dtc}")
     got = ("dia" if plan.dia is not None else
            "dense" if plan.dense is not None else "stream")
     check(got == route, f"{name}: took the {got} route")
-    if route == "stream" and kw.get("stream_expand_impl") == "decode":
-        check(expand.LAUNCHES == 0, f"{name}: the decode form launched K4")
-    elif route == "stream":
+    if route == "stream":
         check_expand(name, plan, dtc)
     want = {"stream": {"stream_contract", "row_sort"}, "dia": set(),
             "dense": {"row_sort"}}[route]
@@ -2026,11 +2023,6 @@ def type_cell(pt, smi, name, gen_call, dta, dtb, kw, route):
         odd = {s: n for s, n in shapes[1].items() if s[1] & (s[1] - 1)}
         check(odd, f"{name}: no K2 launch at a width that is not a power "
                    f"of two: {shapes[1]}")
-    if "stream_sort_impl" in kw:
-        check(kw["stream_sort_impl"] in resolved,
-              f"{name}: sorts resolved to {resolved}")
-    if kw.get("stream_expand_impl") == "decode":
-        check(plan.stream.rowend is not None, f"{name}: no rowend")
     t0 = time.perf_counter()
     Ch = pt.device_get_csr(C)
     check_typed(pt, name, h, ref, Ch, dta, dtb, dtc)
@@ -2065,8 +2057,8 @@ def type_cell(pt, smi, name, gen_call, dta, dtb, kw, route):
             f"above the inputs), synchronizing calls {syncs}; launches in "
             f"the cold call {launches}; K1 by (R, W, rid, dtype) "
             f"{dict(sorted(shapes[0].items()))}; K2 by (R, W, payloads) "
-            f"{dict(sorted(shapes[1].items()))}; sorts by the reference's "
-            f"name {resolved}; oracle and its checks {t_ref:.2f} s")
+            f"{dict(sorted(shapes[1].items()))}; oracle and its checks "
+            f"{t_ref:.2f} s")
     print(line, flush=True)
     del A, B
     torch.cuda.empty_cache()
@@ -2307,10 +2299,11 @@ def stage_probe_phase(pt, smi):
     check(all(staged_equal(plan4, c, stg, n4)
               for c, (_, stg) in enumerate(by["counting chunks"])),
           "rect_probe: a counting chunk differs from the plan's")
+    r = ss.rec
     check(tuple_equal(by["build_srec (compact=True, pack=False)"],
-                      (ss.p0, ss.su, ss.sa, ss.src, ss.pend))
+                      (r.p0, r.su, r.sa, r.src, r.pend))
           and tuple_equal(by["build_srec (compact=True, pack=True)"],
-                          (ss.p0, ss.su, ss.sa, ss.src, ss.pend))
+                          (r.p0, r.su, r.sa, r.src, r.pend))
           and tuple_equal(by["build_srec (compact=False, pack=True)"],
                           by["build_srec (compact=False, pack=False)"]),
           "rect_probe: build_srec differs from the plan's records")
@@ -2320,7 +2313,7 @@ def stage_probe_phase(pt, smi):
     print(f"dense_probe config4: {dense_probe.group_line(plan4)}"
           + ("" if plan4.dense else "; no dense group; counting is "
              "elsewhere"), flush=True)
-    del P, plan4, ss, by
+    del P, plan4, ss, r, by
 
     planb = pt.plan_spgemm(A1, A1, pt.SpgemmConfig(enable_dia=False))
     print(f"dense_probe dense_banded: {dense_probe.group_line(planb)}",

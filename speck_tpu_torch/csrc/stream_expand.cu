@@ -3,8 +3,8 @@
 // expand_plain there).
 //
 // K4 replaces no TPU kernel: the reference's expand is XLA
-// (speck_tpu/ops/stream.py _expand_chunk, boundary scatters and forward
-// fills). It was added because the torch form of the same stage was the
+// (the chunk expand of speck_tpu/ops/stream.py, boundary scatters and
+// forward fills). It was added because the torch form of the same stage was the
 // largest piece of torch glue on the card: about 26 launches a chunk (two
 // searchsorted decodes over the chunk's slots, the record window's four
 // gathers, int64 copies of every int32 index, a gather of B per product,

@@ -1,19 +1,18 @@
 """The expand stage of a stream chunk: each slot's sorted row, its A-slot
 record and its product, as (rid, col, val) planes (kernel K4).
 
-``stream_expand`` is the stage under ``stream_expand_impl="fill"``, the
-default. On a CUDA tensor it launches the hand-written kernel
+``stream_expand`` is the stage, whatever ``stream_expand_impl`` names
+(the reference's "fill" and "decode" forms compute the same planes). On
+a CUDA tensor it launches the hand-written kernel
 ``csrc/stream_expand.cu``, once a chunk; on a CPU tensor it runs
 ``expand_plain``, the torch form (two ``searchsorted`` decodes, the record
 window's gathers, one B gather per product). K4 replaces no TPU kernel:
-the reference's expand is XLA (``speck_tpu/ops/stream.py``
-``_expand_chunk``), whose torch form issued some 26 launches a chunk on the
-card. The kernel computes each slot as the plain version does, product
-for product in the same type, so the two agree bit for bit in all three
-planes, dead slots included, and two launches agree bit for bit.
-
-``expand_impl="decode"`` (the reference's round-2 form, an A/B knob) keeps
-its torch form in ``expand_plain`` on every device.
+the reference's expand is XLA (the chunk expand of
+``speck_tpu/ops/stream.py``), whose torch form issued some 26 launches a
+chunk on the card. The kernel computes each slot as the plain version
+does, product for product in the same type, so the two agree bit for bit
+in all three planes, dead slots included, and two launches agree bit for
+bit.
 
 B's operand is the packed (nnz, 2) int32 record of a float32 A (``sa`` the
 A value bits) or ``Unpacked`` (``sa`` the A-source map). The unpacked
@@ -60,8 +59,7 @@ class Unpacked(NamedTuple):
 
 
 def expand_plain(e, p0, su, sa, pend, b_packed, chunk_start: int, sid_base,
-                 G: int, W: int, n_cols: int, window: Optional[int] = None,
-                 rowend=None, expand_impl: str = "fill"):
+                 G: int, W: int, n_cols: int, window: Optional[int] = None):
     """The expand stage for chunk [chunk_start, chunk_start + G*W): each
     slot's sorted row (the last row start e <= t) and its A-slot record
     (the last record start p0 <= t, which is the reference's forward fill
@@ -71,12 +69,6 @@ def expand_plain(e, p0, su, sa, pend, b_packed, chunk_start: int, sid_base,
     values with ``sa`` the A value bits, or ``Unpacked`` operands with
     ``sa`` the A-source map. Returns (rid, col, val); dead slots carry
     col = n_cols and val = 0.
-
-    ``expand_impl="decode"`` (the reference's round-2 form) decodes every
-    slot's record from all of ``p0`` and kills slots at t >= rowend[rid]
-    (``rowend``: each sorted row's live product end, -1 for none) instead
-    of at the record's product end; the records and products are the
-    same.
 
     ``window`` (default G * W) is the slots of the plan's full chunk: the
     records are read from a window of window + 2 of them, which holds
@@ -89,26 +81,19 @@ def expand_plain(e, p0, su, sa, pend, b_packed, chunk_start: int, sid_base,
     t = chunk_start + torch.arange(CP, dtype=I32, device=dev).reshape(G, W)
     rid = _decode(e, t)
     nnzA = su.shape[0]
-    if expand_impl == "decode":
-        uw, aw = su, sa
-        rec = _decode(p0, t)
-        m = rowend.shape[0]
-        live = (rec >= 0) & (t < rowend[torch.clamp(rid, 0, m - 1)])
-        rec = torch.clamp(rec, 0, nnzA - 1)
+    K = min(nnzA, (window or CP) + 2)
+    # window of the records that can intersect this chunk (kept p0 is
+    # strictly increasing) plus the run straddling its start
+    if K < nnzA:
+        widx = torch.clamp(sid_base - 1, 0, nnzA - K) + torch.arange(
+            K, dtype=I32, device=dev)
+        p0w, uw, aw, pw = p0[widx], su[widx], sa[widx], pend[widx]
     else:
-        K = min(nnzA, (window or CP) + 2)
-        # window of the records that can intersect this chunk (kept p0 is
-        # strictly increasing) plus the run straddling its start
-        if K < nnzA:
-            widx = torch.clamp(sid_base - 1, 0, nnzA - K) + torch.arange(
-                K, dtype=I32, device=dev)
-            p0w, uw, aw, pw = p0[widx], su[widx], sa[widx], pend[widx]
-        else:
-            p0w, uw, aw, pw = p0, su, sa, pend
-        rec = _decode(p0w, t)
-        has = rec >= 0
-        rec = torch.clamp(rec, min=0)
-        live = has & (t < pw[rec])
+        p0w, uw, aw, pw = p0, su, sa, pend
+    rec = _decode(p0w, t)
+    has = rec >= 0
+    rec = torch.clamp(rec, min=0)
+    live = has & (t < pw[rec])
     dead = ~live | (rid < 0)
     bsrc = torch.where(dead, 0, uw[rec] + t)
     if isinstance(b_packed, Unpacked):
@@ -173,7 +158,7 @@ def stream_expand(e, p0, su, sa, pend, b_packed, chunk_start: int, sid_base,
                   G: int, W: int, n_cols: int, window: Optional[int] = None,
                   live: Optional[int] = None):
     """(rid, col, val), each (G, W), of chunk [chunk_start, chunk_start +
-    G*W), as ``expand_plain`` computes them under ``expand_impl="fill"``.
+    G*W), as ``expand_plain`` computes them.
     ``live``: the chunk's products, where the caller knows them
     (``LAUNCH_LIVE``)."""
     _check(e, p0, su, sa, pend, b_packed, sid_base, G, W)

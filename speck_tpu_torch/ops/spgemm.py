@@ -9,7 +9,9 @@ Stages (stage names as in the reference's timings):
                   device pass, ONE readback
   3. counting     the dense tiles (dense.dense_tiles), one fused
                   count-and-stage pass per (G, W) chunk
-                  (stream.stream_chunk), the accumulator (_run_accum)
+                  (stream.stream_chunk: the chunk step, stream.chunk_sorted,
+                  over the plan's ``ChunkRecords``), the accumulator
+                  (_run_accum)
   4. wide rows    merge levels + the wide finish (_run_wide), with one
                   small readback of the wide rows' entry totals
   5. offsets      cumsum + ONE readback of nnz and the widest row
@@ -78,10 +80,12 @@ TypeError: the dense tiles of a float32 A times a B of another type (the
 packed record, ``esc.pack_csr_arrays``) and the contiguous diagonal
 convolution of an A narrower than the products (``dia.dia_conv``). A call
 past ``block_products`` runs as row blocks (``_spgemm_blocked``). The
-reference's A/B knobs all run (ops/stream.py); ``check_knobs`` raises
-ValueError only for values the reference does not name. The contract and
-the row sorts always run the hand-written kernels on a CUDA device
-(ops/contract.py, ops/bitonic.py).
+reference's A/B knobs all run (ops/stream.py): every ``stream_expand_impl``
+and ``stream_sort_impl`` name runs the one expand (K4 on a CUDA device)
+and the one row sort (K2); ``check_knobs`` raises ValueError only for
+values the reference does not name. The contract and the row sorts
+always run the hand-written kernels on a CUDA device (ops/contract.py,
+ops/bitonic.py).
 """
 
 from __future__ import annotations
@@ -131,6 +135,7 @@ from .stream import (
     N_QCLASS,
     SORT_IMPLS,
     N_WSEG_PACK,
+    ChunkRecords,
     LevelPlan,
     StreamLayout,
     accum_finalize,
@@ -254,21 +259,11 @@ class StreamState:
     q_sorted: torch.Tensor      # (m,) product quantum per sorted row
     el: torch.Tensor            # (m,) exclusive live-ops prefix
     ops_sorted: torch.Tensor    # (m,) live products per sorted row
-    p0: torch.Tensor            # A-slot stream starts
-    su: torch.Tensor            # u = b_row_start - p0 per slot
-    sa: torch.Tensor            # valA bits per slot
-    pend: torch.Tensor          # A-slot product ends (p0 + b_len)
-    src: torch.Tensor           # sorted slot -> A nnz index
-    sid_bases: torch.Tensor     # (n_chunks,) A slots with p0 < chunk start
-    pack_bits: int
+    rec: ChunkRecords           # the chunks' records, B unbound
     fused: bool
     # the products the chunks hold, where the host has them without a
     # readback (``stream_products``): the kernels' live slots
     products: Optional[int] = None
-    # each sorted row's live product end (-1 for none), for the decode
-    # expand (stream_expand_impl="decode"); None under "fill"
-    rowend: Optional[torch.Tensor] = None
-    rowend2: Optional[torch.Tensor] = None
     staged: Optional[list] = None       # per-chunk (rid, col, val, counts)
     level_bufs: Optional[list] = None   # per-level (rid, col, val, counts)
     wide_rid_in: Optional[torch.Tensor] = None
@@ -281,19 +276,17 @@ class StreamState:
     # pre-reject left the count off
     dense_elig: Optional[int] = None
     # the accumulator region (huge rows of bounded output span, sorted
-    # first): its product space, records and host part plan
+    # first): its product space's records and host part plan
     n_accum: int = 0
-    e2: Optional[torch.Tensor] = None
-    p02: Optional[torch.Tensor] = None
-    su2: Optional[torch.Tensor] = None
-    sa2: Optional[torch.Tensor] = None
-    pend2: Optional[torch.Tensor] = None
-    src2: Optional[torch.Tensor] = None
-    sid_bases2: Optional[torch.Tensor] = None
+    rec2: Optional[ChunkRecords] = None
     cmin_s: Optional[torch.Tensor] = None   # (m,) first output column
     abase: Optional[torch.Tensor] = None    # part-local accumulator bases
-    accum: Optional[dict] = None            # n_chunks2, G, W, parts
+    accum: Optional[dict] = None            # the host part plan: parts
     accum_bufs: Optional[list] = None       # staged finalize outputs
+
+    @property
+    def pack_bits(self) -> int:
+        return self.rec.pack_bits
 
     def staged_cat(self):
         """The staged chunks' columns and values, each concatenated once
@@ -345,10 +338,6 @@ class SpgemmPlan:
     @property
     def shape(self):
         return (self.A.shape[0], self.B.shape[1])
-
-    def _chunk_args(self, A, B, ss: StreamState):
-        """Operand records for numeric re-expansion (possibly new values)."""
-        return _stream_operands(A, B, ss.src)
 
     def execute(self, A: Optional[DeviceCSR] = None,
                 B: Optional[DeviceCSR] = None,
@@ -426,30 +415,24 @@ class SpgemmPlan:
             if (ss is not None and ss.layout.n_chunks > 0
                     and ss.layout.total_q > 0):
                 lo = ss.layout
-                G, W = lo.G, lo.W
-                CP = G * W
+                compact_impl = self.cfg.stream_compact_impl
                 if use_staged and ss.fused and ss.staged is not None:
                     level_bufs = ss.level_bufs or []
                 else:
-                    sa_n, b_packed = self._chunk_args(A, B, ss)
+                    rec = _stream_operands(A, B, ss.rec, new_values=True)
                     # a two-phase plan merged its wide values at plan time
                     reuse_levels = bool(use_staged and not ss.fused
                                         and ss.level_bufs)
                     wide_staged = []
                     for c in range(lo.n_chunks):
-                        has_wide = (c * G < lo.r_wide) and not reuse_levels
-                        Gc = lo.g_last if c == lo.n_chunks - 1 else G
+                        has_wide = (c * lo.G < lo.r_wide) and not reuse_levels
                         with span("speck.numeric.chunk"):
                             c_cols, c_vals, stg = stream_chunk_numeric(
-                                ss.rows_sorted, ss.e, ss.p0, ss.su, sa_n,
-                                ss.pend, b_packed, self.row_offsets, c_cols,
-                                c_vals, c * CP, ss.sid_bases[c],
-                                ss.n_accum + lo.n_wide, G=Gc, W=W,
-                                n_cols=n, pack_bits=ss.pack_bits,
-                                stage_wide=has_wide, window=CP,
-                                rowend=ss.rowend,
-                                live=chunk_live(lo, ss.products, c),
-                                **_knobs(self.cfg))
+                                rec, c, ss.rows_sorted, self.row_offsets,
+                                c_cols, c_vals, ss.n_accum + lo.n_wide,
+                                stage_wide=has_wide,
+                                compact_impl=compact_impl,
+                                live=chunk_live(lo, ss.products, c))
                         if stg is not None:
                             wide_staged.append(stg)
                     if reuse_levels:
@@ -458,7 +441,7 @@ class SpgemmPlan:
                         level_bufs = _run_wide(
                             ss, wide_staged, None, n, count=False,
                             max_width=self.cfg.stream_max_width,
-                            **_knobs(self.cfg, expand=False))[1]
+                            compact_impl=compact_impl)[1]
                 with span("speck.emit"):
                     for rid_out, col_c, val_c, fcnt in level_bufs:
                         rid_b = rid_out[:, None].expand(col_c.shape)
@@ -470,9 +453,8 @@ class SpgemmPlan:
                     accum_bufs = ss.accum_bufs
                 else:
                     with span("speck.accum"):
-                        accum_bufs = _run_accum(
-                            ss, A, B, None, n, count=False,
-                            expand_impl=self.cfg.stream_expand_impl)[1]
+                        accum_bufs = _run_accum(ss, A, B, None, count=False,
+                                                new_values=True)[1]
                 with span("speck.emit"):
                     for rid_out, col_c, val_c, fcnt in accum_bufs:
                         rid_b = rid_out[:, None].expand(col_c.shape)
@@ -581,27 +563,20 @@ class SpgemmPlan:
                          data=c_vals, shape=(m, n), nnz=self.nnz)
 
 
-def _knobs(cfg: SpgemmConfig, expand: bool = True) -> dict:
-    """The stream's A/B knobs as keywords of its chunk (``expand``) and
-    level passes."""
-    kw = dict(sort_impl=cfg.stream_sort_impl,
-              compact_impl=cfg.stream_compact_impl)
-    if expand:
-        kw["expand_impl"] = cfg.stream_expand_impl
-    return kw
-
-
-def _stream_operands(A: DeviceCSR, B: DeviceCSR, src, sa=None):
-    """The expand stage's record channel and B operand: for a float32 A,
-    A's value bits (``sa``, else gathered by the A-source map ``src``) and
-    the packed (col, value bits) B record with B's values cast to float32,
-    as the reference packs them; for any other A, the A-source map itself
-    and the unpacked operands (the reference's branch on ``packable``)."""
+def _stream_operands(A: DeviceCSR, B: DeviceCSR, rec: ChunkRecords,
+                     new_values: bool = False) -> ChunkRecords:
+    """``rec`` with the expand's record channel and B operand of A and B:
+    for a float32 A, A's value bits (the plan's, or with ``new_values``
+    gathered again through the A-source map) and the packed (col, value
+    bits) B record with B's values cast to float32, as the reference
+    packs them; for any other A, the A-source map itself and the unpacked
+    operands (the reference's branch on ``packable``)."""
     if packable(A.data):
-        if sa is None:
-            sa = A.data.contiguous().view(I32)[src]
-        return sa, pack_csr_arrays(B.indices, B.data.to(torch.float32))
-    return src, Unpacked(A.data, B.indices, B.data)
+        sa = (A.data.contiguous().view(I32)[rec.src] if new_values
+              else rec.sa)
+        return rec._replace(sa=sa, b=pack_csr_arrays(
+            B.indices, B.data.to(torch.float32)))
+    return rec._replace(sa=rec.src, b=Unpacked(A.data, B.indices, B.data))
 
 
 def c_value_dtype(A: DeviceCSR, B: DeviceCSR) -> torch.dtype:
@@ -629,25 +604,20 @@ def _dense_operands(A: DeviceCSR, B: DeviceCSR):
     return apk, pack_csr_arrays(B.indices, B.data)
 
 
-def count_chunk(ss: StreamState, ops, nnz_row, c: int, n_cols: int,
-                knobs: dict):
-    """Chunk c of the counting loop (``stream_chunk``: expand, K2 sort, K1
-    contract, the rows' counts into ``nnz_row``), staged where the plan
-    keeps it: a chunk with wide rows compacted, every chunk of a fused
-    plan, the contained-only ones raw (sorted, uncompacted; compaction
-    runs only if C has duplicates). ``ops`` is ``_stream_operands``'s
-    (record channel, B operand). Returns (nnz_row, staged)."""
+def count_chunk(ss: StreamState, rec: ChunkRecords, nnz_row, c: int,
+                compact_impl: str):
+    """Chunk c of the counting loop (``stream_chunk``: the chunk step, the
+    rows' counts into ``nnz_row``), staged where the plan keeps it: a
+    chunk with wide rows compacted, every chunk of a fused plan, the
+    contained-only ones raw (sorted, uncompacted; compaction runs only if
+    C has duplicates). ``rec`` is the plan's bundle with its operands
+    bound (``_stream_operands``). Returns (nnz_row, staged)."""
     lo = ss.layout
-    CP = lo.G * lo.W
     has_wide = c * lo.G < lo.r_wide
-    sa_ch, b_rec = ops
     return stream_chunk(
-        ss.rows_sorted, ss.e, ss.q_sorted, ss.el, ss.ops_sorted, ss.p0,
-        ss.su, sa_ch, ss.pend, b_rec, nnz_row, c * CP, ss.sid_bases[c],
-        G=lo.g_last if c == lo.n_chunks - 1 else lo.G, W=lo.W,
-        n_cols=n_cols, pack_bits=ss.pack_bits, stage=ss.fused or has_wide,
-        stage_raw=ss.fused and not has_wide, window=CP, rowend=ss.rowend,
-        live=chunk_live(lo, ss.products, c), **knobs)
+        rec, c, ss.rows_sorted, ss.q_sorted, ss.el, ss.ops_sorted, nnz_row,
+        stage=ss.fused or has_wide, stage_raw=ss.fused and not has_wide,
+        compact_impl=compact_impl, live=chunk_live(lo, ss.products, c))
 
 
 def stream_products(pk: PlanPack, hg, direct_ok: bool) -> Optional[int]:
@@ -721,8 +691,7 @@ def _finish_classes(totals: np.ndarray, rid_live: np.ndarray, device):
 
 
 def _run_wide(ss: StreamState, wide_staged, nnz_row, n_cols: int,
-              count: bool, max_width: int, sort_impl: str = "auto",
-              compact_impl: str = "sort"):
+              count: bool, max_width: int, compact_impl: str = "sort"):
     """Finish the wide rows: merge levels until every remaining row's
     deduplicated entry total fits ``max_width`` (one small readback of
     the totals per level while deciding), then one sort at each row's
@@ -780,7 +749,7 @@ def _run_wide(ss: StreamState, wide_staged, nnz_row, n_cols: int,
                             f["entry_excl"], f["row_total"], f["rid_of_out"],
                             nnz_row, R2=f["R2"], W2=f["W2"],
                             W0=ss.finish["W_in"], E_pad=f["E_pad"],
-                            n_cols=n_cols, count=count, sort_impl=sort_impl,
+                            n_cols=n_cols, count=count,
                             compact_impl=compact_impl, live=f["live"])
                     bufs.append(buf)
             break
@@ -792,8 +761,7 @@ def _run_wide(ss: StreamState, wide_staged, nnz_row, n_cols: int,
                 ss.rows_sorted, rid_in, wcol, wval, wcnt,
                 upload(lp.in_map, dev), upload(lp.final_mask, dev),
                 nnz_row, F=lp.F, W_in=lp.W_in, n_cols=n_cols, count=count,
-                sort_impl=sort_impl, compact_impl=compact_impl,
-                live=ss.finish["live"][li])
+                compact_impl=compact_impl, live=ss.finish["live"][li])
         # the same rid_out on the host, from the host rid_in
         src = np.clip(lp.in_map, 0, max(rid_in_h.shape[0] - 1, 0))
         rid_out_h = np.where(lp.in_map >= 0, rid_in_h[src], -1).max(axis=1)
@@ -866,23 +834,21 @@ def _plan_accum(a_hist: np.ndarray, a_psum: np.ndarray, budget: int):
 
 
 def _run_accum(ss: StreamState, A: DeviceCSR, B: DeviceCSR, nnz_row,
-               n_cols: int, count: bool, sa=None, expand_impl: str = "fill"):
+               count: bool, new_values: bool = False):
     """Drive the accumulator region: per part, every chunk's products
     scatter-add into their rows' span windows (stream_chunk_accum), then
-    each span class finalizes into staged compacted rows. ``sa`` is the
-    planning pass's record channel (None: gathered again, for new
-    values). Returns (nnz_row, staged buffers)."""
+    each span class finalizes into staged compacted rows. ``new_values``
+    gathers the record channel again (``_stream_operands``). Returns
+    (nnz_row, staged buffers)."""
     ac = ss.accum
-    if not ac or ac["n_chunks2"] == 0:
+    if not ac or ss.rec2.n_chunks == 0:
         return nnz_row, []
     dev = ss.rows_sorted.device
     if nnz_row is None:
         nnz_row = torch.zeros(ss.rows_sorted.shape[0] + 1, dtype=I32,
                               device=dev)
         count = False
-    sa_ch, b_rec = _stream_operands(A, B, ss.src2, sa)
-    G, W = ac["G"], ac["W"]
-    CP = G * W
+    rec = _stream_operands(A, B, ss.rec2, new_values)
     bufs = []
     for part in ac["parts"]:
         # float64 sums whatever the value type (one trailing slot takes
@@ -892,12 +858,10 @@ def _run_accum(ss: StreamState, A: DeviceCSR, B: DeviceCSR, nnz_row,
         acc = torch.zeros(part["slots"] + 1, dtype=torch.float64,
                           device=dev)
         pres = torch.zeros(part["slots"] + 1, dtype=I32, device=dev)
-        for c in range(ac["n_chunks2"]):
-            acc, pres = stream_chunk_accum(
-                ss.e2, ss.p02, ss.su2, sa_ch, ss.pend2, b_rec, ss.abase,
-                ss.cmin_s, acc, pres, c * CP, ss.sid_bases2[c],
-                part["row_lo"], part["row_hi"], G=G, W=W, n_cols=n_cols,
-                rowend2=ss.rowend2, expand_impl=expand_impl)
+        for c in range(rec.n_chunks):
+            acc, pres = stream_chunk_accum(rec, c, ss.abase, ss.cmin_s, acc,
+                                           pres, part["row_lo"],
+                                           part["row_hi"])
         acc = acc.to(c_value_dtype(A, B))
         for R_pad, S, off, rid in part["classes"]:
             nnz_row, buf = accum_finalize(
@@ -1592,7 +1556,6 @@ def plan_spgemm(A: DeviceCSR, B: DeviceCSR,
             # the packed key would overflow int32: the two-key chunk sort
             pack_bits = 0
         G = layout.G
-        CP = G * W
         with span("speck.plan.records"):
             p0, su, sa, src, pend, sid_bases = stream_records(
                 A, B, a32, rows_sorted, e, q_sorted, layout, n_live)
@@ -1605,16 +1568,16 @@ def plan_spgemm(A: DeviceCSR, B: DeviceCSR,
         ss = StreamState(
             layout=layout, lplans=lplans, rows_sorted=rows_sorted,
             rows_padded=rows_padded, e=e, q_sorted=q_sorted, el=el,
-            ops_sorted=ops_sorted, p0=p0, su=su, sa=sa, pend=pend, src=src,
-            sid_bases=sid_bases, pack_bits=pack_bits, fused=fused,
-            products=stream_products(
+            ops_sorted=ops_sorted,
+            rec=ChunkRecords(e, p0, su, sa, src, pend, None, sid_bases, G=G,
+                             g_last=layout.g_last, W=W,
+                             n_chunks=layout.n_chunks, n_cols=n,
+                             pack_bits=pack_bits),
+            fused=fused, products=stream_products(
                 pk, hg, bool(B.canonical) and cfg.enable_direct),
             wide_rid_in=upload(wide_rid_h, dev), wide_rid_in_h=wide_rid_h,
             dense_elig=n_elig if use_dense and max_tiles > 0 else None,
             n_accum=n_accum)
-        decode = cfg.stream_expand_impl == "decode"
-        if decode:
-            ss.rowend = torch.where(q_sorted > 0, e + ops_sorted, -1)
         if n_accum and total_p2:
             # the accumulator's chunks take the stream's full budget (a
             # short stream would otherwise cut them to its own size)
@@ -1626,18 +1589,17 @@ def plan_spgemm(A: DeviceCSR, B: DeviceCSR,
                     B.indptr[1:] - B.indptr[:-1], rows_sorted, e2,
                     q2_sorted, m=m, nl=_pow2(max(n_live2, 1)))
             cks = torch.arange(n_chunks2, dtype=I32, device=dev) * (G2 * W)
-            ss.e2, ss.p02, ss.su2, ss.sa2 = e2, p02, su2, sa2
-            ss.pend2, ss.src2 = pend2, src2
-            ss.sid_bases2 = torch.searchsorted(p02, cks, out_int32=True)
-            if decode:
-                ss.rowend2 = torch.where(q2_sorted > 0, e2 + q2_sorted, -1)
+            ss.rec2 = ChunkRecords(
+                e2, p02, su2, sa2, src2, pend2, None,
+                torch.searchsorted(p02, cks, out_int32=True), G=G2,
+                g_last=G2, W=W, n_chunks=n_chunks2, n_cols=n,
+                pack_bits=pack_bits)
             ss.cmin_s = cmin_sorted
             ss.abase = upload(abase_h, dev)
             for part in accum_parts:
                 part["classes"] = [(R_pad, S, off, upload(rid, dev))
                                    for R_pad, S, off, rid in part["classes"]]
-            ss.accum = dict(n_chunks2=n_chunks2, parts=accum_parts, G=G2,
-                            W=W)
+            ss.accum = dict(parts=accum_parts)
 
         # the per-row DIA split's group (its device gate passed: n_dia > 0)
         dia_grp: Optional[DiaRowGroup] = None
@@ -1685,26 +1647,26 @@ def plan_spgemm(A: DeviceCSR, B: DeviceCSR,
                         densify=cfg.dense_densify)
                 dense_staged.append(st_b)
         if layout.n_chunks > 0 and layout.total_q > 0:
-            sa_ch, b_rec = _stream_operands(A, B, src, sa)
+            rec = _stream_operands(A, B, ss.rec)
             staged = []
             for c in range(layout.n_chunks):
                 if fused and c * G >= layout.r_wide:
                     raw_chunks.append(c)
                 with span("speck.count.chunk"):
-                    nnz_row, stg = count_chunk(ss, (sa_ch, b_rec), nnz_row,
-                                               c, n, _knobs(cfg))
+                    nnz_row, stg = count_chunk(ss, rec, nnz_row, c,
+                                               cfg.stream_compact_impl)
                 staged.append(stg)
             nw_chunks = -(-layout.r_wide // G) if layout.r_wide else 0
             nnz_row, level_bufs = _run_wide(
                 ss, staged[:nw_chunks], nnz_row, n, count=True,
-                max_width=cfg.stream_max_width, **_knobs(cfg, expand=False))
+                max_width=cfg.stream_max_width,
+                compact_impl=cfg.stream_compact_impl)
             ss.staged = staged if fused else None
             ss.level_bufs = level_bufs
         if ss.accum:
             with span("speck.accum"):
-                nnz_row, ss.accum_bufs = _run_accum(
-                    ss, A, B, nnz_row, n, count=True, sa=ss.sa2,
-                    expand_impl=cfg.stream_expand_impl)
+                nnz_row, ss.accum_bufs = _run_accum(ss, A, B, nnz_row,
+                                                    count=True)
         st.stop(nnz_row)
 
     with StageTimer(timings, "allocC", track):

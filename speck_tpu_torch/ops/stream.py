@@ -4,7 +4,10 @@ Every intermediate product of C = A @ B gets one slot in a flat stream,
 tight-packed by the planner: rows sorted by descending product count, wide
 rows (more products than the rectangle width W) on whole W-aligned
 rectangle rows, contained rows back to back without straddling a
-rectangle-row boundary. The stream is cut into (G, W) chunks. Per chunk:
+rectangle-row boundary. The stream is cut into (G, W) chunks, and every
+chunk of one product space (the stream's, the accumulator region's, a
+mesh shard's) reads one bundle of records (``ChunkRecords``). Per chunk,
+the first three stages are one step (``chunk_sorted``):
 
   expand    each slot's row and A-slot record, one packed B-record
             gather per product (kernel K4, ops/expand.stream_expand);
@@ -40,23 +43,21 @@ the scatter-adds that torch serializes on repeated indices.
 
 The reference's four A/B knobs (``SpgemmConfig.stream_*``) all run:
 
-  stream_expand_impl   "fill" (default): each slot's A-slot record is the
-                       last record start at or before it, live while t is
-                       below the record's product end; "decode": the same
-                       record by a per-slot decode, live while t is below
-                       the row's end (``rowend``);
+  stream_expand_impl   "fill" (default) and "decode": the reference's two
+                       forms of one function (each slot's A-slot record
+                       and product), so every name runs the one expand,
+                       K4 on the card (ops/expand.py);
   stream_compact_impl  "sort" (default): one K2 rank sort; "scatter":
                        three flat scatters to g * W + rank (unique
                        targets, so deterministic), dead slots filled with
                        (INT_MAX, INT_MAX, 0);
   stream_sort_impl     "auto", "xla", "blocked", "bitonic",
                        "bitonic_pallas": every one computes the same
-                       function (rows sorted by key), which is K2 on the
-                       card (a stable radix sort, the port of both
-                       bitonic.bitonic_sort_pairs_pallas and
-                       blocked_sort_pairs) and the plain stable sort on the
-                       CPU; ``_resolve_sort`` records the name the
-                       reference would resolve (``SORT_RESOLVED``);
+                       function (rows sorted by key), so every name runs
+                       the one sort, K2 on the card (a stable radix sort,
+                       the port of both bitonic.bitonic_sort_pairs_pallas
+                       and blocked_sort_pairs) and the plain stable sort
+                       on the CPU;
   stream_level_factor  any F >= 2: merge levels at F * W_in, which K2
                        sorts padded to a power of two where F is not one.
 
@@ -75,7 +76,7 @@ then by row.
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional, Tuple
+from typing import Any, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -84,7 +85,7 @@ from ..utils.config import ProductOverflow
 from .analysis import _count_le, _decode, cumsum1d
 from .bitonic import by_slot, row_sort, slot_payload
 from .contract import stream_contract
-from .expand import expand_plain, stream_expand
+from .expand import stream_expand
 
 INT_MAX = 2 ** 31 - 1
 I32 = torch.int32
@@ -99,11 +100,6 @@ N_WSEG_PACK = 512
 SORT_IMPLS = ("auto", "xla", "blocked", "bitonic", "bitonic_pallas")
 COMPACT_IMPLS = ("sort", "scatter")
 EXPAND_IMPLS = ("fill", "decode")
-# width at which the reference's "auto" resolves to its blocked merge sort
-_BLOCKED_SORT_MIN_W = 1 << 20
-# sorts by the name the reference resolves the knob to at their width
-# (every one runs K2 on the card): {name: count}
-SORT_RESOLVED: dict = {}
 
 
 def _arange(n: int, device) -> torch.Tensor:
@@ -668,40 +664,49 @@ def plan_gate(a_indptr, a_indices, b_indptr, b_indices, row_ops, row_ops_f,
 # ---------------------------------------------------------------------------
 
 
-def _expand_chunk(e, p0, su, sa, pend, b_packed, chunk_start: int,
-                  sid_base, G: int, W: int, n_cols: int,
-                  window: Optional[int] = None, rowend=None,
-                  expand_impl: str = "fill", live: Optional[int] = None):
-    """The expand stage for chunk [chunk_start, chunk_start + G*W): (rid,
-    col, val) as ``expand.expand_plain`` defines them. "fill" is
-    ``expand.stream_expand`` (kernel K4 on the card; ``live`` goes to its
-    launch counter); "decode" keeps its torch form on every device."""
-    if expand_impl == "decode":
-        return expand_plain(e, p0, su, sa, pend, b_packed, chunk_start,
-                            sid_base, G, W, n_cols, window, rowend,
-                            expand_impl)
-    return stream_expand(e, p0, su, sa, pend, b_packed, chunk_start,
-                         sid_base, G, W, n_cols, window, live)
+class ChunkRecords(NamedTuple):
+    """What every chunk of one product space reads: the A-slot records
+    (``build_srec``), the expand's B operand, each chunk's first record
+    and the chunk shape. Chunk c covers the stream slots from c * G * W
+    on, in ``rows(c)`` rectangle rows of W; each chunk reads its records
+    from a window sized by the full chunk (``expand.expand_plain``).
+
+    ``sa`` is the record channel: a float32 A's value bits, else the
+    A-source map. ``spgemm._stream_operands`` binds ``b`` (a plan keeps
+    its bundles unbound) and puts the channel of new values there."""
+
+    e: torch.Tensor          # (m,) each sorted row's stream start
+    p0: torch.Tensor         # A-slot stream starts
+    su: torch.Tensor         # u = b_row_start - p0 per A slot
+    sa: torch.Tensor         # the record channel
+    src: torch.Tensor        # A slot -> A nonzero index
+    pend: torch.Tensor       # A-slot product ends (p0 + b_len)
+    b: Any                   # packed (nnz, 2) B record or expand.Unpacked
+    sid_bases: torch.Tensor  # (n_chunks,) records with p0 < chunk start
+    G: int                   # rectangle rows of a chunk
+    g_last: int              # rectangle rows of the last chunk (<= G)
+    W: int
+    n_chunks: int
+    n_cols: int
+    pack_bits: int           # 0: the two-key chunk sort
+
+    def rows(self, c: int) -> int:
+        return self.g_last if c == self.n_chunks - 1 else self.G
 
 
-def _resolve_sort(sort_impl: str, width: int) -> str:
-    """The name the reference resolves ``sort_impl`` to at ``width``
-    ("auto": its blocked merge sort for power-of-two rows of 2^20 and
-    more, else lax.sort), recorded in ``SORT_RESOLVED``. Every name runs
-    the same stable sort here (K2 on the card)."""
-    if sort_impl == "auto":
-        pow2 = width & (width - 1) == 0
-        sort_impl = ("blocked" if width >= _BLOCKED_SORT_MIN_W and pow2
-                     else "xla")
-    SORT_RESOLVED[sort_impl] = SORT_RESOLVED.get(sort_impl, 0) + 1
-    return sort_impl
+def chunk_expand(rec: ChunkRecords, c: int, live: Optional[int] = None):
+    """Chunk c's expand (kernel K4): (rid, col, val), each (rows(c), W).
+    ``live``: the chunk's products, where the caller knows them."""
+    CP = rec.G * rec.W
+    return stream_expand(rec.e, rec.p0, rec.su, rec.sa, rec.pend, rec.b,
+                         c * CP, rec.sid_bases[c], rec.rows(c), rec.W,
+                         rec.n_cols, CP, live)
 
 
 def _sort_rect(rid, col, val, n_cols: int, pack_bits: int,
-               sort_impl: str = "auto", live: Optional[int] = None):
+               live: Optional[int] = None):
     """Sort each rectangle row by (rid, col) with every dead slot
-    (col >= n_cols) last (kernel K2, whatever ``sort_impl`` names).
-    pack_bits > 0: one sort on the packed
+    (col >= n_cols) last (kernel K2). pack_bits > 0: one sort on the packed
     key (rid - rid0) << pack_bits | col; dead slots keep rid0. pack_bits ==
     0 (the packed key would overflow int32): two stable passes, by column
     and then by rid - rid0 with dead slots at W, each key within its own
@@ -709,7 +714,6 @@ def _sort_rect(rid, col, val, n_cols: int, pack_bits: int,
     INT_MAX; dead slots carry rid INT_MAX, as there. ``live``: the
     rectangle's products, where the caller knows them (each K2 launch's
     live slots)."""
-    _resolve_sort(sort_impl, col.shape[1])
     rid0 = rid[:, :1]
     if pack_bits > 0:
         keyk = ((rid - rid0) << pack_bits) | col
@@ -729,13 +733,11 @@ def _sort_rect(rid, col, val, n_cols: int, pack_bits: int,
     return rid_s.to(I32), col_s, by_slot(val, moved)
 
 
-def _sort_cols(col, val, sort_impl: str = "auto",
-               live: Optional[int] = None):
-    """Single-key (col, val) row sort (kernel K2, whatever ``sort_impl``
-    names); a level under a factor that is not a power of two has a width
-    that is not one either, which K2 sorts padded. ``live``: the real
-    entries, where the caller knows them."""
-    _resolve_sort(sort_impl, col.shape[1])
+def _sort_cols(col, val, live: Optional[int] = None):
+    """Single-key (col, val) row sort (kernel K2); a level under a factor
+    that is not a power of two has a width that is not one either, which
+    K2 sorts padded. ``live``: the real entries, where the caller knows
+    them."""
     col_s, (moved,) = row_sort(col.contiguous(), [slot_payload(val)], live)
     return col_s, by_slot(val, moved)
 
@@ -798,32 +800,34 @@ def compact_staged(rid_s, col_s, val_s, counts, *, n_cols: int,
                          val_s, compact_impl)
 
 
-def stream_chunk(rows_sorted, e, q_sorted, el, ops_sorted, p0, su, sa, pend,
-                 b_packed, nnz_row, chunk_start: int, sid_base, *,
-                 G: int, W: int, n_cols: int, pack_bits: int, stage: bool,
-                 stage_raw: bool = False, window: Optional[int] = None,
-                 rowend=None, sort_impl: str = "auto",
-                 compact_impl: str = "sort", expand_impl: str = "fill",
-                 live: Optional[int] = None):
-    """One fused count(+stage) pass over chunk [chunk_start,
-    chunk_start + G*W). Every row contained in the chunk gets its exact
-    nnz in ``nnz_row`` (padded by one drop slot, updated in place) by an
-    O(m) segment difference over per-rectangle-row cumulative run-last
-    counts. stage=True also returns the compacted (rid, col, val, counts)
-    rectangle rows; stage_raw returns them sorted but uncompacted. The
-    knobs are ``SpgemmConfig``'s (module docstring); ``rowend`` serves the
-    decode expand; ``live``, the chunk's products where the caller knows
-    them, goes to the expand's, the sort's and the contract's launch
-    counters."""
-    rid, col, val = _expand_chunk(e, p0, su, sa, pend, b_packed,
-                                  chunk_start, sid_base, G, W, n_cols,
-                                  window, rowend, expand_impl, live)
-    rid_s, col_s, val_s = _sort_rect(rid, col, val, n_cols, pack_bits,
-                                     sort_impl, live)
-    last, run_sum = stream_contract(rid_s, col_s, val_s, n_cols, live)
+def chunk_sorted(rec: ChunkRecords, c: int, live: Optional[int] = None):
+    """Chunk c's expand (K4), its (rid, col) row sort (K2) and contract
+    (K1): (rid_s, col_s, last, run_sum). ``live``, the chunk's products
+    where the caller knows them, goes to the three launch counters."""
+    rid, col, val = chunk_expand(rec, c, live)
+    rid_s, col_s, val_s = _sort_rect(rid, col, val, rec.n_cols,
+                                     rec.pack_bits, live)
+    last, run_sum = stream_contract(rid_s, col_s, val_s, rec.n_cols, live)
+    return rid_s, col_s, last, run_sum
 
+
+def stream_chunk(rec: ChunkRecords, c: int, rows_sorted, q_sorted, el,
+                 ops_sorted, nnz_row, *, stage: bool, stage_raw: bool = False,
+                 compact_impl: str = "sort", live: Optional[int] = None):
+    """One fused count(+stage) pass over chunk c (``chunk_sorted``). Every
+    row contained in the chunk gets its exact nnz in ``nnz_row`` (padded
+    by one drop slot, updated in place) by an O(m) segment difference
+    over per-rectangle-row cumulative run-last counts. stage=True also
+    returns the compacted (rid, col, val, counts) rectangle rows;
+    stage_raw returns them sorted but uncompacted. ``compact_impl`` is
+    ``SpgemmConfig.stream_compact_impl``."""
+    rid_s, col_s, last, run_sum = chunk_sorted(rec, c, live)
+
+    e = rec.e
     dev = e.device
     m = rows_sorted.shape[0]
+    G, W = rec.rows(c), rec.W
+    chunk_start = c * rec.G * W
     CP = G * W
     cl = torch.cumsum(last, 1, dtype=I32).reshape(-1)
     contained = ((q_sorted > 0) & (q_sorted <= W) & (e >= chunk_start)
@@ -850,26 +854,18 @@ def stream_chunk(rows_sorted, e, q_sorted, el, ops_sorted, p0, su, sa, pend,
     return nnz_row, _compact_rect(last, rid_s, col_s, run_sum, compact_impl)
 
 
-def stream_chunk_numeric(rows_sorted, e, p0, su, sa, pend, b_packed,
-                         row_offsets, c_cols, c_vals, chunk_start: int,
-                         sid_base, n_wide: int, *, G: int, W: int,
-                         n_cols: int, pack_bits: int, stage_wide: bool,
-                         window: Optional[int] = None, rowend=None,
-                         sort_impl: str = "auto", compact_impl: str = "sort",
-                         expand_impl: str = "fill",
+def stream_chunk_numeric(rec: ChunkRecords, c: int, rows_sorted,
+                         row_offsets, c_cols, c_vals, n_wide, *,
+                         stage_wide: bool, compact_impl: str = "sort",
                          live: Optional[int] = None):
-    """Two-phase numeric pass over one chunk: the same expand, sort and
-    contract, then contained rows' run-last entries scatter straight to
-    their offsets in C (padded buffers, updated in place); the first
-    ``n_wide`` sorted rows (the accumulator and wide rows) emit elsewhere.
+    """Two-phase numeric pass over chunk c: the same ``chunk_sorted``
+    step, then contained rows' run-last entries scatter straight to their
+    offsets in C (padded buffers, updated in place); the first ``n_wide``
+    sorted rows (the accumulator and wide rows) emit elsewhere.
     stage_wide also returns the compacted rectangle rows for the merge
     levels. ``live`` as ``stream_chunk``'s."""
-    rid, col, val = _expand_chunk(e, p0, su, sa, pend, b_packed,
-                                  chunk_start, sid_base, G, W, n_cols,
-                                  window, rowend, expand_impl, live)
-    rid_s, col_s, val_s = _sort_rect(rid, col, val, n_cols, pack_bits,
-                                     sort_impl, live)
-    last, run_sum = stream_contract(rid_s, col_s, val_s, n_cols, live)
+    rid_s, col_s, last, run_sum = chunk_sorted(rec, c, live)
+    n_cols = rec.n_cols
 
     # rank among the row's run-lasts via a segmented exclusive count; the
     # live slots are sorted by rid, the dead ones (col >= n_cols) last
@@ -879,8 +875,8 @@ def stream_chunk_numeric(rows_sorted, e, p0, su, sa, pend, b_packed,
     rank = ce - torch.gather(ce, 1, first.long())
     m = rows_sorted.shape[0]
     row = rows_sorted[torch.clamp(rid_s, 0, m - 1)]
-    live = last & (rid_s >= n_wide)
-    flat = torch.where(live, row_offsets[row] + rank, c_cols.shape[0] - 1)
+    emit = last & (rid_s >= n_wide)
+    flat = torch.where(emit, row_offsets[row] + rank, c_cols.shape[0] - 1)
     c_cols.index_put_((flat,), col_s)
     c_vals.index_put_((flat,), run_sum.to(c_vals.dtype))
     if not stage_wide:
@@ -894,25 +890,22 @@ def stream_chunk_numeric(rows_sorted, e, p0, su, sa, pend, b_packed,
 # ---------------------------------------------------------------------------
 
 
-def stream_chunk_accum(e2, p02, su2, sa2, pend2, b_packed, abase, cmin_s,
-                       acc, pres, chunk_start: int, sid_base, row_lo: int,
-                       row_hi: int, *, G: int, W: int, n_cols: int,
-                       rowend2=None, expand_impl: str = "fill"):
-    """One expand and scatter-add pass over chunk [chunk_start,
-    chunk_start + G*W) of the accumulator product space: the products of
-    sorted rows in the active part [row_lo, row_hi) add into
-    acc[abase[rid] + col - cmin_s[rid]] and mark ``pres`` there (abase is
-    part-local); the other rows' products and the dead slots go to the
-    trailing drop slot of ``acc`` and ``pres`` (updated in place).
+def stream_chunk_accum(rec: ChunkRecords, c: int, abase, cmin_s, acc, pres,
+                       row_lo: int, row_hi: int):
+    """One expand and scatter-add pass over chunk c of the accumulator
+    product space: the products of sorted rows in the active part
+    [row_lo, row_hi) add into acc[abase[rid] + col - cmin_s[rid]] and
+    mark ``pres`` there (abase is part-local); the other rows' products
+    and the dead slots go to the trailing drop slot of ``acc`` and
+    ``pres`` (updated in place).
 
     The reference's dense mode for single huge rows: no sort, one
     scatter-add a product. The adds are ``index_add_`` (atomics on the
     card) into ``acc``'s type (the caller's float64 plane), so the order
     in which equal columns sum changes from launch to launch: values agree
     to rounding, not to the bit; the int32 presence is exact."""
-    rid, col, val = _expand_chunk(e2, p02, su2, sa2, pend2, b_packed,
-                                  chunk_start, sid_base, G, W, n_cols,
-                                  rowend=rowend2, expand_impl=expand_impl)
+    rid, col, val = chunk_expand(rec, c)
+    n_cols = rec.n_cols
     na = abase.shape[0]
     rid_c = torch.clamp(rid, 0, na - 1)
     live = (col < n_cols) & (rid >= row_lo) & (rid < row_hi)
@@ -955,8 +948,8 @@ def accum_finalize(rows_sorted, acc_slice, pres_slice, cmin_s, rid_of_out,
 
 def stream_level(rows_sorted, rid_in, col_in, val_in, counts_in, in_map,
                  final_mask, nnz_row, *, F: int, W_in: int, n_cols: int,
-                 count: bool = True, sort_impl: str = "auto",
-                 compact_impl: str = "sort", live: Optional[int] = None):
+                 count: bool = True, compact_impl: str = "sort",
+                 live: Optional[int] = None):
     """One merge level: each output rectangle row re-sorts F input
     segments (compacted prefixes of width W_in) of one wide row and
     contracts them; rows whose segments all fit here (final_mask) are
@@ -976,7 +969,7 @@ def stream_level(rows_sorted, rid_in, col_in, val_in, counts_in, in_map,
     rid_out = torch.max(torch.where(okrow, rid_in[src], -1).reshape(R_out, F),
                         dim=1).values.to(I32)
 
-    col_s, val_s = _sort_cols(col.to(I32), val, sort_impl, live)
+    col_s, val_s = _sort_cols(col.to(I32), val, live)
     rid_b = rid_out[:, None].expand(R_out, W_out)
     last, run_sum = stream_contract(rid_b, col_s, val_s, n_cols, live)
     if count:
@@ -1002,7 +995,7 @@ def wide_entry_totals(wcnt, wide_rid, *, n_wide: int):
 def stream_wide_finish(rows_sorted, wcol_flat, wval_flat, wcnt, entry_excl,
                        row_total, rid_of_out, nnz_row, *, R2: int, W2: int,
                        W0: int, E_pad: int, n_cols: int, count: bool,
-                       sort_impl: str = "auto", compact_impl: str = "sort",
+                       compact_impl: str = "sort",
                        live: Optional[int] = None):
     """Adaptive wide-row finish: gather each wide row's staged entries into
     one (R2, W2) rectangle sized by the true entry totals, then one sort
@@ -1029,7 +1022,7 @@ def stream_wide_finish(rows_sorted, wcol_flat, wval_flat, wcnt, entry_excl,
     col = torch.where(dead, n_cols, wcol_flat[src]).to(I32)
     val = torch.where(dead, 0.0, wval_flat[src])
 
-    col_s, val_s = _sort_cols(col, val, sort_impl, live)
+    col_s, val_s = _sort_cols(col, val, live)
     rid_b = rid_of_out[:, None].expand(R2, W2)
     last, run_sum = stream_contract(rid_b, col_s, val_s, n_cols, live)
     if count:

@@ -70,7 +70,7 @@ from ..ops.esc import _sort_rows, pack_csr_arrays
 from ..ops.expand import Unpacked
 from ..ops.spgemm import _pow2 as _pow2ceil
 from ..ops.spgemm import check_knobs
-from ..ops.stream import (_compact_rect, _count_le,
+from ..ops.stream import (ChunkRecords, _compact_rect, _count_le,
                           _plan_rows_impl, _pow2ceil_arr, _sort_cols,
                           build_srec, stream_chunk, stream_chunk_numeric,
                           stream_emit, stream_level, tight_total_host)
@@ -746,10 +746,11 @@ def _stream_pipeline(cfg, G: int, W: int, n_cols: int, ai, ax, ad,
     buffers, each with a trailing drop slot) every chunk and level emits
     at once and the return is (nnz_row, cols, vals).
 
-    Without emit_to, returns (nnz_row, rows_sorted, q_sorted, staged,
-    level_out, state): nnz_row has a trailing drop slot; staged entries are
-    None for unstaged chunks and ``state`` carries what _emit_pipeline
-    needs to re-expand them."""
+    Without emit_to, returns (nnz_row, rows_sorted, staged, level_out,
+    rec, n_wide): nnz_row has a trailing drop slot; staged entries are
+    None for unstaged chunks, which _emit_pipeline re-expands from the
+    chunks' records ``rec``; n_wide is the wide rows' count (a device
+    scalar)."""
     dev = ai.device
     CP = G * W
     zero1 = torch.zeros(1, dtype=I32, device=dev)
@@ -770,6 +771,9 @@ def _stream_pipeline(cfg, G: int, W: int, n_cols: int, ai, ax, ad,
     sa_ch, b_rec = _operands(b_payload, ad, sa, src, f64)
     sid = torch.searchsorted(p0, torch.arange(n_ch, dtype=I32, device=dev)
                              * CP, out_int32=True)
+    rec = ChunkRecords(e, p0, su, sa_ch, src, pend, b_rec, sid, G=G,
+                       g_last=G, W=W, n_chunks=n_ch, n_cols=n_cols,
+                       pack_bits=0)
     nnz_row = torch.zeros(m + 1, dtype=I32, device=dev)
     n_wide_dev = torch.sum(q_sorted > W, dtype=I32)
     fused = 3 * n_ch * CP <= cfg.fused_staging_budget
@@ -781,10 +785,8 @@ def _stream_pipeline(cfg, G: int, W: int, n_cols: int, ai, ax, ad,
         # (descending sort); only those chunks must stage for the ladder
         has_wide = c * G < rw_max
         do_stage = emit_to is not None or fused or has_wide
-        nnz_row, stg = stream_chunk(
-            rows_sorted, e, q_sorted, el, ops_sorted, p0, su, sa_ch, pend,
-            b_rec, nnz_row, c * CP, sid[c], G=G, W=W, n_cols=n_cols,
-            pack_bits=0, stage=do_stage, window=CP)
+        nnz_row, stg = stream_chunk(rec, c, rows_sorted, q_sorted, el,
+                                    ops_sorted, nnz_row, stage=do_stage)
         if emit_to is not None and not has_wide:
             cols_e, vals_e = stream_emit(rows_sorted, *stg, offs_e, cols_e,
                                          vals_e, min_rid=n_wide_dev)
@@ -815,7 +817,6 @@ def _stream_pipeline(cfg, G: int, W: int, n_cols: int, ai, ax, ad,
                 rows_sorted, rid_in, wcol.contiguous(), wval.contiguous(),
                 wcnt, in_map, final, nnz_row, F=spec["F"],
                 W_in=spec["W_buf_in"], n_cols=n_cols, count=True,
-                sort_impl=cfg.stream_sort_impl,
                 compact_impl=cfg.stream_compact_impl)
             if spec["W_buf_out"] < col_c.shape[1]:
                 col_c = col_c[:, : spec["W_buf_out"]]
@@ -832,32 +833,24 @@ def _stream_pipeline(cfg, G: int, W: int, n_cols: int, ai, ax, ad,
             rid_in, wcol, wval, wcnt = rid_out, col_c, val_c, counts
     if emit_to is not None:
         return nnz_row, cols_e, vals_e
-    state = dict(e=e, p0=p0, su=su, sa_ch=sa_ch, pend=pend, b_rec=b_rec,
-                 sid=sid, n_wide_dev=n_wide_dev)
-    return nnz_row, rows_sorted, q_sorted, staged, level_out, state
+    return nnz_row, rows_sorted, staged, level_out, rec, n_wide_dev
 
 
-def _emit_pipeline(cfg, G: int, W: int, n_cols: int, pipe, offs, c_cols,
-                   c_vals):
+def _emit_pipeline(pipe, offs, c_cols, c_vals):
     """Emission pass for one _stream_pipeline result: staged chunks
     scatter their compacted contained rows (stream_emit); unstaged chunks
     (two-phase staging) re-expand straight into C (stream_chunk_numeric:
     per-chunk transients only); retained ladder levels emit their final
     rows."""
-    _, rows_sorted, _, staged, level_out, st = pipe
-    CP = G * W
+    _, rows_sorted, staged, level_out, rec, n_wide = pipe
     for c, stg in enumerate(staged):
         if stg is not None:
             c_cols, c_vals = stream_emit(rows_sorted, *stg, offs, c_cols,
-                                         c_vals, min_rid=st["n_wide_dev"])
+                                         c_vals, min_rid=n_wide)
         else:
             c_cols, c_vals, _ = stream_chunk_numeric(
-                rows_sorted, st["e"], st["p0"], st["su"], st["sa_ch"],
-                st["pend"], st["b_rec"], offs, c_cols, c_vals, c * CP,
-                st["sid"][c], st["n_wide_dev"], G=G, W=W, n_cols=n_cols,
-                pack_bits=0, stage_wide=False, window=CP,
-                sort_impl=cfg.stream_sort_impl,
-                compact_impl=cfg.stream_compact_impl)
+                rec, c, rows_sorted, offs, c_cols, c_vals, n_wide,
+                stage_wide=False)
     for rid_b, col_c, val_c, fcnt in level_out:
         c_cols, c_vals = stream_emit(rows_sorted, rid_b, col_c, val_c, fcnt,
                                      offs, c_cols, c_vals)
@@ -865,8 +858,7 @@ def _emit_pipeline(cfg, G: int, W: int, n_cols: int, pipe, offs, c_cols,
 
 
 def _ksplit_merge(g_c, g_v, spl_tgt, nnz_row, *, n_split: int, Wm: int,
-                  n_cols: int, sort_impl: str = "auto",
-                  compact_impl: str = "sort"):
+                  n_cols: int, compact_impl: str = "sort"):
     """Merge the gathered k-split partial rows (D, n_split, PM) with ONE
     sort and contract (all of a row's part-rows across all shards land in
     its Wm-wide merge row); the owner takes the counts (``spl_tgt``: the
@@ -881,7 +873,7 @@ def _ksplit_merge(g_c, g_v, spl_tgt, nnz_row, *, n_split: int, Wm: int,
                                        device=mc.device)], dim=1)
         mv = torch.cat([mv, torch.zeros((n_split, pad), dtype=mv.dtype,
                                         device=mv.device)], dim=1)
-    col_s, val_s = _sort_cols(mc.contiguous(), mv.contiguous(), sort_impl)
+    col_s, val_s = _sort_cols(mc.contiguous(), mv.contiguous())
     rid_bm = torch.arange(n_split, dtype=I32,
                           device=mc.device)[:, None].expand(n_split, Wm)
     last, run_sum = stream_contract(rid_bm, col_s, val_s, n_cols)
@@ -982,7 +974,6 @@ class _ShardBody:
             nnz_row, merged = _ksplit_merge(
                 g_c, g_v, st["spl_tgt"], nnz_row, n_split=self.ks["n_split"],
                 Wm=self.ks["Wm"], n_cols=self.n_cols,
-                sort_impl=self.cfg.stream_sort_impl,
                 compact_impl=self.cfg.stream_compact_impl)
         dev = nnz_row.device
         m_loc, out_cap = self.m_loc, self.out_cap
@@ -991,9 +982,7 @@ class _ShardBody:
         c_cols = torch.zeros(out_cap + 1, dtype=I32, device=dev)
         c_vals = torch.zeros(out_cap + 1, dtype=self.val_dtype, device=dev)
         for pipe in pipes:
-            c_cols, c_vals = _emit_pipeline(self.cfg, self.G, self.W,
-                                            self.n_cols, pipe, offs, c_cols,
-                                            c_vals)
+            c_cols, c_vals = _emit_pipeline(pipe, offs, c_cols, c_vals)
         if merged is not None:
             col_m, val_m, cnt_m = merged
             rid_e = st["spl_emit"][:, None].expand(col_m.shape)

@@ -7,7 +7,7 @@ Bench config 2 (``make_powerlaw(131072, seed=5)``, A·A, float32).
 ``split`` times, in the script's order and under its labels: the
 complete ``spgemm`` under each of the script's three sort names (the
 default ``auto``, ``bitonic`` and ``bitonic_pallas``; every name runs
-K2 on the card, ``ops/stream.py`` ``_resolve_sort``), ``plan_spgemm``
+the one K2 sort on the card), ``plan_spgemm``
 (the layout line after it), then on chunk ``min(1, n_chunks - 1)``: the
 expand alone, the expand and its sort, the full chunk as the counting
 loop calls it (a contained chunk of a fused plan stages raw), then
@@ -26,9 +26,9 @@ import torch
 
 from ..ops.device_csr import device_put_csr
 from ..ops.spgemm import plan_spgemm, spgemm
-from ..ops.stream import stream_gather_emit
+from ..ops.stream import chunk_expand, stream_gather_emit
 from ..utils.config import SpgemmConfig
-from .split import chunk, chunk_operands, expand, expand_sort, layout_line, \
+from .split import chunk, chunk_operands, expand_sort, layout_line, \
     print_rows, start, timed
 
 VARIANTS = (("xla/sort", "auto"), ("bitonic/sort", "bitonic"),
@@ -53,11 +53,10 @@ def split(A, cfg=None, reps: int = 5):
         raise ValueError("ab_stream.split needs a fused stream plan "
                          "(bench config 2)")
     c = min(1, ss.layout.n_chunks - 1)
-    ops = chunk_operands(plan)
-    rows.append(timed(LABELS[4], lambda: expand(plan, ops, c), reps))
-    rows.append(timed(LABELS[5], lambda: expand_sort(
-        plan, ops, c, cfg.stream_sort_impl), reps))
-    rows.append(timed(LABELS[6], lambda: chunk(plan, ops, c), reps))
+    rec = chunk_operands(plan)
+    rows.append(timed(LABELS[4], lambda: chunk_expand(rec, c), reps))
+    rows.append(timed(LABELS[5], lambda: expand_sort(rec, c), reps))
+    rows.append(timed(LABELS[6], lambda: chunk(plan, rec, c), reps))
     flat = ss.staged_cat()
     rows.append(timed(LABELS[7], lambda: stream_gather_emit(
         ss.rows_sorted, ss.e, plan.row_offsets, *flat, W=ss.layout.W,

@@ -69,18 +69,16 @@ def stream_plan(A, B=None, **cfg):
     return plan
 
 
-def expand_args(plan, c: int, ops=None):
+def expand_args(plan, c: int, rec=None):
     """The positional arguments of ``stream_expand``/``expand_plain`` for
-    chunk c of the plan's stream, as the numeric pass gives them (``ops``:
-    ``_stream_operands``' record channel and B operand, the plan's own by
-    default)."""
-    ss = plan.stream
-    lo = ss.layout
-    sa, b = ops or _stream_operands(plan.A, plan.B, ss.src, ss.sa)
-    CP = lo.G * lo.W
-    Gc = lo.g_last if c == lo.n_chunks - 1 else lo.G
-    return (ss.e, ss.p0, ss.su, sa, ss.pend, b, c * CP, ss.sid_bases[c],
-            Gc, lo.W, plan.shape[1], CP)
+    chunk c of the plan's stream, as ``stream.chunk_expand`` gives them
+    (``rec``: the chunk records with their operands bound, the plan's own
+    by default)."""
+    if rec is None:
+        rec = _stream_operands(plan.A, plan.B, plan.stream.rec)
+    CP = rec.G * rec.W
+    return (rec.e, rec.p0, rec.su, rec.sa, rec.pend, rec.b, c * CP,
+            rec.sid_bases[c], rec.rows(c), rec.W, rec.n_cols, CP)
 
 
 def bits(x: torch.Tensor) -> torch.Tensor:

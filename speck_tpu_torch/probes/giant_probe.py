@@ -11,13 +11,11 @@ expand alone; the expand and its sort under each of the script's sort
 names (``xla``, ``blocked``, ``auto``); the full chunk (expand, sort, K1
 contract, count, compaction) as the counting loop calls it, under
 ``xla`` and ``auto``; the merge-level plans (``plan_levels``), with the
-finish classes that the counting pass recorded. Every sort name runs the
-same stable sort, K2 on the card (``ops/stream.py``
-``_resolve_sort``): the probe keeps the script's lines and prints
-``SORT_RESOLVED``, the names as the reference would resolve them, beside
-the K2 launches. Each row is the host clock around the stage (median and
-min of ``--reps`` after one warm call, ending in a synchronize) with the
-card's name and power limit.
+finish classes that the counting pass recorded. Every sort name is the
+one stable sort, K2 on the card: the probe keeps the script's lines, each
+a run of that sort, and prints the K2 launches. Each row is the host
+clock around the stage (median and min of ``--reps`` after one warm
+call, ending in a synchronize) with the card's name and power limit.
 """
 
 from __future__ import annotations
@@ -26,12 +24,12 @@ import argparse
 
 import torch
 
-from ..ops import bitonic, stream
+from ..ops import bitonic
 from ..ops.device_csr import device_put_csr
 from ..ops.spgemm import plan_spgemm
-from ..ops.stream import plan_levels
+from ..ops.stream import chunk_expand, plan_levels
 from ..utils.config import SpgemmConfig
-from .split import chunk, chunk_operands, expand, expand_sort, layout_line, \
+from .split import chunk, chunk_operands, expand_sort, layout_line, \
     print_rows, start, timed
 
 SORTS = ("xla", "blocked", "auto")
@@ -50,13 +48,12 @@ def split(A, cfg=None, reps: int = 5, c: int = 0):
     rows = [timed(LABELS[0], lambda: plan_spgemm(A, A, cfg), reps)]
     plan = rows[0][3]
     ss = plan.stream
-    ops = chunk_operands(plan)
-    rows.append(timed(LABELS[1], lambda: expand(plan, ops, c), reps))
-    for label, s in zip(LABELS[2:5], SORTS):
-        rows.append(timed(label, lambda s=s: expand_sort(plan, ops, c, s),
-                          reps))
-    for label, s in zip(LABELS[5:7], CHUNK_SORTS):
-        rows.append(timed(label, lambda s=s: chunk(plan, ops, c, s), reps))
+    rec = chunk_operands(plan)
+    rows.append(timed(LABELS[1], lambda: chunk_expand(rec, c), reps))
+    for label in LABELS[2:5]:
+        rows.append(timed(label, lambda: expand_sort(rec, c), reps))
+    for label in LABELS[5:7]:
+        rows.append(timed(label, lambda: chunk(plan, rec, c), reps))
     classes = [(f["R2"], f["W2"])
                for f in (ss.finish or {}).get("classes") or []]
     rows.append(timed(LABELS[7], lambda: (plan_levels(
@@ -76,7 +73,6 @@ def main(argv=None, device=None) -> None:
     A = device_put_csr(h, torch.float32, device=dev)
     print(f"# giant_probe: m={h.rows} nnz={h.nnz}, A*A float32, fresh "
           f"process [{where}]", flush=True)
-    stream.SORT_RESOLVED.clear()
     k2_before = bitonic.LAUNCHES
     rows = split(A, reps=args.reps)
     print_rows(rows, where)
@@ -84,9 +80,9 @@ def main(argv=None, device=None) -> None:
     lplans, classes = rows[-1][3]
     print(f"# {layout_line(plan)}; nnz={plan.nnz}", flush=True)
     print(f"# n lplans={len(lplans)}, finish classes={classes}", flush=True)
-    print(f"# SORT_RESOLVED {dict(stream.SORT_RESOLVED)}: every name ran "
-          f"K2 (row_sort), {bitonic.LAUNCHES - k2_before} launches in the "
-          f"split [{where}]", flush=True)
+    print(f"# every sort name ran K2 (row_sort), "
+          f"{bitonic.LAUNCHES - k2_before} launches in the split [{where}]",
+          flush=True)
 
 
 if __name__ == "__main__":

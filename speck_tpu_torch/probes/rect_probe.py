@@ -64,9 +64,9 @@ def split(A, B, cfg=None, reps: int = 5):
     plan = rows[-1][3]
     ss = plan.stream
     rows.append(timed(LABELS[2], lambda: chunk_operands(plan), reps))
-    ops = rows[-1][3]
+    rec = rows[-1][3]
     rows.append(timed(LABELS[3], lambda: [
-        chunk(plan, ops, c) for c in range(ss.layout.n_chunks)], reps))
+        chunk(plan, rec, c) for c in range(ss.layout.n_chunks)], reps))
     m = plan.shape[0]
     a32 = record_bits(A)
     n_srec = len(SREC_VARIANTS)
@@ -75,7 +75,7 @@ def split(A, B, cfg=None, reps: int = 5):
         rows.append(timed(label, lambda comp=comp, fn=fn: fn(
             A.indptr, A.indices, a32, B.indptr[:-1],
             B.indptr[1:] - B.indptr[:-1], ss.rows_sorted, ss.e, ss.q_sorted,
-            m=m, nl=ss.p0.shape[0], compact=comp), reps))
+            m=m, nl=ss.rec.p0.shape[0], compact=comp), reps))
     rows.append(timed(LABELS[-1], plan.execute, reps))
     return rows
 
@@ -97,7 +97,7 @@ def main(argv=None, device=None) -> None:
     plan = rows[1][3]
     lo = plan.stream.layout
     print(f"# {layout_line(plan)}; counting chunks {lo.n_chunks} x "
-          f"({lo.G}, {lo.W}); build_srec nl={plan.stream.p0.shape[0]}; "
+          f"({lo.G}, {lo.W}); build_srec nl={plan.stream.rec.p0.shape[0]}; "
           f"nnz={plan.nnz}", flush=True)
 
 

@@ -1,10 +1,11 @@
 """What the stage probes share: the row of a stage and its line, the
 probe's device, and the counting calls of a plan: a chunk as
 ``ops.spgemm.plan_spgemm``'s counting loop runs it (``count_chunk``, on
-``_stream_operands``), and its expand and sort stages with the arguments
-``stream_chunk`` gives them, so that a probe times the calls the plan
-makes. The planning calls are ``ops.spgemm``'s own (``lite_gate``,
-``host_gates``, ``plan_stream``, ``host_layout``, ``stream_records``).
+the plan's records bound by ``_stream_operands``), and its expand and
+sort stages as ``stream.chunk_sorted`` runs them, so that a probe times
+the calls the plan makes. The planning calls are ``ops.spgemm``'s own
+(``lite_gate``, ``host_gates``, ``plan_stream``, ``host_layout``,
+``stream_records``).
 
 A row is (label, median ms, min ms, outputs): the host clock around the
 stage (``timing.host_ms``: one warm call, then the repetitions, each
@@ -17,8 +18,8 @@ from typing import Any, Tuple
 
 import torch
 
-from ..ops.spgemm import _knobs, _stream_operands, count_chunk
-from ..ops.stream import _expand_chunk, _sort_rect
+from ..ops.spgemm import _stream_operands, count_chunk
+from ..ops.stream import _sort_rect, chunk_expand
 from ..utils.device import resolve_device
 from .timing import card, host_ms
 
@@ -63,32 +64,15 @@ def layout_line(plan) -> str:
 
 
 def chunk_operands(plan):
-    """The expand's record channel and B operand, as the counting loop
-    takes them."""
-    ss = plan.stream
-    return _stream_operands(plan.A, plan.B, ss.src, ss.sa)
+    """The plan's chunk records with the expand's operands bound, as the
+    counting loop takes them."""
+    return _stream_operands(plan.A, plan.B, plan.stream.rec)
 
 
-def _chunk_shape(plan, c: int):
-    lo = plan.stream.layout
-    return (lo.g_last if c == lo.n_chunks - 1 else lo.G), lo.W, lo.G * lo.W
-
-
-def expand(plan, ops, c: int):
-    """Chunk c's expand stage: (rid, col, val)."""
-    ss = plan.stream
-    Gc, W, CP = _chunk_shape(plan, c)
-    sa_ch, b_rec = ops
-    return _expand_chunk(ss.e, ss.p0, ss.su, sa_ch, ss.pend, b_rec, c * CP,
-                         ss.sid_bases[c], Gc, W, plan.shape[1], CP,
-                         ss.rowend, plan.cfg.stream_expand_impl)
-
-
-def expand_sort(plan, ops, c: int, sort_impl: str):
-    """Chunk c's expand and its (rid, col) sort (K2 whatever the name)."""
-    rid, col, val = expand(plan, ops, c)
-    return _sort_rect(rid, col, val, plan.shape[1], plan.stream.pack_bits,
-                      sort_impl)
+def expand_sort(rec, c: int):
+    """Chunk c's expand and its (rid, col) sort (K2)."""
+    rid, col, val = chunk_expand(rec, c)
+    return _sort_rect(rid, col, val, rec.n_cols, rec.pack_bits)
 
 
 def chunk_is_raw(plan, c: int) -> bool:
@@ -98,12 +82,10 @@ def chunk_is_raw(plan, c: int) -> bool:
     return bool(ss.fused and c * ss.layout.G >= ss.layout.r_wide)
 
 
-def chunk(plan, ops, c: int, sort_impl=None):
+def chunk(plan, rec, c: int):
     """Chunk c as the counting loop runs it (``ops.spgemm.count_chunk``),
     on counts of zero: (nnz_row, staged)."""
-    knobs = _knobs(plan.cfg)
-    if sort_impl is not None:
-        knobs["sort_impl"] = sort_impl
     nnz_row = torch.zeros(plan.shape[0] + 1, dtype=I32,
                           device=plan.stream.e.device)
-    return count_chunk(plan.stream, ops, nnz_row, c, plan.shape[1], knobs)
+    return count_chunk(plan.stream, rec, nnz_row, c,
+                       plan.cfg.stream_compact_impl)

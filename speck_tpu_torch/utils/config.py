@@ -2,9 +2,11 @@
 
 ``SpgemmConfig`` has the same fields and defaults as ``speck_tpu``'s, so
 one configuration drives both packages. The port runs every route and
-every value of the A/B knobs that ``speck_tpu`` names;
-``check_knobs`` (ops/spgemm.py) raises ValueError for a value it does not
-name.
+takes every value of the A/B knobs that ``speck_tpu`` names: every
+``stream_expand_impl`` name runs the one expand (K4 on the card) and every
+``stream_sort_impl`` name the one row sort (K2), the reference's forms of
+one function each; ``check_knobs`` (ops/spgemm.py) raises ValueError for a
+value it does not name.
 """
 
 from __future__ import annotations
@@ -100,6 +102,7 @@ class SpgemmConfig:
     stream_level_factor: int = 4
     stream_max_width: int = 1 << 24
     stream_pallas_contract: bool = False
+    # every name runs the one row sort (K2) and the one expand (K4)
     stream_sort_impl: str = "auto"
     stream_expand_impl: str = "fill"
     stream_compact_impl: str = "sort"

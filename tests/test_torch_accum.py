@@ -108,9 +108,9 @@ def _accum_plan_equal(sj, stt):
     assert stt.n_accum == sj.n_accum > 0
     _eq(stt.abase, sj.abase, "abase")
     _eq(stt.cmin_s, sj.cmin_s, "cmin_s")
-    _eq(stt.e2, sj.e2, "e2")
-    for f in ("p02", "su2", "pend2", "src2"):
-        _eq(getattr(stt, f), getattr(sj, f), f)
+    _eq(stt.rec2.e, sj.e2, "e2")
+    for f in ("p0", "su", "pend", "src"):
+        _eq(getattr(stt.rec2, f), getattr(sj, f + "2"), f + "2")
     pj_, pt_ = sj.accum["parts"], stt.accum["parts"]
     assert len(pt_) == len(pj_)
     for a, b in zip(pj_, pt_):
@@ -201,7 +201,7 @@ def test_accum_with_wide_and_direct_rows():
     fused and two-phase. C is held to the oracle: on this input the
     reference drops rows of its last, shorter chunk, whose record window
     it sizes by that chunk's own rows over uncompacted records; the port
-    sizes it by the full chunk (stream._expand_chunk)."""
+    sizes it by the full chunk (stream.chunk_expand)."""
     rs = np.random.RandomState(21)
     g, kw = _giant_span()
     lil = g.tolil()
@@ -225,8 +225,10 @@ def test_accum_with_wide_and_direct_rows():
         assert ptp.groups and ptp.stream.fused == fused
         assert ptp.stream.layout.g_last < ptp.stream.layout.G
         _accum_plan_equal(pj.stream, ptp.stream)
-        for f in ("rows_sorted", "e", "p0", "su", "src", "pend"):
+        for f in ("rows_sorted", "e"):
             _eq(getattr(ptp.stream, f), getattr(pj.stream, f), f)
+        for f in ("p0", "su", "src", "pend"):
+            _eq(getattr(ptp.stream.rec, f), getattr(pj.stream, f), f)
         assert ([g.valids.tolist() for g in ptp.groups]
                 == [g.valids.tolist() for g in pj.groups])
         assert ([g.starts.tolist() for g in ptp.groups]

@@ -1273,9 +1273,10 @@ def _k4_chunk(case, value, device):
     lo = plan.stream.layout
     assert (lo.G, lo.W) == (G, W)
     n = lo.n_chunks
-    p0 = plan.stream.p0.cpu().numpy()
-    pend = plan.stream.pend.cpu().numpy()
-    sid = plan.stream.sid_bases.cpu().numpy()
+    rec = plan.stream.rec
+    p0 = rec.p0.cpu().numpy()
+    pend = rec.pend.cpu().numpy()
+    sid = rec.sid_bases.cpu().numpy()
     e = plan.stream.e.cpu().numpy()
     nnz_a, CP = p0.shape[0], G * W
     if which == "inside":

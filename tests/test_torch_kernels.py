@@ -162,8 +162,9 @@ def test_expand_plain_unpacked_float32_equals_packed():
     bit for bit, on every chunk of a plan: K4's unpacked float32 build and
     its packed one compute one function."""
     plan = _expand_plan()
-    unpacked = (plan.stream.src,
-                expand.Unpacked(plan.A.data, plan.B.indices, plan.B.data))
+    rec = plan.stream.rec
+    unpacked = rec._replace(sa=rec.src, b=expand.Unpacked(
+        plan.A.data, plan.B.indices, plan.B.data))
     for c in range(plan.stream.layout.n_chunks):
         got = expand.expand_plain(*expand_args(plan, c, unpacked))
         assert planes_equal(got, expand.expand_plain(*expand_args(plan, c)))

@@ -217,8 +217,8 @@ def test_lbc_split_stream_parts_equal_the_plans(runs, giant):
     assert layout == plan.stream.layout
     srec = by["build_srec, searchsorted"]
     ss = plan.stream
-    assert_tuple_equal(srec, (ss.p0, ss.su, ss.sa, ss.src, ss.pend,
-                              ss.sid_bases))
+    r = ss.rec
+    assert_tuple_equal(srec, (r.p0, r.su, r.sa, r.src, r.pend, r.sid_bases))
 
 
 # ---- (c) the outputs against the port's own calls -------------------------
@@ -258,19 +258,20 @@ def test_rect_probe_chunks_and_records_equal_the_plans(runs, banded):
     by = {r[0]: r[3] for r in rows}
     plan = by["layout"]
     ss = plan.stream
+    r = ss.rec
     assert ss.layout.n_chunks > 1
     chunks = by["counting chunks"]
     _chunks_equal_the_plans(plan, enumerate(chunks),
                             products(pt.device_get_csr(banded)))
     assert_tuple_equal(by["build_srec (compact=True, pack=False)"],
-                       (ss.p0, ss.su, ss.sa, ss.src, ss.pend))
+                       (r.p0, r.su, r.sa, r.src, r.pend))
     unpacked = build_srec(
         banded.indptr, banded.indices, banded.data.view(torch.int32),
         P.indptr[:-1], P.indptr[1:] - P.indptr[:-1], ss.rows_sorted, ss.e,
-        ss.q_sorted, m=plan.shape[0], nl=ss.p0.shape[0], compact=False)
+        ss.q_sorted, m=plan.shape[0], nl=r.p0.shape[0], compact=False)
     assert_tuple_equal(by["build_srec (compact=False, pack=True)"], unpacked)
     assert_tuple_equal(by["build_srec (compact=True, pack=True)"],
-                       (ss.p0, ss.su, ss.sa, ss.src, ss.pend))
+                       (r.p0, r.su, r.sa, r.src, r.pend))
     assert_tuple_equal(by["build_srec (compact=False, pack=False)"], unpacked)
     assert_csr_equal(by["execute (staged gather emit)"],
                      by["spgemm complete"])

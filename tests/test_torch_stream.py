@@ -3,10 +3,11 @@
 Both packages get the same matrices (made from a seed with numpy, carried
 across with HostCSR.from_host) and the same configuration. Held equal
 element by element: the AnalysisResult fields, the planning pack, the
-StreamLayout fields and the planning arrays (rows_sorted, e, el, p0, su,
-sa, src, pend, sid_bases); per chunk, nnz_row and the staged (rid, col,
-counts), and the expand's (rid, col, val) bit for bit (float32 through the
-packed record, float64 and bfloat16 through the unpacked operands).
+StreamLayout fields and the planning arrays (rows_sorted, e, el, and the
+chunk records' p0, su, sa, src, pend, sid_bases); per chunk, nnz_row and
+the staged (rid, col, counts), and the expand's (rid, col, val) bit for
+bit (float32 through the packed record, float64 and bfloat16 through the
+unpacked operands).
 Staged values at rtol 1e-5 (the chunk sort may order duplicate products
 differently, which changes only the fp32 summation order)."""
 
@@ -113,10 +114,13 @@ def test_plan_layout_and_arrays_equal(case):
     np.testing.assert_array_equal(lt.wide_segs, lj.wide_segs)
     if case == "wide":
         assert lt.n_wide > 0
-    for f in ("rows_sorted", "e", "el", "ops_sorted", "p0", "su", "sa",
-              "src", "pend", "sid_bases"):
+    for f in ("rows_sorted", "e", "el", "ops_sorted"):
         np.testing.assert_array_equal(
             getattr(ptp.stream, f).numpy(),
+            np.asarray(getattr(pj.stream, f)), err_msg=f)
+    for f in ("p0", "su", "sa", "src", "pend", "sid_bases"):
+        np.testing.assert_array_equal(
+            getattr(ptp.stream.rec, f).numpy(),
             np.asarray(getattr(pj.stream, f)), err_msg=f)
     assert ptp.stream.pack_bits == pj.stream.pack_bits
     assert ptp.nnz == pj.nnz
@@ -133,7 +137,7 @@ def test_stream_chunks_equal(case):
     m, n = h.rows, h.cols
     CP = lo.G * lo.W
     bj = j_pack(Aj.indices, Aj.data)
-    bt = t_pack(At.indices, At.data)
+    rec = stt.rec._replace(b=t_pack(At.indices, At.data))
     for c in range(lo.n_chunks):
         Gc = lo.g_last if c == lo.n_chunks - 1 else lo.G
         nnz_j, stg_j = jstream.stream_chunk(
@@ -143,11 +147,8 @@ def test_stream_chunks_equal(case):
             jnp.int32(c * CP), sj.rid_bases[c], sj.sid_bases[c], G=Gc,
             W=lo.W, n_cols=n, pack_bits=sj.pack_bits, stage=True, f64=False)
         nnz_t, stg_t = tstream.stream_chunk(
-            stt.rows_sorted, stt.e, stt.q_sorted, stt.el, stt.ops_sorted,
-            stt.p0, stt.su, stt.sa, stt.pend, bt,
-            torch.zeros(m + 1, dtype=torch.int32), c * CP,
-            stt.sid_bases[c], G=Gc, W=lo.W, n_cols=n,
-            pack_bits=stt.pack_bits, stage=True)
+            rec, c, stt.rows_sorted, stt.q_sorted, stt.el, stt.ops_sorted,
+            torch.zeros(m + 1, dtype=torch.int32), stage=True)
         np.testing.assert_array_equal(nnz_t[:m].numpy(), np.asarray(nnz_j))
         rid_j, col_j, val_j, cnt_j = (np.asarray(x) for x in stg_j)
         counts = stg_t[3].numpy()
@@ -163,16 +164,17 @@ def test_stream_chunks_equal(case):
     ("powerlaw", "float32"), ("wide", "float32"), ("powerlaw", "float64"),
     ("wide", "bfloat16")])
 def test_expand_plain_equals_reference_expand(case, value):
-    """Every chunk's expand: ``expand.expand_plain``, and
-    ``stream._expand_chunk`` through the K4 wrapper (which takes it on the
-    CPU), equal the JAX package's ``_expand_chunk`` in rid, col and val,
-    bit for bit: float32 through the packed record, float64 (under
-    ``jax_enable_x64``) and bfloat16 through the unpacked operands (the
-    values rounded to bfloat16 once, on the host, for both)."""
+    """Every chunk's expand: ``expand.expand_plain``, the K4 wrapper
+    ``expand.stream_expand`` (which takes it on the CPU) and the chunk
+    step's ``stream.chunk_expand`` over the plan's bound records, equal
+    the JAX package's ``_expand_chunk`` in rid, col and val, bit for bit:
+    float32 through the packed record, float64 (under ``jax_enable_x64``)
+    and bfloat16 through the unpacked operands (the values rounded to
+    bfloat16 once, on the host, for both)."""
     import jax
 
     from speck_tpu.ops.stream import _expand_chunk
-    from speck_tpu_torch.ops.expand import expand_plain
+    from speck_tpu_torch.ops.expand import expand_plain, stream_expand
     from speck_tpu_torch.ops.spgemm import _stream_operands
 
     j_expand = jax.jit(_expand_chunk, static_argnames=("G", "W", "n_cols",
@@ -197,7 +199,7 @@ def test_expand_plain_equals_reference_expand(case, value):
         CP = lo.G * lo.W
         bj = (jnp.zeros((1, 2), jnp.int32) if f64
               else j_pack(Aj.indices, Aj.data))
-        sa_t, bt = _stream_operands(At, At, stt.src, stt.sa)
+        rec = _stream_operands(At, At, stt.rec)
         ints = {2: np.int16, 4: np.int32, 8: np.int64}
         for c in range(lo.n_chunks):
             Gc = lo.g_last if c == lo.n_chunks - 1 else lo.G
@@ -207,10 +209,10 @@ def test_expand_plain_equals_reference_expand(case, value):
                 sj.rid_bases[c], sj.sid_bases[c], G=Gc, W=lo.W, n_cols=n,
                 f64=f64)
             val_j = np.asarray(val_j)
-            args = (stt.e, stt.p0, stt.su, sa_t, stt.pend, bt, c * CP,
-                    stt.sid_bases[c], Gc, lo.W, n, CP)
-            for rid, col, val in (expand_plain(*args),
-                                  tstream._expand_chunk(*args)):
+            args = (rec.e, rec.p0, rec.su, rec.sa, rec.pend, rec.b, c * CP,
+                    rec.sid_bases[c], Gc, lo.W, n, CP)
+            for rid, col, val in (expand_plain(*args), stream_expand(*args),
+                                  tstream.chunk_expand(rec, c)):
                 np.testing.assert_array_equal(rid.numpy(), np.asarray(rid_j))
                 np.testing.assert_array_equal(col.numpy(), np.asarray(col_j))
                 assert val.dtype == getattr(torch, value)
